@@ -21,6 +21,11 @@ jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_threefry_partitionable", True)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped (with a reason) without one")
+
+
 @pytest.fixture(scope="session")
 def mesh8():
     from videotgb_tpu.parallel import create_mesh, MeshConfig
