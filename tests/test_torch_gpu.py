@@ -19,6 +19,8 @@ from videotgb_torch.ops.attention import (
     NEG_INF,
     dot_product_attention,
     flash_attention,
+    flash_backward_cuda,
+    flash_backward_reference,
     make_padding_bias,
 )
 from videotgb_torch.ops.correlation_pallas import (
@@ -27,6 +29,8 @@ from videotgb_torch.ops.correlation_pallas import (
     lookup_corr_pyramid_t_plain,
 )
 from videotgb_torch.ops.decode import DecodeConfig
+from videotgb_torch.training.recipes import E2ERecipe
+from videotgb_torch.training.trainer import Trainer, TrainerConfig
 
 BIAS_LAYOUTS = ["none", "shared", "per_batch", "padding", "per_row", "learned"]
 # bf16: output rounding (2^-8) and another f32 summation order; f32: the order
@@ -53,8 +57,19 @@ def _bias(layout, gen, b, h, sq, skv, dev):
         mask[:, 0] = 1
         return make_padding_bias(mask)
     shape = {"shared": (1, 1, sq, skv), "per_batch": (b, 1, sq, skv),
-             "per_row": (b, h, sq, skv), "learned": (1, h, sq, skv)}[layout]
+             "per_row": (b, h, sq, skv), "learned": (1, h, sq, skv),
+             "per_query": (b, 1, sq, 1)}[layout]
     return torch.randn(shape, generator=gen, device=dev)
+
+
+def _close_to_largest(got, want, tol, name=""):
+    """|got - want| <= tol * max|want|: bf16 gradients carry one rounding
+    of ds (to bf16) and of the output, each up to 2^-8 of an entry, summed
+    over a row in another order; f32 gradients differ by summation order."""
+    want = want.float()
+    bound = tol * float(want.abs().max())
+    err = float((got.float() - want).abs().max())
+    assert err <= bound, f"{name}: max |err| {err:.3e} > {bound:.3e}"
 
 
 @pytest.mark.gpu
@@ -117,17 +132,21 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
                                                                device=cuda), 1)
 
 
-@pytest.mark.gpu
-def test_tiny_pipeline_on_the_card_matches_the_cpu(cuda):
+def _tiny_f32():
     f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
     cfg = V.VideoTGBConfig.tiny()
     bc = cfg.blip2
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, tgb=dataclasses.replace(cfg.tgb, **f32),
         blip2=dataclasses.replace(
             bc, vit=dataclasses.replace(bc.vit, **f32),
             qformer=dataclasses.replace(bc.qformer, **f32),
             t5=dataclasses.replace(bc.t5, **f32)))
+
+
+@pytest.mark.gpu
+def test_tiny_pipeline_on_the_card_matches_the_cpu(cuda):
+    cfg = _tiny_f32()
     cpu = V.VideoTGB(cfg, device="cpu", seed=4)
     gpu = V.VideoTGB(cfg, device=cuda, seed=4)
     gpu.load_state_dict(cpu.state_dict())
@@ -151,3 +170,146 @@ def test_tiny_pipeline_on_the_card_matches_the_cpu(cuda):
     got = V.answer_phase_blip2(gpu, frames, batch, dcfg).cpu()
     want = V.answer_phase_blip2(cpu, frames, batch, dcfg)
     assert float((got == want).float().mean()) >= 0.75  # near-tie argmax
+
+
+BWD_LAYOUTS = BIAS_LAYOUTS + ["per_query"]
+
+
+def _strided(b, h, s, d, dtype, gen, dev):
+    # the (B, H, S, D) views of (B, S, H, D) projections the models pass
+    return torch.randn((b, s, h, d), generator=gen, device=dev).to(
+        dtype).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(cuda, layout, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    b, h, sq, skv, d = 2, 3, 70, 45, 88  # ragged, D not a power of two
+    q = _strided(b, h, sq, d, dtype, gen, cuda)
+    k, v = (_strided(b, h, skv, d, dtype, gen, cuda) for _ in range(2))
+    g = _strided(b, h, sq, d, dtype, gen, cuda)
+    bias = _bias(layout, gen, b, h, sq, skv, cuda)
+    before = kernels.LAUNCHES["flash_bwd"]
+    got = flash_backward_cuda(q, k, v, bias, g, d ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd"] == before + 1
+    want = flash_backward_reference(q, k, v, bias, g, d ** -0.5)
+    for name, a, e in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape, name
+        _close_to_largest(a, e, TOL[dtype], name)
+    if bias is None:
+        assert got[3] is None and want[3] is None
+        return
+    # dbias sums ds over the bias's broadcast dims, and that sum may cancel
+    # to nothing (a per-query bias shifts a whole softmax row: its gradient
+    # is 0), so its error is bounded by the sum of the |ds| it adds up
+    full = bias.expand(b, h, sq, skv).contiguous()
+    ds = flash_backward_reference(q, k, v, full, g, d ** -0.5)[3].abs()
+    for axis in range(4):
+        if bias.shape[axis] == 1:
+            ds = ds.sum(dim=axis, keepdim=True)
+    assert got[3].shape == bias.shape
+    err = float((got[3] - want[3]).abs().max())
+    assert err <= TOL[dtype] * float(ds.max()), f"dbias: {err:.3e}"
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernel_masked_row(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    q, k, v, g = (torch.randn((1, 2, 40, 64), generator=gen, device=cuda)
+                  for _ in range(4))
+    bias = torch.zeros((1, 1, 40, 40), device=cuda)
+    bias[..., 7, :] = NEG_INF
+    got = flash_backward_cuda(q, k, v, bias, g, 0.125, bias_needs_grad=False)
+    want = flash_backward_reference(q, k, v, bias, g, 0.125,
+                                    bias_needs_grad=False)
+    assert got[3] is None
+    for a, e in zip(got[:3], want[:3]):
+        assert torch.isfinite(a).all()
+        _close_to_largest(a, e, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias_needs_grad", [True, False])
+def test_flash_attention_gradients_through_the_kernels(cuda, bias_needs_grad):
+    """autograd through the flash Function (kernels A and C) against
+    autograd of the plain attention, with a bias that requires its gradient
+    (kernel C writes ds) and with a constant one."""
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    b, h, s, d = 2, 4, 150, 64
+    leaves = [_strided(b, h, s, d, torch.float32, gen, cuda).requires_grad_()
+              for _ in range(3)]
+    bias = torch.randn((1, h, s, s), generator=gen,
+                       device=cuda).requires_grad_(bias_needs_grad)
+    wrt = leaves + ([bias] if bias_needs_grad else [])
+    g = torch.randn((b, h, s, d), generator=gen, device=cuda)
+    kernels.reset_launches()
+    out = flash_attention(*leaves, bias)
+    got = torch.autograd.grad(out, wrt, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == 1
+    assert kernels.LAUNCHES["flash_bwd"] == 1
+    want = torch.autograd.grad(dot_product_attention(*leaves, bias), wrt, g)
+    assert len(got) == len(want)
+    for a, e in zip(got, want):
+        _close_to_largest(a, e, 1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_attention_long_sequence_backward_launches_the_kernel(cuda):
+    """Past the JAX kernel's 1024 limit the tiled kernel still runs."""
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    leaves = [torch.randn((1, 2, 1100, 16), generator=gen,
+                          device=cuda).requires_grad_() for _ in range(3)]
+    g = torch.randn((1, 2, 1100, 16), generator=gen, device=cuda)
+    kernels.reset_launches()
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, g)
+    assert kernels.LAUNCHES["flash_bwd"] == 1
+    want = torch.autograd.grad(dot_product_attention(*leaves), leaves, g)
+    for a, e in zip(got, want):
+        _close_to_largest(a, e, 1e-4)
+
+
+@pytest.mark.gpu
+def test_tiny_e2e_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three E2E (uniform selection) train steps of the tiny f32 model on
+    the card and on the CPU from the same weights: the same losses and
+    gradient norms (1e-4 relative: summation order), kernel C launched by
+    every T5 encoder layer (a 128-token question makes the encoder's
+    sequence 144, past the flash rule's 128), frozen parameters
+    unchanged."""
+    cfg = _tiny_f32()
+    cpu = V.VideoTGB(cfg, device="cpu", seed=5)
+    gpu = V.VideoTGB(cfg, device=cuda, seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(5)
+    img = cfg.blip2.vit.image_size
+    batch = {"frames": torch.randn((2, cfg.num_frames, img, img, 3),
+                                   generator=g),
+             "question_ids": torch.randint(4, 300, (2, 128), generator=g),
+             "question_mask": torch.ones((2, 128)),
+             "answer_ids": torch.randint(2, 300, (2, 8), generator=g)}
+    batch["question_mask"][1, 100:] = 0
+    recipe = E2ERecipe(selection="uniform")
+    runs = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if not recipe.filter_fn(n)}
+        trainer = Trainer(TrainerConfig(max_steps=6, lr=1e-3),
+                          recipe.loss_fn, recipe.filter_fn)
+        state = trainer.init_state(model)
+        kernels.reset_launches()
+        metrics = []
+        for _ in range(3):
+            state, m = trainer.train_step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[name] = metrics
+        if name == "gpu":
+            torch.cuda.synchronize()
+            layers = cfg.blip2.t5.num_encoder_layers
+            assert kernels.LAUNCHES["flash_bwd"] == 3 * layers
+        assert all(torch.equal(p, frozen[n])
+                   for n, p in model.named_parameters() if n in frozen)
+    np.testing.assert_allclose(runs["gpu"], runs["cpu"], rtol=1e-4)

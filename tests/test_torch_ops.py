@@ -122,6 +122,83 @@ def test_flash_plain_keeps_bf16_casts():
     _close(got.float(), np.asarray(want, np.float32), atol=1e-2, rtol=1e-2)
 
 
+BWD_LAYOUTS = ["none", "scalar", "per_batch", "per_row", "learned",
+               "per_query"]
+
+
+def _bwd_bias(kind, rng, b, h, sq, skv):
+    """The bias layouts of tests/test_ops.py's backward-kernel test."""
+    if kind == "none":
+        return None
+    if kind == "scalar":
+        return np.asarray(JA.make_causal_bias(sq, skv))  # (1, 1, sq, skv)
+    if kind == "per_batch":
+        mask = rng.integers(0, 2, (b, skv)).astype(np.float32)
+        mask[:, 0] = 1
+        return np.asarray(JA.make_padding_bias(jnp.asarray(mask)))
+    shape = {"per_row": (b, h, sq, skv), "learned": (1, h, sq, skv),
+             "per_query": (b, 1, sq, 1)}[kind]
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("bias_needs_grad", [True, False])
+@pytest.mark.parametrize("kind", BWD_LAYOUTS)
+def test_flash_backward_plain_matches_pallas_interpret(kind, bias_needs_grad):
+    """Kernel C's plain version against the Pallas backward kernel run in
+    interpret mode, and against autograd of the plain forward: dq/dk/dv,
+    and the bias cotangent reduced to the bias's own shape (None where the
+    bias is declared a mask). f32, tolerance 2e-4."""
+    rng = np.random.default_rng(BWD_LAYOUTS.index(kind) + 40)
+    b, h, sq, skv, d = 2, 4, 24, 40, 16
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, skv, d)).astype(np.float32)
+            for _ in range(2))
+    g = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    bias = _bwd_bias(kind, rng, b, h, sq, skv)
+    scale = d ** -0.5
+    want = JA._flash_backward_pallas(
+        *(jnp.asarray(x) for x in (q, k, v)),
+        None if bias is None else jnp.asarray(bias), jnp.asarray(g), scale,
+        interpret=True, bias_needs_grad=bias_needs_grad)
+    got = TA.flash_backward_reference(
+        _t(q), _t(k), _t(v), None if bias is None else _t(bias), _t(g), scale,
+        bias_needs_grad=bias_needs_grad)
+    for name, a, e in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if e is None:
+            assert a is None, name
+            continue
+        assert tuple(a.shape) == e.shape, name
+        _close(a, e, err_msg=name, **TOL)
+
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    if bias is not None:
+        leaves.append(_t(bias).requires_grad_())
+    out = TA.dot_product_attention(*leaves[:3], leaves[3] if bias is not None
+                                   else None, scale)
+    grads = torch.autograd.grad(out, leaves, _t(g))
+    for name, a, e in zip(("dq", "dk", "dv", "dbias"), got, grads):
+        if a is not None:
+            _close(a, e.numpy(), err_msg=name, **TOL)
+
+
+def test_flash_backward_plain_fully_masked_row():
+    """A row whose keys all carry NEG_INF: finite gradients, the plain
+    softmax's (uniform average) gradients."""
+    rng = np.random.default_rng(47)
+    b, h, s, d = 1, 2, 12, 8
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)) for _ in range(4))
+    bias = torch.zeros((b, 1, s, s))
+    bias[:, :, 5, :] = TA.NEG_INF
+    got = TA.flash_backward_reference(q, k, v, bias, g, d ** -0.5,
+                                      bias_needs_grad=False)
+    assert all(torch.isfinite(x).all() for x in got[:3])
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = TA.dot_product_attention(*leaves, bias, d ** -0.5)
+    for a, e in zip(got, torch.autograd.grad(out, leaves, g)):
+        _close(a, e)
+
+
 @pytest.mark.parametrize("s_q,s_kv", [(5, 5), (1, 7), (3, 9)])
 def test_bias_builders_match_jax(s_q, s_kv):
     mask = np.array([[1, 1, 0, 1, 0, 1, 1, 0, 1][:s_kv]], np.float32)

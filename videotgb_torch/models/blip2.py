@@ -1,18 +1,26 @@
 """BLIP2-Flan-T5: ViT-g -> Q-Former -> language projection -> T5
 (counterpart of ``videotgb_tpu/models/blip2.py``), with the reserved
-``temporal_projection`` kept for checkpoint-shape parity."""
+``temporal_projection`` kept for checkpoint-shape parity.
+
+  encode_frames   frames (N, H, W, 3) -> projected visual tokens (N, Q, d)
+  encoder_inputs  visual tokens + question embeds -> (embeds, mask) for T5
+  forward         the training loss pass: seq2seq CE, pad labels ignored
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from videotgb_torch.models.common import Dense, _fill_normal, _param
 from videotgb_torch.models.qformer import QFormerConfig, QFormerModel
 from videotgb_torch.models.t5 import T5Config, T5Model
 from videotgb_torch.models.vit import ViTConfig, ViTModel
+
+IGNORE_INDEX = -100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,10 +75,59 @@ class Blip2Model(nn.Module):
                                           *query_out.shape[1:]).mean(dim=1)
         return self.language_projection(query_out)
 
-    def encoder_inputs(self, visual_tokens, question_ids, question_mask):
-        """[visual | question] embeddings and their mask for the T5 encoder."""
+    def encoder_inputs(self, visual_tokens, question_ids, question_mask,
+                       visual_valid=None):
+        """[visual | question] embeddings and their mask for the T5 encoder.
+        ``visual_valid`` (B,) 0 marks a text-only row: its visual prefix is
+        masked out of attention, the shape stays."""
         text = self.language_model.embed(question_ids)
         embeds = torch.cat([visual_tokens.to(text.dtype), text], dim=1)
         vis_mask = torch.ones(visual_tokens.shape[:2], dtype=question_mask.dtype,
                               device=question_mask.device)
+        if visual_valid is not None:
+            vis_mask = vis_mask * visual_valid[:, None].to(vis_mask.dtype)
         return embeds, torch.cat([vis_mask, question_mask], dim=1)
+
+    def forward(self, pixel_values, question_ids, question_mask, answer_ids,
+                mean_pool=False, visual_valid=None, qformer_input_ids=None,
+                qformer_attention_mask=None):
+        """Training loss pass over the selected frames (B, F, H, W, 3) ->
+        (scalar CE loss, logits (B, Ta, V) f32). ``mean_pool=False`` gives
+        the E2E/SF visual prefix of F*Q tokens, True the Q tokens mean-pooled
+        over the frames. Teacher forcing shifts the answers right behind
+        ``decoder_start_token_id``; pad labels are ignored."""
+        t5 = self.config.t5
+        b, f = pixel_values.shape[:2]
+        qf_kwargs = {}
+        if qformer_input_ids is not None:
+            qf_kwargs = dict(
+                qformer_input_ids=qformer_input_ids.repeat_interleave(f, 0),
+                qformer_attention_mask=(
+                    qformer_attention_mask.repeat_interleave(f, 0)
+                    if qformer_attention_mask is not None else None))
+        visual = self.encode_frames(
+            pixel_values.reshape(b * f, *pixel_values.shape[2:]),
+            mean_pool_groups=b if mean_pool else None, **qf_kwargs)
+        if not mean_pool:
+            visual = visual.reshape(b, f * visual.shape[1], -1)
+        embeds, mask = self.encoder_inputs(visual, question_ids, question_mask,
+                                           visual_valid)
+        start = torch.full((b, 1), t5.decoder_start_token_id,
+                           dtype=answer_ids.dtype, device=answer_ids.device)
+        decoder_input_ids = torch.cat([start, answer_ids[:, :-1]], dim=1)
+        logits = self.language_model(embeds, mask, decoder_input_ids)
+        labels = torch.where(answer_ids == t5.pad_token_id,
+                             torch.full_like(answer_ids, IGNORE_INDEX),
+                             answer_ids)
+        return cross_entropy_ignore(logits, labels), logits
+
+
+def cross_entropy_ignore(logits, labels):
+    """Mean CE over labels != -100 (torch CrossEntropyLoss semantics), in
+    f32; 0 when every label is ignored."""
+    valid = labels != IGNORE_INDEX
+    logp = F.log_softmax(logits.float(), dim=-1)
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (torch.where(valid, nll, torch.zeros_like(nll)).sum()
+            / valid.sum().clamp(min=1))

@@ -220,6 +220,17 @@ class MultiHeadAttention(nn.Module):
         return self.o(ctx), new_cache
 
 
+def dropout(x, rate, generator=None, deterministic=True):
+    """flax ``nn.Dropout``: keep each entry with probability 1 - rate and
+    scale it by 1 / (1 - rate), the mask drawn from ``generator``; the
+    identity when ``deterministic`` or ``rate == 0``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Mlp(nn.Module):
     """Transformer FFN with exact (erf) gelu, as the ViT, Q-Former and TGB
     use it."""

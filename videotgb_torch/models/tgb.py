@@ -27,6 +27,7 @@ from videotgb_torch.models.common import (
     PatchConv,
     _fill_normal,
     _param,
+    dropout,
 )
 from videotgb_torch.ops.attention import make_padding_bias
 from videotgb_torch.ops.rope import roformer_rope, roformer_sincos_table
@@ -45,6 +46,7 @@ class TGBConfig:
     type_vocab_size: int = 2
     patch_size: int = 16
     flow_size: int = 224
+    hidden_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -82,7 +84,7 @@ class TemporalOFEmbedding(nn.Module):
         _fill_normal(self.bos, 0.02, gen)
         _fill_normal(self.eos, 0.02, gen)
 
-    def forward(self, flow, flow_mask):
+    def forward(self, flow, flow_mask, deterministic=True, generator=None):
         """flow (B, L, H, W, 2), flow_mask (B, L+2) -> (B, L+2, hidden)."""
         cfg = self.config
         dt = cfg.dtype
@@ -96,7 +98,8 @@ class TemporalOFEmbedding(nn.Module):
         onehot = F.one_hot(ends, l + 2).to(dt)
         x = x * (1 - onehot)[..., None] + onehot[..., None] * self.eos.to(dt)
         pos = self.frame_pos_embed(torch.arange(l + 2, device=x.device))[None]
-        return self.ln(x + pos)
+        return dropout(self.ln(x + pos), cfg.hidden_dropout, generator,
+                       deterministic)
 
 
 class TGBLayer(nn.Module):
@@ -132,7 +135,10 @@ class TGBLayer(nn.Module):
 
 class TGBModel(nn.Module):
     """forward(flow, flow_mask, question_ids, question_mask, mode) ->
-    (sequence_output (B, L+2, hidden), span_logits (B, L, 2) f32)."""
+    (sequence_output (B, L+2, hidden), span_logits (B, L, 2) f32).
+    ``deterministic=False`` turns on the two dropout sites (after the flow
+    embedding and after the text LayerNorm), masks drawn from
+    ``generator``."""
 
     def __init__(self, cfg: TGBConfig, device=None):
         super().__init__()
@@ -149,14 +155,15 @@ class TGBModel(nn.Module):
         self.mrc_head = Dense(cfg.hidden_size, 2, **kw)
 
     def forward(self, flow, flow_mask, question_ids, question_mask=None,
-                mode="fusion"):
+                mode="fusion", deterministic=True, generator=None):
         cfg = self.config
         l = flow.shape[1]
         dev = flow.device
-        x = self.temporal_embeddings(flow, flow_mask)
+        x = self.temporal_embeddings(flow, flow_mask, deterministic, generator)
         tok = self.word_embeddings(question_ids)
         typ = self.token_type_embeddings(torch.zeros_like(question_ids))
-        text = self.text_ln(tok + typ)
+        text = dropout(self.text_ln(tok + typ), cfg.hidden_dropout, generator,
+                       deterministic)
 
         self_bias = make_padding_bias(flow_mask)
         text_bias = (make_padding_bias(question_mask)

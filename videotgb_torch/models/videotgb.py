@@ -134,21 +134,27 @@ class VideoTGB(nn.Module):
 
     # ----------------------------------------------------------------- TGB
     def span_logits(self, flow, flow_mask, question_ids, question_mask,
-                    mode="fusion"):
-        feat, logits = self.temporal_encoder(flow, flow_mask, question_ids,
-                                             question_mask, mode=mode)
+                    mode="fusion", deterministic=True, generator=None):
+        """``deterministic=False`` turns the TGB's dropout on, its masks
+        drawn from ``generator``."""
+        feat, logits = self.temporal_encoder(
+            flow, flow_mask, question_ids, question_mask, mode=mode,
+            deterministic=deterministic, generator=generator)
         return feat, logits[..., 0], logits[..., 1]
 
     # ------------------------------------------------------------- selection
     def select_frames(self, start_logits, end_logits, video_length,
-                      generator=None, noise=None):
-        """The inference rule of the BLIP2 family: exclusive span ends,
-        int(i*(F-1)/(L-1)) rescale."""
+                      generator=None, inclusive_end=True, rescale="minus1",
+                      noise=None):
+        """Gumbel spans -> (B, nframe) frame indices. ``inclusive_end`` and
+        ``rescale`` default to the training rule; the BLIP2 inference rule
+        is ``inclusive_end=False`` with "minus1" int(i*(F-1)/(L-1)), the
+        E2E "tgb" rule ``inclusive_end=False`` with "ratio" int(i/L*F)."""
         cfg = self.config
         return select_frames(start_logits, end_logits, video_length,
                              cfg.num_frames, cfg.nframe, generator, cfg.top_k,
-                             cfg.gumbel_tau, inclusive_end=False,
-                             rescale="minus1", noise=noise)
+                             cfg.gumbel_tau, inclusive_end=inclusive_end,
+                             rescale=rescale, noise=noise)
 
     # ------------------------------------------------- backbone entry points
     def encode_selected(self, frames, cand_index, qformer_input_ids=None,
@@ -181,7 +187,7 @@ class VideoTGB(nn.Module):
             flow, flow_mask, sampler_question_ids, sampler_question_mask,
             "fusion")
         cand = self.select_frames(start_logits, end_logits, video_length,
-                                  generator, noise)
+                                  generator, inclusive_end=False, noise=noise)
         visual = self.encode_selected(
             frames, cand, qformer_input_ids=qformer_input_ids,
             qformer_attention_mask=qformer_attention_mask)
@@ -268,7 +274,7 @@ def select_phase_blip2(model: VideoTGB, flow_rgb_u8, batch, generator=None,
                                   batch["sampler_question_ids"],
                                   batch["sampler_question_mask"], "fusion")
     return model.select_frames(sl, el, batch["video_length"], generator,
-                               noise)
+                               inclusive_end=False, noise=noise)
 
 
 @torch.no_grad()

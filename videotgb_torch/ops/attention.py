@@ -6,7 +6,10 @@
 * :func:`flash_attention` - the CUDA kernel ``csrc/flash_fwd.cu`` on CUDA
   tensors (the Hopper counterpart of the Pallas ``_flash_kernel``), the
   plain version on CPU tensors. On a CUDA tensor it launches the kernel or
-  raises; there is no fallback.
+  raises; there is no fallback. Its gradient is the CUDA kernel
+  ``csrc/flash_bwd.cu`` (the counterpart of ``_flash_bwd_kernel``), which is
+  tiled and takes any sequence length.
+* :func:`flash_backward_reference` - the plain version of that backward.
 
 Shapes follow (batch, heads, seq, head_dim); biases are additive, f32, and
 broadcastable to (B, H, Sq, Skv).
@@ -38,11 +41,12 @@ def _strides3(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def flash_forward_cuda(q, k, v, bias, scale):
-    """Launch ``flash_fwd`` on CUDA tensors. Inputs may be strided views
-    (the last dim must be contiguous); the output is a (B,H,Sq,D) view of a
-    (B,Sq,H,D) buffer, so merging heads afterwards is free."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_inputs(q, k, v, bias, g=None):
+    """Raise on what the kernels do not take; returns the bias as an f32
+    (B, H, Sq, Skv) broadcast view, or None."""
+    named = [("q", q), ("k", k), ("v", v)] + ([("grad", g)] if g is not None
+                                              else [])
+    for name, t in named:
         if not t.is_cuda:
             raise ValueError(f"flash_attention: {name} is not a CUDA tensor")
         if t.dim() != 4:
@@ -70,11 +74,24 @@ def flash_forward_cuda(q, k, v, bias, scale):
             raise ValueError(f"flash_attention: bias must be 4-D, got "
                              f"{tuple(bias.shape)}")
         bias = bias.float().expand(b, h, s_q, s_kv)
-        b_strides = bias.stride()
-        bias_ptr = bias.data_ptr()
-    else:
-        b_strides = (0, 0, 0, 0)
-        bias_ptr = None
+    return bias
+
+
+def _bias_args(bias):
+    """The bias pointer and its 4 strides (0 on broadcast dims)."""
+    if bias is None:
+        return None, (0, 0, 0, 0)
+    return bias.data_ptr(), bias.stride()
+
+
+def flash_forward_cuda(q, k, v, bias, scale):
+    """Launch ``flash_fwd`` on CUDA tensors. Inputs may be strided views
+    (the last dim must be contiguous); the output is a (B,H,Sq,D) view of a
+    (B,Sq,H,D) buffer, so merging heads afterwards is free."""
+    bias = _check_inputs(q, k, v, bias)
+    bias_ptr, b_strides = _bias_args(bias)
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
     out = torch.empty((b, s_q, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lib = kernels.library("flash_fwd")
@@ -89,18 +106,112 @@ def flash_forward_cuda(q, k, v, bias, scale):
     return out
 
 
+def _reduce_to(ds, shape, dtype):
+    """Sum the (B, H, Sq, Skv) cotangent over every broadcast dim of a bias
+    of ``shape`` (the reduction ``_flash_backward_pallas`` does outside its
+    kernel)."""
+    for axis in range(4):
+        if shape[axis] == 1:
+            ds = ds.sum(dim=axis, keepdim=True)
+    return ds.to(dtype)
+
+
+def flash_backward_reference(q, k, v, bias, g, scale, bias_needs_grad=True):
+    """Plain version of the fused backward (the Pallas ``_flash_bwd_kernel``):
+    recompute the f32 softmax from q/k/v/bias, then
+    dv = p^T dO, dp = dO v^T, ds = p (dp - rowsum(dp p)),
+    dq = ds k * scale, dk = ds^T q * scale, with p rounded to v's dtype for
+    dv and ds to q's dtype for dq/dk (f32 accumulation throughout).
+    Returns (dq, dk, dv, dbias) with dbias reduced to the bias's own shape,
+    or None when there is no bias or ``bias_needs_grad`` is False."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    gf = g.float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf)
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsb = ds.to(q.dtype).float()
+    dq = torch.matmul(dsb, k.float()) * scale
+    dk = torch.matmul(dsb.transpose(-1, -2), q.float()) * scale
+    dbias = None
+    if bias is not None and bias_needs_grad:
+        dbias = _reduce_to(ds, bias.shape, bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def flash_backward_cuda(q, k, v, bias, g, scale, bias_needs_grad=True):
+    """Launch ``flash_bwd`` on CUDA tensors; returns (dq, dk, dv, dbias or
+    None) like :func:`flash_backward_reference`. q/k/v/g may be strided
+    views (a ``g`` whose last dim is not contiguous is copied); dq/dk/dv are
+    (B,H,S,D) views of (B,S,H,D) buffers, the layout of the projections
+    they flow back into."""
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
+    if g.shape != q.shape:
+        raise ValueError(f"flash_backward: grad {tuple(g.shape)} != q "
+                         f"{tuple(q.shape)}")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    need_ds = bias is not None and bias_needs_grad
+    bias_f32 = _check_inputs(q, k, v, bias, g=g)
+    bias_ptr, b_strides = _bias_args(bias_f32)
+    dq = torch.empty((b, s_q, h, d), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk = torch.empty((b, s_kv, h, d), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    # per-row softmax max, sum and rowsum(dp * p), written by pass 1
+    stats = torch.empty((3, b * h, s_q), dtype=torch.float32, device=q.device)
+    ds = (torch.empty((b, h, s_q, s_kv), dtype=torch.float32, device=q.device)
+          if need_ds else None)
+    lib = kernels.library("flash_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if ds is None else ds.data_ptr(), stats.data_ptr(),
+        b, h, s_q, s_kv, d, *_strides3(q), *_strides3(k), *_strides3(v),
+        *_strides3(g), *_strides3(dq), *_strides3(dk), *_strides3(dv),
+        *b_strides, float(scale), _DTYPE_CODES[q.dtype], stream)
+    kernels.check_launch("flash_bwd", rc)
+    kernels.LAUNCHES["flash_bwd"] += 1
+    dbias = None if ds is None else _reduce_to(ds, bias.shape, bias.dtype)
+    return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX ``_flash_attention`` custom VJP: the forward
+    kernel saves q/k/v/bias (no probabilities, no output); the backward
+    kernel recomputes the softmax, and writes ds only when autograd needs
+    the bias's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias)
+        return flash_forward_cuda(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_backward_cuda(
+            q, k, v, bias, g, ctx.scale,
+            bias_needs_grad=ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None
+
+
 def flash_attention(q, k, v, bias=None, scale=None):
-    """Flash-attention forward: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors (numerically the same function). The kernel has
-    no backward yet (the Pallas backward, kernel C, comes with training)."""
+    """Flash attention: the CUDA kernels on CUDA tensors (forward, and the
+    fused backward when autograd asks for one), the plain version with
+    autograd's backward on CPU tensors (numerically the same function)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return dot_product_attention(q, k, v, bias, scale)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError("flash_attention has no backward on CUDA "
-                                  "yet; call it under torch.no_grad()")
-    return flash_forward_cuda(q, k, v, bias, scale)
+    return _FlashAttention.apply(q, k, v, bias, scale)
 
 
 def make_padding_bias(mask, dtype=torch.float32):

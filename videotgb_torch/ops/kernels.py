@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC.parent.parent / "build"
-SOURCES = {"flash_fwd": "flash_fwd.cu", "corr_lookup": "corr_lookup.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "corr_lookup": "corr_lookup.cu"}
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,6 +40,10 @@ _SIGNATURES = {
     # stream) -> cudaError_t
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 16
                  + [ctypes.c_float, _I, _P],
+    # flash_bwd(q, k, v, bias, dO, dq, dk, dv, ds, stats, B, H, Sq, Skv, D,
+    # q/k/v/dO/dq/dk/dv strides (batch, head, seq) x7, bias strides (batch,
+    # head, q, k), scale, dtype, stream) -> cudaError_t
+    "flash_bwd": [_P] * 10 + [_I] * 5 + [_L] * 25 + [ctypes.c_float, _I, _P],
     # corr_lookup(levels*, hl*, wl*, n_levels, coords, out, P, Q, radius,
     # dtype, stream) -> cudaError_t
     "corr_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
