@@ -37,7 +37,25 @@ Phases, each fatal on failure (exit code 1):
    trainable parameters moved and frozen ones bit-identical, the last step
    split into forward, backward and optimizer;
 7. the TG training path at flagship TGB width (batch 32, 64 flow frames,
-   24-token questions, dropout on): 3 steps, no kernel launched.
+   24-token questions, dropout on): 3 steps, no kernel launched;
+8. kernel D (fused frame selection): one launch per call on the select
+   phase's own span logits from phase 4 and at the TG shape (32, 66), each
+   equal to its plain version at ``noise_scale=0``, as are (1024, 256) at
+   F = 128, nframe = 8 under both rescale rules and both ends, with lengths
+   1 and 2, (0, 0) peaks, NaN logits and tied rows planted; with noise,
+   reproducible per seed and, over 65,536 zero-logit rows, the histogram of
+   the plain version's frames within 0.01;
+9. kernel E (the lookup probe's query-blocked lookup) at 256 pairs x 28x28,
+   bf16 and f32, "raft", "wild" and off-map coordinates, with and without
+   row skipping, against the plain version at phase 3's tolerances; 20
+   launches per chained run; timed beside kernel B; then the probe tool;
+10. kernel F (Triton ``add_ln`` and ``ln``) at 256 x 264 x 1408, f32 and
+   bf16, against their plain versions; the 4-layer stack's three variants
+   with exact launches (2 per layer, 1 flash forward per layer); timed
+   beside ``F.layer_norm``; then the probe tool;
+11. kernel G (flash attention in (B, S, H, D)) at 128 x 264 x 16 x 88, f32
+   and bf16, against its plain version and kernel A on the transposes; 1
+   launch per layer of the stack; timed beside SDPA; then the probe tool.
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit, and a JSON object ``{"ok": true, "device": {...}}``.
@@ -319,7 +337,7 @@ def _batch(cfg, b, l_flow, text_len, gen, dev):
 
 
 # --------------------------------------------------------- flagship main path
-def main_path(card: str) -> dict:
+def main_path(card: str) -> tuple[dict, dict]:
     import torch
 
     from videotgb_torch.models import videotgb as V
@@ -422,13 +440,12 @@ def main_path(card: str) -> dict:
                                for k in end},
         "flow_features + generate_blip2": {k: end[k] - after_answer[k]
                                            for k in end}}
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
     expected = {
-        "select_phase_blip2": {"flash_fwd": 0, "flash_bwd": 0,
-                               "corr_lookup": cfg.raft.iters},
-        "answer_phase_blip2": {"flash_fwd": cfg.blip2.vit.num_layers,
-                               "flash_bwd": 0, "corr_lookup": 0},
+        "select_phase_blip2": {**zero, "corr_lookup": cfg.raft.iters},
+        "answer_phase_blip2": {**zero, "flash_fwd": cfg.blip2.vit.num_layers},
         "flow_features + generate_blip2": {
-            "flash_fwd": cfg.blip2.vit.num_layers, "flash_bwd": 0,
+            **zero, "flash_fwd": cfg.blip2.vit.num_layers,
             "corr_lookup": cfg.raft.iters}}
     for phase, want in expected.items():
         log(f"  launches in {phase}: {per_phase[phase]} (expected {want})")
@@ -490,9 +507,10 @@ def main_path(card: str) -> dict:
         blip2 = model.model
         lm = blip2.language_model
         part("raft flow_features", lambda: model.flow_features(flow_u8.float()))
-        part("tgb span_logits", lambda: model.span_logits(
-            flow, batch["flow_mask"], batch["sampler_question_ids"],
-            batch["sampler_question_mask"]))
+        _, start_logits, end_logits = part(
+            "tgb span_logits", lambda: model.span_logits(
+                flow, batch["flow_mask"], batch["sampler_question_ids"],
+                batch["sampler_question_mask"]))
         emb = part("vit", lambda: blip2.vision_model(sel_frames))
         query = blip2.query_tokens.to(emb.dtype).expand(emb.shape[0], -1, -1)
         visual = part("qformer + pool + projection", lambda: (
@@ -505,7 +523,11 @@ def main_path(card: str) -> dict:
             model, enc, mask, dcfg))
     for name, ms in parts.items():
         log(f"  component {name}: {ms:.2f} ms on {card}")
-    return dict(end)
+    # the select phase's own span logits, for kernel D in phase 8
+    span = {"start": start_logits, "end": end_logits,
+            "video_length": batch["video_length"],
+            "num_frames": cfg.num_frames, "nframe": cfg.nframe}
+    return dict(end), span
 
 
 # ------------------------------------------------------------------ kernel C
@@ -727,6 +749,7 @@ def train_paths(card: str) -> dict:
     import torch
 
     from videotgb_torch import train as T
+    from videotgb_torch.ops import kernels
     from videotgb_torch.training.trainer import Trainer, TrainerConfig
 
     dev = torch.device("cuda")
@@ -772,10 +795,10 @@ def train_paths(card: str) -> dict:
     log(f"  E2E: {sum(params[n].numel() for n in trainable) / 1e6:.1f}M "
         f"trainable parameters; frozen ones copied to the host in "
         f"{time.perf_counter() - t:.2f} s")
-    expected = {"flash_fwd": cfg.blip2.vit.num_layers
+    expected = {**dict.fromkeys(kernels.LAUNCHES, 0),
+                "flash_fwd": cfg.blip2.vit.num_layers
                 + cfg.blip2.t5.num_encoder_layers,
-                "flash_bwd": cfg.blip2.t5.num_encoder_layers,
-                "corr_lookup": 0}
+                "flash_bwd": cfg.blip2.t5.num_encoder_layers}
     e2e_launches = train_steps("E2E", trainer, state, batch, expected, card)
     for group in groups:
         if not any(not torch.equal(params[n], before[n])
@@ -815,6 +838,372 @@ def train_paths(card: str) -> dict:
     return {k: e2e_launches[k] + tg_launches[k] for k in e2e_launches}
 
 
+def counted(name, drive, expected) -> dict:
+    """Run ``drive`` with every launch count set to 0 just before it; fail
+    unless the counts read just after are ``expected`` (0 for every kernel
+    not named)."""
+    from videotgb_torch.ops import kernels
+
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0), **expected}
+    kernels.reset_launches()
+    drive()
+    got = dict(kernels.LAUNCHES)
+    log(f"  launches in {name}: {got} (expected {want})")
+    if got != want:
+        fail(f"launch counts of {name}: {got} != {want}")
+    return got
+
+
+def row(name, source, replaces, err, ms, plain_ms, nbytes, flops=0.0,
+        dtype="bfloat16", library_ms=None) -> dict:
+    """One kernel's entry of the JSON line; the bound is the larger of the
+    bytes over the HBM rate and the operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"name": name, "route": "triton" if source.endswith(".py")
+            else "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+# ------------------------------------------------------------------ kernel D
+def check_select(card: str, span: dict) -> dict:
+    import torch
+
+    from videotgb_torch.ops.select_pallas import (
+        select_frames_pallas,
+        select_frames_pallas_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    f, nf = span["num_frames"], span["nframe"]
+    flag = (span["start"].float(), span["end"].float(), span["video_length"])
+
+    def batch(b, l):
+        """Random logits with the edge rows planted: lengths 1 and 2,
+        degenerate (0, 0) peaks, a NaN logit, an all-tied row."""
+        sl, el = (torch.randn((b, l), generator=gen, device=dev)
+                  for _ in range(2))
+        vl = torch.randint(1, l + 1, (b,), generator=gen, device=dev)
+        vl[:4] = torch.tensor([1, 2, 1, 2], device=dev)
+        sl[4], el[4] = -10.0, -10.0
+        sl[4, 0], el[4, 0] = 10.0, 10.0
+        sl[5, 3] = float("nan")
+        el[6, l - 1] = float("nan")
+        sl[7], el[7] = 0.0, 0.0
+        return sl, el, vl
+
+    tg = batch(32, 66)  # the TG recipe: batch 32, 64 flow frames + 2
+    outs = {}
+
+    def drive():
+        """The main path: the flagship select phase's logits and the TG
+        shape, each once without and once with noise."""
+        for name, args in (("flagship", flag), ("tg", tg)):
+            outs[name] = select_frames_pallas(*args, 0, f, nf,
+                                              noise_scale=0.0)
+            outs[name + " noise"] = select_frames_pallas(*args, 11, f, nf)
+        torch.cuda.synchronize()
+
+    launches = counted("kernel D's path (4 selection calls)", drive,
+                       {"select_frames": 4})["select_frames"]
+    for name, args in (("flagship", flag), ("tg", tg)):
+        noisy = outs[name + " noise"]
+        if int(noisy.min()) < 0 or int(noisy.max()) >= f:
+            fail(f"select {name} with noise: frame index out of range")
+
+    def exact(name, args, **kw):
+        got = outs.get(name)
+        if got is None:
+            got = select_frames_pallas(*args, 0, noise_scale=0.0, **kw)
+        want = select_frames_pallas_reference(*args, noise_scale=0.0, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        log(f"  select {name} {tuple(args[0].shape)}: equal to the plain "
+            f"version {same}")
+        if not same:
+            fail(f"select {name} differs from its plain version")
+
+    exact("flagship", flag, num_frames=f, nframe=nf)
+    exact("tg", tg, num_frames=f, nframe=nf)
+    big = batch(1024, 256)
+    for rescale in ("minus1", "ratio"):
+        for inclusive in (False, True):
+            exact(f"F=128 nframe=8 {rescale} inclusive_end={inclusive}", big,
+                  num_frames=128, nframe=8, rescale=rescale,
+                  inclusive_end=inclusive)
+
+    # noise: reproducible per seed, and the Gumbel law of the plain version
+    a, a2, c = (select_frames_pallas(*tg, s, f, nf) for s in (5, 5, 6))
+    if not torch.equal(a, a2) or torch.equal(a, c):
+        fail("select with noise: not reproducible per seed, or seeds agree")
+    b, l = 65536, 66
+    zeros = torch.zeros((b, l), device=dev)
+    vl = torch.full((b,), l - 2, device=dev)
+    got = select_frames_pallas(zeros, zeros, vl, 12, f, nf)
+    want = select_frames_pallas_reference(zeros, zeros, vl, f, nf,
+                                          generator=gen)
+    freq = [torch.bincount(x.flatten().long(), minlength=f).double()
+            / x.numel() for x in (got, want)]
+    dfreq = float((freq[0] - freq[1]).abs().max())
+    log(f"  select noise histogram over {b} zero-logit rows: max |dfreq| "
+        f"{dfreq:.2e} (tolerance 0.01: each frequency is ~1/{f} of "
+        f"{b * nf} draws, sd ~7e-4) {'ok' if dfreq <= 0.01 else 'MISMATCH'}")
+    if not dfreq <= 0.01:
+        fail("select noise histogram differs from the plain version's")
+
+    ms = time_ms(lambda: select_frames_pallas(*flag, 11, f, nf))
+    plain_ms = time_ms(lambda: select_frames_pallas_reference(
+        *flag, f, nf, generator=gen))
+    tg_ms = time_ms(lambda: select_frames_pallas(*tg, 11, f, nf))
+    tg_plain = time_ms(lambda: select_frames_pallas_reference(
+        *tg, f, nf, generator=gen))
+    one = torch.zeros((1,), device=dev)
+    floor_ms = time_ms(lambda: one.add_(1.0))
+    nbytes = 8 * flag[0].numel() + 4 * flag[0].shape[0] * (1 + nf)
+    log(f"  select flagship logits {tuple(flag[0].shape)}: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms; TG (32, 66): kernel {tg_ms:.4f} ms, "
+        f"plain {tg_plain:.4f} ms; bytes bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B); launch "
+        f"floor (a one-element add_) {floor_ms:.4f} ms on {card}")
+    out = row("select_frames", "videotgb_torch/csrc/select_frames.cu",
+              "videotgb_tpu/ops/select_pallas.py:32", 0.0, ms, plain_ms,
+              nbytes)
+    out["launches"] = launches
+    return out
+
+
+# ------------------------------------------------------------------ kernel E
+def check_blocked_lookup(card: str) -> dict:
+    import torch
+
+    from videotgb_torch.ops.correlation_pallas import (
+        lookup_corr_pyramid_t,
+        lookup_corr_pyramid_t_plain,
+    )
+    from videotgb_torch.tools import lookupprobe as LP
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pairs, hw, radius, n_loop = 256, 28, 4, 20
+    out = None
+    for dtype, (atol, rtol, why) in (
+            (torch.bfloat16, (2e-2, 2e-2, "both round f32 sums to bf16: "
+                              "<= 1 ulp (2^-8 relative) apart")),
+            (torch.float32, (1e-4, 1e-4, "f32 sums, 2-tap vs dense hat "
+                             "order"))):
+        pyr = LP.make_pyramid(pairs, hw, dtype, dev, gen)
+        coord_sets = LP.make_coords(pairs, hw, dev, gen)
+        coord_sets["off map"] = torch.rand(
+            (pairs, hw, hw, 2), generator=gen, device=dev) * 44.0 - 8.0
+        err = 0.0
+        for cname, coords in coord_sets.items():
+            want = lookup_corr_pyramid_t_plain(pyr, coords, radius)
+            for skip in (False, True):
+                got = LP.blocked_lookup(pyr, coords, radius, skip=skip)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or tuple(got.shape) != (
+                        pairs, hw, hw, 324):
+                    fail(f"blocked lookup {got.dtype} {tuple(got.shape)}")
+                err = max(err, check_close(
+                    f"blocked lookup {dtype} {cname} skip={skip}", got, want,
+                    atol, rtol, why))
+            del want
+        coords = coord_sets["raft"]
+        ms = {skip: time_ms(lambda skip=skip: LP.blocked_lookup(
+            pyr, coords, radius, skip=skip)) for skip in (False, True)}
+        wild = {skip: time_ms(lambda skip=skip: LP.blocked_lookup(
+            pyr, coord_sets["wild"], radius, skip=skip))
+            for skip in (False, True)}
+        b_ms = time_ms(lambda: lookup_corr_pyramid_t(pyr, coords, radius))
+        b_wild = time_ms(lambda: lookup_corr_pyramid_t(
+            pyr, coord_sets["wild"], radius))
+        plain_ms = time_ms(lambda: lookup_corr_pyramid_t_plain(
+            pyr, coords, radius), iters=3, warmup=1)
+        nbytes = lookup_needed_bytes(pyr, coords, radius)
+        log(f"  one lookup, {pairs} pairs {dtype}, raft coords: kernel E "
+            f"qblock {ms[False]:.4f} ms, qskip {ms[True]:.4f} ms, kernel B "
+            f"{b_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB "
+            f"needed); wild coords: qblock {wild[False]:.4f}, qskip "
+            f"{wild[True]:.4f}, kernel B {b_wild:.4f} ms on {card}")
+        if dtype == torch.bfloat16:  # the probe's pyramid dtype
+            launches = 0
+            for skip in (False, True):
+                launches += counted(
+                    f"{n_loop} chained lookups, skip={skip}",
+                    lambda skip=skip: float(LP.chained(
+                        lambda p, c: LP.blocked_lookup(p, c, radius,
+                                                       skip=skip),
+                        pyr, coords, n_loop)),
+                    {"corr_lookup_blocked": n_loop})["corr_lookup_blocked"]
+            out = row("corr_lookup_blocked",
+                      "videotgb_torch/csrc/corr_lookup_blocked.cu",
+                      "tools/lookupprobe.py:51", err, ms[True], plain_ms,
+                      nbytes)
+            out["launches"] = launches
+        del pyr, coord_sets
+        torch.cuda.empty_cache()
+    log("  the probe tool: python -m videotgb_torch.tools.lookupprobe "
+        "--iters 3")
+    LP.main(["--iters", "3"])
+    return out
+
+
+# ------------------------------------------------------------------ kernel F
+def check_ln(card: str) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from videotgb_torch.tools import lnprobe as LN
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    frames, layers = 256, 4
+    width = LN.HEADS * LN.HEAD_DIM
+    shape = (frames, LN.TOKENS, width)
+    tol = {torch.bfloat16: (2e-2, 2e-2, "one bf16 rounding (<= 2^-7 "
+                            "relative) of f32 stats summed in another order"),
+           torch.float32: (1e-4, 1e-4, "f32 summation order only")}
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        res, delta = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                      for _ in range(2))
+        g = 1.0 + 0.1 * torch.randn((width,), generator=gen, device=dev)
+        b = 0.1 * torch.randn((width,), generator=gen, device=dev)
+        summed, normed = LN.add_ln(res, delta, g, b)
+        alone = LN.ln(res, g, b)
+        want_sum, want_norm = LN.add_ln_reference(res, delta, g, b)
+        torch.cuda.synchronize()
+        if not torch.equal(summed, want_sum):
+            fail(f"add_ln {dtype}: the sum output differs from res + delta")
+        errs["add_ln", dtype] = check_close(f"add_ln {dtype} {shape}", normed,
+                                            want_norm, *tol[dtype])
+        errs["ln", dtype] = check_close(f"ln {dtype} {shape}", alone,
+                                        LN.ln_reference(res, g, b),
+                                        *tol[dtype])
+        del summed, normed, alone, want_sum, want_norm
+
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = LN.make_weights(width, LN.MLP, x.dtype, dev, gen)
+    runs = LN.stacks(x, w, layers, LN.HEADS, 4)
+    launches = {}
+    with torch.no_grad():
+        for v, kern in (("a", None), ("b", "add_ln"), ("c", "ln")):
+            want = {"flash_fwd": layers, **({kern: 2 * layers} if kern
+                                            else {})}
+            got = counted(f"the {layers}-layer stack, variant ({v})",
+                          lambda v=v: float(runs[v]().float().sum()), want)
+            if kern:
+                launches[kern] = got[kern]
+        delta = torch.randn(shape, generator=gen, device=dev).to(x.dtype)
+        g, b = w["g1"], w["b1"]
+        g_lib, b_lib = g.to(x.dtype), b.to(x.dtype)
+        t = {"add_ln": time_ms(lambda: LN.add_ln(x, delta, g, b)),
+             "add_ln plain": time_ms(lambda: LN.add_ln_reference(
+                 x, delta, g, b)),
+             "ln": time_ms(lambda: LN.ln(x, g, b)),
+             "ln plain": time_ms(lambda: LN.ln_reference(x, g, b)),
+             "F.layer_norm": time_ms(lambda: F.layer_norm(
+                 x, (width,), g_lib, b_lib, 1e-6)),
+             "F.layer_norm of res + delta": time_ms(lambda: F.layer_norm(
+                 x + delta, (width,), g_lib, b_lib, 1e-6))}
+    n = x.numel() * x.element_size()
+    nbytes = {"add_ln": 4 * n + 2 * width * 4, "ln": 2 * n + 2 * width * 4}
+    log(f"  F at {shape} bf16: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in t.items()) + "; bounds " + ", ".join(
+        f"{k} {v / HBM_BYTES_PER_S * 1e3:.4f} ms ({v / 1e6:.1f} MB)"
+        for k, v in nbytes.items()) + f" on {card}")
+    rows = []
+    for name in ("add_ln", "ln"):
+        r = row(name, "videotgb_torch/tools/lnprobe.py",
+                "tools/lnprobe.py:93" if name == "add_ln"
+                else "tools/lnprobe.py:129",
+                errs[name, torch.bfloat16], t[name], t[name + " plain"],
+                nbytes[name], library_ms=t["F.layer_norm"])
+        r["launches"] = launches[name]
+        rows.append(r)
+    del runs, x, w, delta
+    torch.cuda.empty_cache()
+    log("  the probe tool: python -m videotgb_torch.tools.lnprobe --iters 3")
+    LN.main(["--iters", "3"])
+    return rows
+
+
+# ------------------------------------------------------------------ kernel G
+def check_bshd(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from videotgb_torch.ops.attention import flash_attention
+    from videotgb_torch.tools import attnlayoutprobe as AL
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    frames, layers, h, d = 128, 4, AL.HEADS, AL.HEAD_DIM
+    width = h * d
+    scale = d ** -0.5
+    tol = {torch.bfloat16: (2e-2, 2e-2, "bf16 output rounding (ulp 2^-8) "
+                            "plus a different f32 summation order"),
+           torch.float32: (1e-4, 1e-4, "f32 summation order only")}
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((frames, AL.TOKENS, width), generator=gen,
+                        device=dev).to(dtype)
+        w = AL.make_weights(width, dtype, dev, gen)
+        q, k, v = AL._project(x, w, h)
+        got = AL.flash_bshd(q, k, v, scale)
+        want = AL.flash_bshd_reference(q, k, v, scale)
+        via_a = flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                scale=scale).transpose(1, 2)
+        torch.cuda.synchronize()
+        e = check_close(f"flash_bshd {dtype} {tuple(q.shape)}", got, want,
+                        *tol[dtype])
+        check_close(f"flash_bshd {dtype} vs kernel A on the transposes", got,
+                    via_a, *tol[dtype])
+        if dtype == torch.bfloat16:
+            err = e
+        del got, want, via_a
+    launches = None
+    with torch.no_grad():
+        for v_, kern in (("a", "flash_fwd"), ("b", "flash_bshd"),
+                         ("c", None)):
+            got = counted(
+                f"the {layers}-layer stack, variant ({v_})",
+                lambda v_=v_: float(AL.stack(AL.LAYERS[v_], x, w, layers,
+                                             h).float().sum()),
+                {kern: layers} if kern else {})
+            if v_ == "b":
+                launches = got["flash_bshd"]
+        ms = time_ms(lambda: AL.flash_bshd(q, k, v, scale))
+        plain_ms = time_ms(lambda: AL.flash_bshd_reference(q, k, v, scale),
+                           iters=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        a_ms = time_ms(lambda: flash_attention(qt, kt, vt, scale=scale))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale))
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = 4 * frames * h * AL.TOKENS ** 2 * d
+    out = row("flash_bshd", "videotgb_torch/csrc/flash_bshd.cu",
+              "tools/attnlayoutprobe.py:90", err, ms, plain_ms, nbytes,
+              flops, library_ms=lib_ms)
+    log(f"  flash_bshd {tuple(q.shape)} bf16: kernel G {ms:.4f} ms, kernel "
+        f"A on the transposes {a_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"on the transposes {lib_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) on {card}")
+    out["launches"] = launches
+    del x, w, q, k, v
+    torch.cuda.empty_cache()
+    log("  the probe tool: python -m videotgb_torch.tools.attnlayoutprobe "
+        "--iters 3")
+    AL.main(["--iters", "3"])
+    return out
+
+
+
 def main() -> None:
     try:
         import torch
@@ -845,7 +1234,7 @@ def main() -> None:
     log("phase 3: kernel B, correlation lookup")
     lookup = check_lookup(card)
     log("phase 4: flagship serving path, 4 requests")
-    launches = main_path(card)
+    launches, span = main_path(card)
     gc.collect()
     torch.cuda.empty_cache()  # the serving model is gone before training
     log("phase 5: kernel C, flash-attention backward")
@@ -857,10 +1246,20 @@ def main() -> None:
         f"TG steps 1-2): {launches}")
     for kern in (flash, flash_bwd, lookup):
         kern["launches"] = launches[kern["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 8: kernel D, fused frame selection")
+    select = check_select(card, span)
+    log("phase 9: kernel E, query-blocked correlation lookup (lookup probe)")
+    blocked = check_blocked_lookup(card)
+    log("phase 10: kernel F, fused add + LayerNorm in Triton (LN probe)")
+    add_ln, ln = check_ln(card)
+    log("phase 11: kernel G, flash attention in (B, S, H, D) (layout probe)")
+    bshd = check_bshd(card)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    line = {"kernels": [{k: kern[k] for k in order}
-                        for kern in (flash, lookup, flash_bwd)]}
+    line = {"kernels": [{k: kern[k] for k in order} for kern in (
+        flash, lookup, flash_bwd, select, blocked, add_ln, ln, bshd)]}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

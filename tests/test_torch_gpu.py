@@ -29,6 +29,21 @@ from videotgb_torch.ops.correlation_pallas import (
     lookup_corr_pyramid_t_plain,
 )
 from videotgb_torch.ops.decode import DecodeConfig
+from videotgb_torch.ops.select_pallas import (
+    select_frames_pallas,
+    select_frames_pallas_reference,
+)
+from videotgb_torch.tools.attnlayoutprobe import (
+    flash_bshd,
+    flash_bshd_reference,
+)
+from videotgb_torch.tools.lnprobe import (
+    add_ln,
+    add_ln_reference,
+    ln,
+    ln_reference,
+)
+from videotgb_torch.tools.lookupprobe import blocked_lookup
 from videotgb_torch.training.recipes import E2ERecipe
 from videotgb_torch.training.trainer import Trainer, TrainerConfig
 
@@ -313,3 +328,132 @@ def test_tiny_e2e_train_steps_on_the_card_match_the_cpu(cuda):
         assert all(torch.equal(p, frozen[n])
                    for n, p in model.named_parameters() if n in frozen)
     np.testing.assert_allclose(runs["gpu"], runs["cpu"], rtol=1e-4)
+
+
+# ------------------------------------------------------ kernels D, E, F and G
+SELECT_CASES = {
+    # (B, L, F, nframe, inclusive_end, rescale): the TG recipe's shape, then
+    # F = 128 at both rules and both ends
+    "tg": (32, 66, 32, 4, False, "minus1"),
+    "f128_minus1": (1024, 256, 128, 8, False, "minus1"),
+    "f128_ratio": (1024, 256, 128, 8, False, "ratio"),
+    "f128_minus1_inclusive": (1024, 256, 128, 8, True, "minus1"),
+    "f128_ratio_inclusive": (1024, 256, 128, 8, True, "ratio"),
+}
+
+
+def _select_args(gen, dev, b, l):
+    sl, el = (torch.randn((b, l), generator=gen, device=dev) for _ in range(2))
+    vl = torch.randint(1, l + 1, (b,), generator=gen, device=dev)
+    vl[:4] = torch.tensor([1, 2, 1, 2], device=dev)  # the shortest lengths
+    sl[4], el[4] = -10.0, -10.0
+    sl[4, 0], el[4, 0] = 10.0, 10.0  # degenerate (0, 0) peaks
+    sl[5, 3] = float("nan")  # argmax puts NaN above every number
+    sl[6], el[6] = 0.0, 0.0  # all tied: the first index
+    return sl, el, vl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_select_kernel_matches_plain_without_noise(cuda, case):
+    b, l, f, nf, inclusive, rescale = SELECT_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    sl, el, vl = _select_args(gen, cuda, b, l)
+    kw = dict(num_frames=f, nframe=nf, inclusive_end=inclusive,
+              rescale=rescale, noise_scale=0.0)
+    before = kernels.LAUNCHES["select_frames"]
+    got = select_frames_pallas(sl, el, vl, 0, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["select_frames"] == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (b, nf)
+    assert torch.equal(got, select_frames_pallas_reference(sl, el, vl, **kw))
+
+
+@pytest.mark.gpu
+def test_select_kernel_noise_follows_the_seed_and_the_gumbel_law(cuda):
+    b, l, f, nf = 16384, 66, 32, 4
+    zeros = torch.zeros((b, l), device=cuda)
+    vl = torch.full((b,), 64, device=cuda)
+    a, a2, c = (select_frames_pallas(zeros, zeros, vl, s, num_frames=f,
+                                     nframe=nf) for s in (7, 7, 8))
+    assert torch.equal(a, a2) and not torch.equal(a, c)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    plain = select_frames_pallas_reference(zeros, zeros, vl, f, nf,
+                                           generator=gen)
+    hist = [torch.bincount(x.flatten().long(), minlength=f).float() / x.numel()
+            for x in (a, plain)]
+    # each frequency is ~1/32 over 65,536 draws: sd ~7e-4 per frequency
+    assert float((hist[0] - hist[1]).abs().max()) <= 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("qb", [128, 64])
+def test_blocked_lookup_kernel_matches_plain(cuda, dtype, skip, qb):
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    f1, f2 = (torch.randn((3, 12, 12, 32), generator=gen,
+                          device=cuda).to(dtype) for _ in range(2))
+    pyr = build_corr_pyramid_t(f1, f2, 4)
+    coords = torch.rand((3, 12, 12, 2), generator=gen, device=cuda) * 24 - 6
+    before = kernels.LAUNCHES["corr_lookup_blocked"]
+    got = blocked_lookup(pyr, coords, qb=qb, skip=skip)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["corr_lookup_blocked"] == before + 1
+    assert got.dtype == dtype
+    _close(got, lookup_corr_pyramid_t_plain(pyr, coords, 4), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_ln_and_ln_kernels_match_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    res, delta = (torch.randn((3, 10, 1408), generator=gen,
+                              device=cuda).to(dtype) for _ in range(2))
+    g = 1.0 + 0.1 * torch.randn((1408,), generator=gen, device=cuda)
+    b = 0.1 * torch.randn((1408,), generator=gen, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    summed, normed = add_ln(res, delta, g, b)
+    alone = ln(res, g, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["add_ln"] == before["add_ln"] + 1
+    assert kernels.LAUNCHES["ln"] == before["ln"] + 1
+    want_sum, want_norm = add_ln_reference(res, delta, g, b)
+    assert summed.dtype == dtype and torch.equal(summed, want_sum)
+    _close(normed, want_norm, TOL[dtype])
+    _close(alone, ln_reference(res, g, b), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [88, 64, 128])
+def test_flash_bshd_kernel_matches_plain(cuda, dtype, d):
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    b, s, h = 2, 70, 12  # a ragged sequence, a partial group of heads
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=cuda).to(dtype)
+    q, k, v = qkv.unbind(2)  # strided (B, S, H, D) views
+    before = kernels.LAUNCHES["flash_bshd"]
+    got = flash_bshd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bshd"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, flash_bshd_reference(q, k, v, d ** -0.5), TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_selection_and_probe_wrappers_raise_on_bad_inputs(cuda):
+    sl = torch.zeros((2, 8), device=cuda)
+    vl = torch.full((2,), 8, device=cuda)
+    with pytest.raises(ValueError, match="128"):
+        select_frames_pallas(sl, sl, vl, 0, num_frames=200)
+    pyr = build_corr_pyramid_t(*(torch.randn((1, 4, 4, 8), device=cuda)
+                                 for _ in range(2)), 2)
+    with pytest.raises(ValueError, match="qb"):
+        blocked_lookup(pyr, torch.zeros((1, 4, 4, 2), device=cuda), qb=100)
+    pyr5 = build_corr_pyramid_t(*(torch.randn((1, 5, 5, 8), device=cuda)
+                                  for _ in range(2)), 2)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        blocked_lookup(pyr5, torch.zeros((1, 5, 5, 2), device=cuda))
+    q = torch.randn((1, 8, 2, 160), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_bshd(q, q, q, 1.0)

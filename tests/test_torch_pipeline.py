@@ -163,8 +163,9 @@ def test_port_imports_no_jax_and_runs_tiny_path():
 
 @pytest.mark.parametrize("root", ["videotgb_torch", "chip_smoke.py"])
 def test_port_sources_import_nothing_of_jax(root):
-    """No module of the port, and not chip_smoke.py, names jax, flax or
-    videotgb_tpu in an import, even inside a function."""
+    """No module of the port, and not chip_smoke.py, names jax, flax,
+    videotgb_tpu or the JAX package's ``tools`` in an import, even inside a
+    function."""
     import ast
     import pathlib
 
@@ -181,7 +182,7 @@ def test_port_sources_import_nothing_of_jax(root):
                 continue
             for name in names:
                 assert name.split(".")[0] not in (
-                    "jax", "jaxlib", "flax", "videotgb_tpu"), (f, name)
+                    "jax", "jaxlib", "flax", "videotgb_tpu", "tools"), (f, name)
 
 
 def test_no_device_without_cuda_raises(monkeypatch):

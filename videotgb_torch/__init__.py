@@ -10,7 +10,14 @@ Pallas TPU kernels run here as CUDA C++ kernels written for ``sm_90a``
 * ``csrc/flash_fwd.cu``   flash-attention forward (``ops.attention``);
 * ``csrc/flash_bwd.cu``   flash-attention backward (``ops.attention``);
 * ``csrc/corr_lookup.cu`` RAFT correlation-pyramid lookup
-  (``ops.correlation_pallas``).
+  (``ops.correlation_pallas``);
+* ``csrc/select_frames.cu`` fused frame selection from the span logits
+  (``ops.select_pallas``).
+
+The JAX package's probe kernels have their tools in ``tools/``:
+``csrc/corr_lookup_blocked.cu`` (``tools.lookupprobe``), the Triton fused
+add + LayerNorm (``tools.lnprobe``) and ``csrc/flash_bshd.cu``
+(``tools.attnlayoutprobe``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; there each kernel is replaced by its plain PyTorch version.

@@ -65,31 +65,34 @@ def lookup_corr_pyramid_t_plain(pyramid_t, coords, radius: int = 4):
     return lookup_corr_pyramid_dense(std, coords, radius).to(pyramid_t[0].dtype)
 
 
-def corr_lookup_cuda(pyramid_t, coords, radius: int = 4):
-    """Launch ``corr_lookup`` on CUDA tensors."""
+def lookup_launch_args(name: str, pyramid_t, coords, radius: int):
+    """Check a lookup's CUDA inputs and allocate its output. Returns the
+    output, the leading arguments that ``corr_lookup`` and
+    ``corr_lookup_blocked`` share (levels*, hl*, wl*, n_levels, coords,
+    out, P, Q, radius), and the host objects those pointers refer to."""
     pyramid_t = list(pyramid_t)
     if coords.dim() != 4 or coords.shape[-1] != 2:
-        raise ValueError(f"corr lookup: coords must be (P, H, W, 2), got "
+        raise ValueError(f"{name}: coords must be (P, H, W, 2), got "
                          f"{tuple(coords.shape)}")
     p, h, w, _ = coords.shape
     q = h * w
     dtype = pyramid_t[0].dtype
     if dtype not in _DTYPE_CODES:
-        raise ValueError(f"corr lookup: pyramid dtype {dtype}; the kernel "
+        raise ValueError(f"{name}: pyramid dtype {dtype}; the kernel "
                          "takes float32 or bfloat16")
     if not coords.is_cuda or coords.dtype != torch.float32:
-        raise ValueError("corr lookup: coords must be a float32 CUDA tensor")
+        raise ValueError(f"{name}: coords must be a float32 CUDA tensor")
     if not 0 < len(pyramid_t) <= 8:
-        raise ValueError(f"corr lookup: {len(pyramid_t)} levels; 1 to 8")
+        raise ValueError(f"{name}: {len(pyramid_t)} levels; 1 to 8")
     sizes = level_sizes(h, w, len(pyramid_t))
     for lvl, (hh, ww) in zip(pyramid_t, sizes):
         if lvl.shape != (p, hh * ww, q) or lvl.dtype != dtype:
-            raise ValueError(f"corr lookup: level {tuple(lvl.shape)} "
-                             f"{lvl.dtype}, expected {(p, hh * ww, q)} {dtype}")
+            raise ValueError(f"{name}: level {tuple(lvl.shape)} {lvl.dtype}"
+                             f", expected {(p, hh * ww, q)} {dtype}")
         if not lvl.is_cuda or lvl.device != coords.device:
-            raise ValueError("corr lookup: levels must be on coords' device")
+            raise ValueError(f"{name}: levels must be on coords' device")
         if not lvl.is_contiguous():
-            raise ValueError("corr lookup: levels must be contiguous")
+            raise ValueError(f"{name}: levels must be contiguous")
     coords = coords.contiguous()
     k = 2 * radius + 1
     out = torch.empty((p, h, w, len(pyramid_t) * k * k), dtype=dtype,
@@ -98,13 +101,21 @@ def corr_lookup_cuda(pyramid_t, coords, radius: int = 4):
     ptrs = (ctypes.c_void_p * n)(*[lvl.data_ptr() for lvl in pyramid_t])
     hl = (ctypes.c_int * n)(*[s[0] for s in sizes])
     wl = (ctypes.c_int * n)(*[s[1] for s in sizes])
+    # the host arrays and the contiguous coords must outlive the launch: the
+    # caller holds them through the third element
+    args = (ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(hl, ctypes.c_void_p), ctypes.cast(wl, ctypes.c_void_p),
+            n, coords.data_ptr(), out.data_ptr(), p, q, radius)
+    return out, args, (ptrs, hl, wl, coords)
+
+
+def corr_lookup_cuda(pyramid_t, coords, radius: int = 4):
+    """Launch ``corr_lookup`` on CUDA tensors."""
+    out, args, _keep = lookup_launch_args("corr lookup", pyramid_t, coords,
+                                          radius)
     lib = kernels.library("corr_lookup")
     stream = torch.cuda.current_stream(coords.device).cuda_stream
-    rc = lib.corr_lookup(ctypes.cast(ptrs, ctypes.c_void_p),
-                         ctypes.cast(hl, ctypes.c_void_p),
-                         ctypes.cast(wl, ctypes.c_void_p), n,
-                         coords.data_ptr(), out.data_ptr(), p, q, radius,
-                         _DTYPE_CODES[dtype], stream)
+    rc = lib.corr_lookup(*args, _DTYPE_CODES[out.dtype], stream)
     kernels.check_launch("corr_lookup", rc)
     kernels.LAUNCHES["corr_lookup"] += 1
     return out

@@ -7,8 +7,9 @@ at import, into ``build/`` beside the package; a library's file name carries
 a hash of its source, so an edited kernel is rebuilt. :func:`build_all`
 starts one ``nvcc`` per source, all at once.
 
-``LAUNCHES`` holds one plain integer per kernel; a wrapper adds one where it
-launches its kernel and nowhere else.
+``LAUNCHES`` holds one plain integer per kernel, the CUDA ones of
+``SOURCES`` and the Triton ones of ``TRITON_KERNELS``; a wrapper adds one
+where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -23,8 +24,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC.parent.parent / "build"
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
-           "corr_lookup": "corr_lookup.cu"}
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+           "corr_lookup": "corr_lookup.cu",
+           "select_frames": "select_frames.cu",
+           "corr_lookup_blocked": "corr_lookup_blocked.cu",
+           "flash_bshd": "flash_bshd.cu"}
+# compiled by Triton at first launch (videotgb_torch/tools/lnprobe.py)
+TRITON_KERNELS = ("add_ln", "ln")
+LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, *TRITON_KERNELS)}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,6 +53,18 @@ _SIGNATURES = {
     # corr_lookup(levels*, hl*, wl*, n_levels, coords, out, P, Q, radius,
     # dtype, stream) -> cudaError_t
     "corr_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # select_frames(start, end, video_length, out, B, L, num_frames, nframe,
+    # top_k, seed, noise_scale, inclusive_end, rescale, stream) -> cudaError_t
+    "select_frames": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32,
+                      ctypes.c_float, _I, _I, _P],
+    # corr_lookup_blocked(levels*, hl*, wl*, n_levels, coords, out, P, Q,
+    # radius, qb, skip, dtype, stream) -> cudaError_t
+    "corr_lookup_blocked": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P],
+    # flash_bshd(q, k, v, out, B, S, H, D, q/k/v/out strides (batch, seq,
+    # head) x4, scale, dtype, stream) -> cudaError_t
+    "flash_bshd": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12
+                  + [ctypes.c_float, _I, _P],
 }
 
 
