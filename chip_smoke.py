@@ -55,7 +55,20 @@ Phases, each fatal on failure (exit code 1):
    beside ``F.layer_norm``; then the probe tool;
 11. kernel G (flash attention in (B, S, H, D)) at 128 x 264 x 16 x 88, f32
    and bf16, against its plain version and kernel A on the transposes; 1
-   launch per layer of the stack; timed beside SDPA; then the probe tool.
+   launch per layer of the stack; timed beside SDPA; then the probe tool;
+12. kernel H (int8 and bf16 tensor-core GEMMs): int8 bit for bit with its
+   plain version (int32 and bf16 epilogues, every block tiling) at 8192^3,
+   at the int8 ViT-g's three product shapes, at odd M and N, with +-127
+   saturated inputs; bf16 at 8192^3 within one bf16 ulp; timed beside
+   ``torch._int_mm`` and ``torch.matmul`` (yardsticks the port never
+   calls); then the W8A8 serving path at flagship width (``vit.quant =
+   "int8"``) for 4 requests, select -> answer with exact launch counts (234
+   int8_mm and 39 flash_fwd per ViT pass, 20 corr_lookup per refine), the
+   ViT-g output bit-identical with kernel H swapped for its plain version
+   and within the JAX package's int8 gate of the bf16 tower on the same
+   images, the int8 tower's time split into products and quantize passes;
+   then the three int8 tools (the GEMM probe counted: its kernel-H lines
+   launch int8_mm and bf16_mm once per call).
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit, and a JSON object ``{"ok": true, "device": {...}}``.
@@ -76,7 +89,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              "int8": 1979e12}  # dense, no sparsity; int8 in TOP/s
 
 
 def fail(msg: str) -> None:
@@ -1204,6 +1218,354 @@ def check_bshd(card: str) -> dict:
 
 
 
+# ------------------------------------------------------------------ kernel H
+# the int8 ViT-g's products at 16 images x 264 tokens: (M, K, N, per layer)
+VIT_GEMMS = ((4224, 1408, 1408, 4), (4224, 1408, 6144, 1),
+             (4224, 6144, 1408, 1))
+
+
+def check_gemms(card: str) -> list:
+    import torch
+
+    from videotgb_torch.device import configure_precision
+    from videotgb_torch.ops import quant as Q
+
+    configure_precision()  # the bf16 plain version: a full-f32 product
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tiles = range(len(Q.TILES))
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def exact(name, x, w_t):
+        for out_dtype in (torch.int32, torch.bfloat16):
+            want = Q.int8_mm_reference(x, w_t, out_dtype)
+            for tile in tiles:
+                got = Q.int8_mm(x, w_t, out_dtype, tile=tile)
+                torch.cuda.synchronize()
+                same = got.dtype == out_dtype and torch.equal(got, want)
+                log(f"  int8_mm {name} {Q.TILES[tile]} -> {out_dtype}: equal "
+                    f"to the plain version {same}")
+                if not same:
+                    fail(f"int8_mm {name} tile {Q.TILES[tile]} {out_dtype} "
+                         "differs from its plain version")
+
+    cube = 8192
+    x8, w8 = ints(cube, cube), ints(cube, cube)
+    exact(f"{cube}^3", x8, w8)
+    for m, k, n, _ in VIT_GEMMS:
+        exact(f"ViT-g {m}x{k}x{n}", ints(m, k), ints(n, k))
+    exact("odd 1001x1424x999", ints(1001, 1424), ints(999, 1424))
+    sign = torch.randint(0, 2, (4224 + 1408, cube), generator=gen,
+                         device=dev) * 2 - 1
+    xs, ws = (sign * 127).to(torch.int8).split([4224, 1408])
+    exact("+-127 4224x8192x1408", xs, ws)
+    full = torch.full((256, cube), 127, dtype=torch.int8, device=dev)
+    exact("all 127 256x8192x256 (accumulators 127^2 * 8192)", full, full)
+    del sign, xs, ws, full
+
+    xb = torch.randn((cube, cube), generator=gen, device=dev).to(
+        torch.bfloat16)
+    wb = torch.randn((cube, cube), generator=gen, device=dev).to(
+        torch.bfloat16)
+    want = Q.bf16_mm_reference(xb, wb).float()
+    order = cube * 2.0 ** -24 * float(xb.float().abs().max()
+                                      * wb.float().abs().max())
+    ulp = Q.bf16_ulp(want)
+    bf16_err = 0.0
+    for tile in tiles:
+        got = Q.bf16_mm(xb, wb, tile=tile)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        ok = got.dtype == torch.bfloat16 and bool((err <= ulp + order).all())
+        worst = float((err / (ulp + order)).max())
+        bf16_err = max(bf16_err, float(err.max()))
+        log(f"  bf16_mm {cube}^3 {Q.TILES[tile]}: max_abs_err "
+            f"{float(err.max()):.3e}, at most {worst:.3f} of the tolerance "
+            f"(one bf16 ulp of the entry + the f32 summation order's "
+            f"{order:.3e}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"bf16_mm tile {Q.TILES[tile]} disagrees with its plain "
+                 "version")
+    del want, ulp
+
+    # times: every tiling, the plain version and the library's one call
+    def gemm_times(label, kern, plain, lib, tile_ms):
+        for tile in tiles:
+            tile_ms[tile] = time_ms(lambda tile=tile: kern(tile))
+        plain_ms = time_ms(plain, iters=5, warmup=1)
+        lib_ms = time_ms(lib)
+        log(f"  {label}: kernel " + ", ".join(
+            f"{Q.TILES[t]} {ms:.4f} ms" for t, ms in tile_ms.items())
+            + f"; plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms on {card}")
+        return plain_ms, lib_ms
+
+    rows = []
+    m, k, n, _ = VIT_GEMMS[1]  # the path's largest product, MLP in
+    xv, wv = ints(m, k), ints(n, k)
+    t_path = {}
+    plain_ms, lib_ms = gemm_times(
+        f"int8_mm {m}x{k}x{n} -> int32 (the serving path's)",
+        lambda t: Q.int8_mm(xv, wv, tile=t),
+        lambda: Q.int8_mm_reference(xv, wv),
+        lambda: torch._int_mm(xv, wv.t()), t_path)
+    row_int8 = row("int8_mm", "videotgb_torch/csrc/int8_mm.cu",
+                   "tools/int8pallas_probe.py:22", 0.0, t_path[0], plain_ms,
+                   m * k + n * k + 4 * m * n, 2 * m * k * n, "int8", lib_ms)
+    rows.append(row_int8)
+    t_cube = {}
+    gemm_times(f"int8_mm {cube}^3 -> bf16 (the probe's)",
+               lambda t: Q.int8_mm(x8, w8, torch.bfloat16, tile=t),
+               lambda: Q.int8_mm_reference(x8, w8, torch.bfloat16),
+               lambda: torch._int_mm(x8, w8.t()).to(torch.bfloat16), t_cube)
+    t_bf16 = {}
+    plain_ms, lib_ms = gemm_times(
+        f"bf16_mm {cube}^3", lambda t: Q.bf16_mm(xb, wb, tile=t),
+        lambda: Q.bf16_mm_reference(xb, wb), lambda: xb @ wb.t(), t_bf16)
+    rows.append(row("bf16_mm", "videotgb_torch/csrc/bf16_mm.cu",
+                    "tools/int8pallas_probe.py:80", bf16_err, t_bf16[0],
+                    plain_ms, 6 * cube * cube, 2 * cube ** 3, "bfloat16",
+                    lib_ms))
+    flops = 2 * cube ** 3
+    log(f"  rates at {cube}^3 on {card}: int8 " + ", ".join(
+        f"{Q.TILES[t]} {flops / ms / 1e9:.1f} TOP/s" for t, ms in
+        t_cube.items()) + "; bf16 " + ", ".join(
+        f"{Q.TILES[t]} {flops / ms / 1e9:.1f} TF/s" for t, ms in
+        t_bf16.items()) + f"; bounds int8 {flops / PEAK_FLOPS['int8'] * 1e3:.4f}"
+        f" ms, bf16 {flops / PEAK_FLOPS['bfloat16'] * 1e3:.4f} ms (operations)")
+    for r in rows:
+        log(f"  {r['name']} row: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), library {r['library_ms']:.4f} ms")
+    del x8, w8, xb, wb, xv, wv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def device_breakdown(name, fn, card) -> None:
+    """One traced run of ``fn`` (after an untraced one): device time by
+    kernel family and the device's idle share of the synchronised wall
+    time (the trace's own cost included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    busy = sum(by_name.values())
+    if not busy:
+        log(f"  {name}: the profiler recorded no device time (traced wall "
+            f"{wall:.2f} ms)")
+        return
+    families = {"kernel H": ("gemm_kernel",), "kernel A": ("flash_fwd",),
+                "cuBLAS/cuDNN": ("gemm", "xmma", "cutlass", "nvjet", "conv",
+                                 "cudnn")}
+    fam = dict.fromkeys((*families, "eager elementwise/reductions/copies"),
+                        0.0)
+    for kname, ms in by_name.items():
+        key = next((f for f, keys in families.items()
+                    if any(k in kname for k in keys)),
+                   "eager elementwise/reductions/copies")
+        fam[key] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  {name}, traced: device busy {busy:.2f} ms of {wall:.2f} ms wall "
+        f"(idle share {1 - busy / wall:.3f}); by family " + ", ".join(
+            f"{f} {ms:.2f} ms" for f, ms in fam.items()) + "; top kernels "
+        + "; ".join(f"{k[:48]} {ms:.2f} ms" for k, ms in top) + f" on {card}")
+
+
+def int8_serving_path(card: str) -> int:
+    """The W8A8 flagship for 4 requests; returns int8_mm's launches in the
+    counted select -> answer run."""
+    import torch
+
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.models.vit import ViTModel
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.ops import quant as Q
+    from videotgb_torch.ops.decode import DecodeConfig
+
+    dev = torch.device("cuda")
+    cfg = V.bf16_param_config(V.VideoTGBConfig.flagship())
+    blip2 = dataclasses.replace(cfg.blip2, vit=dataclasses.replace(
+        cfg.blip2.vit, quant="int8"))  # bench.py's BENCH_INT8 configuration
+    cfg = dataclasses.replace(cfg, blip2=blip2, raft=dataclasses.replace(
+        cfg.raft, dtype=torch.bfloat16))
+    t0 = time.perf_counter()
+    model = V.VideoTGB(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"  W8A8 flagship built in {time.perf_counter() - t0:.2f} s")
+    b, n_flow, text_len, img = 4, 5, 24, cfg.blip2.vit.image_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames_u8 = torch.randint(0, 256, (b, cfg.num_frames, img, img, 3),
+                              generator=gen, device=dev, dtype=torch.uint8)
+    fs = cfg.tgb.flow_size
+    flow_u8 = torch.randint(0, 256, (b, n_flow, fs, fs, 3), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    batch = _batch(cfg, b, n_flow - 1, text_len, gen, dev)
+    dcfg = DecodeConfig(max_new_tokens=16,
+                        eos_token_id=cfg.blip2.t5.eos_token_id,
+                        pad_token_id=cfg.blip2.t5.pad_token_id)
+    sel_gen = torch.Generator(device=dev)
+    times = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def drive():
+        sel_gen.manual_seed(7)
+        cand = run("select_phase_blip2", lambda: V.select_phase_blip2(
+            model, flow_u8, batch, generator=sel_gen))
+        after_select = dict(kernels.LAUNCHES)
+        sel = frames_u8[torch.arange(b, device=dev)[:, None], cand]
+        tokens = run("answer_phase_blip2 (int8 ViT-g)",
+                     lambda: V.answer_phase_blip2(model, sel, batch, dcfg))
+        return cand, sel, tokens, after_select
+
+    drive()  # warm, uncounted
+    kernels.reset_launches()
+    cand, sel, tokens, after_select = drive()
+    end = dict(kernels.LAUNCHES)
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    layers = cfg.blip2.vit.num_layers
+    for phase, got, want in (
+            ("select_phase_blip2", after_select,
+             {**zero, "corr_lookup": cfg.raft.iters}),
+            ("answer_phase_blip2", {k: end[k] - after_select[k] for k in end},
+             {**zero, "flash_fwd": layers, "int8_mm": 6 * layers})):
+        log(f"  W8A8 launches in {phase}: {got} (expected {want})")
+        if got != want:
+            fail(f"W8A8 launch counts of {phase}: {got} != {want}")
+    if tuple(tokens.shape) != (b, 16) or int(tokens.min()) < 0 or int(
+            tokens.max()) >= cfg.blip2.t5.vocab_size:
+        fail(f"W8A8 answer tokens {tuple(tokens.shape)} out of range")
+
+    mean = torch.tensor((0.48145466, 0.4578275, 0.40821073), device=dev)
+    std = torch.tensor((0.26862954, 0.26130258, 0.27577711), device=dev)
+    frames = ((sel.float() / 255.0 - mean) / std).reshape(
+        b * cfg.nframe, img, img, 3)
+    vit_q = model.model.vision_model
+    denses = [m for m in vit_q.modules() if hasattr(m, "use_kernel")]
+    with torch.no_grad():
+        out_k = vit_q(frames)
+        for m in denses:
+            m.use_kernel = False
+        out_p = vit_q(frames)
+        for m in denses:
+            m.use_kernel = True
+        same = torch.equal(out_k, out_p)
+        log(f"  ViT-g W8A8 over {b * cfg.nframe} images: kernel H route "
+            f"bit-identical to the plain route {same}")
+        if not same:
+            fail("the W8A8 ViT-g differs between kernel H and its plain "
+                 "version")
+        vit_b = ViTModel(dataclasses.replace(cfg.blip2.vit, quant=None),
+                         device=dev)
+        vit_b.load_state_dict(vit_q.state_dict())
+        out_b = vit_b(frames)
+        a, q = out_b.float(), out_k.float()
+        rel = rel_diff(q, a)
+        cos = float(((a * q).sum(-1) / (a.norm(dim=-1) * q.norm(dim=-1)
+                                         + 1e-8)).min())
+        ok = rel < 0.08 and cos > 0.99
+        log(f"  ViT-g W8A8 against bf16, same weights and images: relative "
+            f"{rel:.4e} (gate < 0.08), min token cosine {cos:.6f} (gate > "
+            f"0.99; the JAX package's tests/test_quant.py) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("the W8A8 ViT-g is outside the int8 gate of the bf16 tower")
+        vit_ms = {"int8": time_ms(lambda: vit_q(frames), iters=5, warmup=1),
+                  "bf16": time_ms(lambda: vit_b(frames), iters=5, warmup=1)}
+        device_breakdown(f"ViT-g W8A8 over {b * cfg.nframe} images",
+                         lambda: vit_q(frames), card)
+        device_breakdown(f"ViT-g bf16 over {b * cfg.nframe} images",
+                         lambda: vit_b(frames), card)
+        # the int8 tower's parts at its own shapes, summed over 39 layers
+        parts = dict.fromkeys(("int8_mm", "weight quantize",
+                               "activation quantize", "dequant + bias",
+                               "int8_matmul + bias (whole)",
+                               "bf16 F.linear"), 0.0)
+        layer = vit_q.layers[0]
+        for (m, k, n, per_layer), dense in zip(
+                VIT_GEMMS, (layer.attn.q, layer.mlp.wi, layer.mlp.wo)):
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            w = dense.weight
+            bias = dense.bias.to(torch.bfloat16)
+            xq, xs = Q.quantize_rows(x)
+            wq, ws = Q.quantize_cols(w.T)
+            acc = Q.int8_mm(xq, wq.T)
+            reps = per_layer * layers
+            for name, fn in (
+                    ("int8_mm", lambda: Q.int8_mm(xq, wq.T)),
+                    ("weight quantize", lambda: Q.quantize_cols(w.T)),
+                    ("activation quantize", lambda: Q.quantize_rows(x)),
+                    ("dequant + bias", lambda: (acc.float() * xs * ws).to(
+                        torch.bfloat16) + bias),
+                    ("int8_matmul + bias (whole)", lambda: dense(x)),
+                    ("bf16 F.linear", lambda: torch.nn.functional.linear(
+                        x, w, bias))):
+                parts[name] += time_ms(fn, iters=10, warmup=2) * reps
+        del vit_b
+    log(f"  ViT-g over {b * cfg.nframe} images: int8 {vit_ms['int8']:.2f} "
+        f"ms, bf16 {vit_ms['bf16']:.2f} ms on {card}")
+    log("  the int8 tower's products, each part timed alone at its shapes x "
+        f"its count per pass: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in parts.items()) + f" on {card}")
+
+    # the answer phase with the bf16 ViT-g in the same model
+    model.model.vision_model = ViTModel(dataclasses.replace(
+        cfg.blip2.vit, quant=None), device=dev)
+    model.model.vision_model.load_state_dict(vit_q.state_dict())
+    for _ in range(2):  # the first one warm-up
+        run("answer_phase_blip2 (bf16 ViT-g)",
+            lambda: V.answer_phase_blip2(model, sel, batch, dcfg))
+    model.model.vision_model = vit_q
+    for name, ms in times.items():
+        log(f"  wall {name}: {ms:.2f} ms on {card}")
+    del model
+    return end["int8_mm"]
+
+
+def check_int8_tools(card: str) -> int:
+    """The three int8 tools; returns bf16_mm's launches in the GEMM
+    probe's counted run."""
+    from videotgb_torch.ops import quant as Q
+    from videotgb_torch.tools import int8pallas_probe, int8probe, int8sweep
+
+    iters = 3
+    calls = len(Q.TILES) * (iters + 1)  # one warm-up call per line
+    log(f"  the GEMM probe: python -m videotgb_torch.tools.int8pallas_probe "
+        f"--iters {iters}")
+    got = counted("the GEMM probe at 8192^3",
+                  lambda: int8pallas_probe.main(["--iters", str(iters)]),
+                  {"int8_mm": calls, "bf16_mm": calls})
+    log(f"  the sweep: python -m videotgb_torch.tools.int8sweep --iters "
+        f"{iters}")
+    int8sweep.main(["--iters", str(iters)])
+    log("  the tower probe: python -m videotgb_torch.tools.int8probe "
+        "--iters 2")
+    int8probe.main(["--iters", "2"])
+    return got["bf16_mm"]
+
+
 def main() -> None:
     try:
         import torch
@@ -1218,6 +1580,7 @@ def main() -> None:
         fail(f"the videotgb_torch package is not beside chip_smoke.py ({e})")
 
     card = card_line()
+    t_run = time.perf_counter()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     reports = kernels.build_all()
@@ -1256,10 +1619,24 @@ def main() -> None:
     add_ln, ln = check_ln(card)
     log("phase 11: kernel G, flash attention in (B, S, H, D) (layout probe)")
     bshd = check_bshd(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    log("phase 12: kernel H, int8 and bf16 GEMMs; the W8A8 serving path; "
+        "the int8 tools")
+    int8_row, bf16_row = check_gemms(card)
+    int8_row["launches"] = int8_serving_path(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_row["launches"] = check_int8_tools(card)
+    done = time.perf_counter()
+    log(f"phases 1-12 ran in {done - t_run:.1f} s, phase 12 in "
+        f"{done - t12:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (
-        flash, lookup, flash_bwd, select, blocked, add_ln, ln, bshd)]}
+        flash, lookup, flash_bwd, select, blocked, add_ln, ln, bshd, int8_row,
+        bf16_row)]}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

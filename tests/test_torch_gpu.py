@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from videotgb_torch.models import videotgb as V
+from videotgb_torch.models.common import init_params
+from videotgb_torch.models.vit import ViTConfig, ViTModel
 from videotgb_torch.ops import kernels
 from videotgb_torch.ops.attention import (
     NEG_INF,
@@ -29,6 +31,14 @@ from videotgb_torch.ops.correlation_pallas import (
     lookup_corr_pyramid_t_plain,
 )
 from videotgb_torch.ops.decode import DecodeConfig
+from videotgb_torch.ops.quant import (
+    TILES,
+    bf16_mm,
+    bf16_mm_reference,
+    bf16_ulp,
+    int8_mm,
+    int8_mm_reference,
+)
 from videotgb_torch.ops.select_pallas import (
     select_frames_pallas,
     select_frames_pallas_reference,
@@ -457,3 +467,105 @@ def test_selection_and_probe_wrappers_raise_on_bad_inputs(cuda):
     q = torch.randn((1, 8, 2, 160), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_bshd(q, q, q, 1.0)
+
+
+# ------------------------------------------------------------------ kernel H
+INT8_SHAPES = [(48, 64, 40), (1001, 1424, 999), (300, 2064, 257)]  # M, K, N
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("tile", range(len(TILES)))
+def test_int8_mm_kernel_equals_plain(cuda, tile, out_dtype):
+    """Bit for bit at ragged M and N and K past a whole 128-byte slice, each
+    block tiling, both epilogues."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    for m, k, n in INT8_SHAPES:
+        x = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        w_t = torch.randint(-127, 128, (n, k), generator=gen, device=cuda,
+                            dtype=torch.int8)
+        before = kernels.LAUNCHES["int8_mm"]
+        got = int8_mm(x, w_t, out_dtype, tile=tile)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["int8_mm"] == before + 1
+        assert got.dtype == out_dtype and tuple(got.shape) == (m, n)
+        assert torch.equal(got, int8_mm_reference(x, w_t, out_dtype))
+
+
+@pytest.mark.gpu
+def test_int8_mm_kernel_saturated_and_double_rounded(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    m, k, n = 136, 8192, 72
+    sign = torch.randint(0, 2, (m + n, k), generator=gen, device=cuda) * 2 - 1
+    x, w_t = (sign * 127).to(torch.int8).split([m, n])
+    for out_dtype in (torch.int32, torch.bfloat16):
+        assert torch.equal(int8_mm(x, w_t, out_dtype),
+                           int8_mm_reference(x, w_t, out_dtype))
+    full = torch.full((16, k), 127, dtype=torch.int8, device=cuda)
+    assert int(int8_mm(full, full).max()) == 127 * 127 * k
+    # 2088 * 127^2 + 127 * 64 + 5 * 5 = 2^25 + 2^17 + 1: bf16 via f32 is 2^25
+    x = torch.zeros((1, 2096), dtype=torch.int8, device=cuda)
+    w_t = torch.zeros_like(x)
+    x[0, :2090] = 127
+    w_t[0, :2088] = 127
+    w_t[0, 2088] = 64
+    x[0, 2089] = w_t[0, 2089] = 5
+    assert int8_mm(x, w_t).item() == 2 ** 25 + 2 ** 17 + 1
+    assert int8_mm(x, w_t, torch.bfloat16).item() == 2 ** 25
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", range(len(TILES)))
+def test_bf16_mm_kernel_within_one_ulp(cuda, tile):
+    """One bf16 ulp for a rounding flipped by the f32 summation order, plus
+    that order's own difference (<= K * 2^-24 * max|x| * max|w|)."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    for m, k, n in INT8_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        w_t = torch.randn((n, k), generator=gen, device=cuda).to(
+            torch.bfloat16)
+        before = kernels.LAUNCHES["bf16_mm"]
+        got = bf16_mm(x, w_t, tile=tile)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["bf16_mm"] == before + 1
+        want = bf16_mm_reference(x, w_t).float()
+        order = k * 2.0 ** -24 * float(x.float().abs().max()
+                                       * w_t.float().abs().max())
+        err = (got.float() - want).abs()
+        assert bool((err <= bf16_ulp(want) + order).all()), float(err.max())
+
+
+@pytest.mark.gpu
+def test_int8_vit_on_the_kernel_equals_its_plain_route(cuda):
+    """The int32 product is exact, so kernel H and its plain version give a
+    bit-identical tower; 6 launches per layer."""
+    cfg = dataclasses.replace(ViTConfig.tiny(), quant="int8")
+    vit = init_params(ViTModel(cfg, device=cuda), seed=7)
+    pix = torch.randn((2, 56, 56, 3), generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = vit(pix)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["int8_mm"] == 6 * cfg.num_layers
+        for m in vit.modules():
+            if hasattr(m, "use_kernel"):
+                m.use_kernel = False
+        want = vit(pix)
+    assert kernels.LAUNCHES["int8_mm"] == 6 * cfg.num_layers
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_h_wrappers_raise_on_what_they_do_not_take(cuda):
+    x = torch.zeros((32, 24), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_mm(x, x)
+    x = torch.zeros((32, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="tile"):
+        int8_mm(x, x, tile=len(TILES))
+    with pytest.raises(ValueError, match="out_dtype"):
+        int8_mm(x, x, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        bf16_mm(x, x)

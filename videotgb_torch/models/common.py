@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from videotgb_torch.ops.attention import dot_product_attention, flash_attention
+from videotgb_torch.ops.quant import int8_matmul
 
 
 # ------------------------------------------------------------ initialisation
@@ -53,12 +54,24 @@ def _param(shape, dtype, device):
 
 
 class Dense(nn.Module):
-    """Linear layer computing in ``dtype`` (flax ``nn.Dense`` semantics)."""
+    """Linear layer computing in ``dtype`` (flax ``nn.Dense`` semantics).
+
+    ``quant="int8"`` is the JAX package's ``QuantDense``: the product goes
+    through ``ops.quant.int8_matmul`` (W8A8 dynamic, kernel H on the card)
+    and the bias is added after the dequant, in ``dtype``. The parameters,
+    and so the ``state_dict``, are the same either way. ``use_kernel`` (an
+    attribute, True) lets the int8 product take kernel H; set it False to
+    run its plain version on any device."""
 
     def __init__(self, in_features, out_features, use_bias=True,
-                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32, device=None,
+                 quant=None):
         super().__init__()
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant {quant!r}: None or 'int8'")
         self.dtype = dtype
+        self.quant = quant
+        self.use_kernel = True
         self.weight = _param((out_features, in_features), param_dtype, device)
         self.bias = (_param((out_features,), param_dtype, device)
                      if use_bias else None)
@@ -72,7 +85,11 @@ class Dense(nn.Module):
     def forward(self, x):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if self.quant is None:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = int8_matmul(x.to(dt), self.weight.to(dt).T, out_dtype=dt,
+                        kernel=self.use_kernel)
+        return y if bias is None else y + bias
 
 
 class Embed(nn.Module):
@@ -150,16 +167,19 @@ class MultiHeadAttention(nn.Module):
     """Attention used by every tower. ``kv_features`` is the width of the
     cross-attention source (the query stream's width by default).
     ``use_flash`` (an attribute, True) lets long sequences take the flash
-    kernel; set it False to run the plain version everywhere."""
+    kernel; set it False to run the plain version everywhere. ``quant``
+    ("int8") routes the q/k/v/o projections through the int8 product; the
+    scores and values stay in ``dtype``."""
 
     def __init__(self, features, num_heads, head_dim, kv_features=None,
                  out_features=None, use_bias=True, scale=None,
-                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32, device=None,
+                 quant=None):
         super().__init__()
         inner = num_heads * head_dim
         kv_features = kv_features or features
         kw = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
-                  device=device)
+                  device=device, quant=quant)
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.scale = scale
@@ -231,20 +251,29 @@ def dropout(x, rate, generator=None, deterministic=True):
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+_ACTS = {"gelu": "none", "gelu_new": "tanh"}  # F.gelu's approximate=
+
+
 class Mlp(nn.Module):
-    """Transformer FFN with exact (erf) gelu, as the ViT, Q-Former and TGB
-    use it."""
+    """Transformer FFN, as the ViT, Q-Former and TGB use it. ``act`` is
+    "gelu" (exact erf, HF ``nn.GELU``) or "gelu_new" (the tanh
+    approximation); ``quant`` ("int8") routes both products through the
+    int8 product."""
 
     def __init__(self, features, hidden, use_bias=True, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, act="gelu",
+                 quant=None):
         super().__init__()
+        if act not in _ACTS:
+            raise ValueError(f"unknown act {act!r}: one of {sorted(_ACTS)}")
+        self.approximate = _ACTS[act]
         kw = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
-                  device=device)
+                  device=device, quant=quant)
         self.wi = Dense(features, hidden, **kw)
         self.wo = Dense(hidden, features, **kw)
 
     def forward(self, x):
-        return self.wo(F.gelu(self.wi(x)))
+        return self.wo(F.gelu(self.wi(x), approximate=self.approximate))
 
 
 class PatchConv(nn.Module):

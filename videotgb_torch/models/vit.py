@@ -7,6 +7,14 @@ The token axis is padded once after the embeddings to a multiple of 8
 (257 -> 264) with the pad keys masked by a (1, 1, 1, S) f32 bias; every
 layer's attention then runs through the flash kernel at S = 264 with that
 bias, and real-token outputs are those of the unpadded sequence.
+
+``ViTConfig.quant="int8"`` is the W8A8 serving configuration of the JAX
+package: every q/k/v/o and MLP projection goes through
+``ops.quant.int8_matmul`` (kernel H on the card, 6 launches per layer),
+attention scores and values stay in ``dtype``. ``act`` picks the MLP's gelu
+("gelu_new" is the tanh approximation). The JAX config's ``scan_layers``
+has no counterpart: eager PyTorch runs the layers in a Python loop either
+way, and the parameters keep one ``layers.{i}`` scope per layer.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ class ViTConfig:
     num_heads: int = 16
     intermediate_size: int = 6144
     layer_norm_eps: float = 1e-6
+    act: str = "gelu"  # or "gelu_new" (tanh approximation)
+    quant: str | None = None  # "int8": W8A8 projections (serving only)
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -83,9 +93,10 @@ class ViTLayer(nn.Module):
         d = cfg.hidden_size
         self.ln1 = LayerNorm(d, cfg.layer_norm_eps, **kw)
         self.attn = MultiHeadAttention(d, cfg.num_heads, d // cfg.num_heads,
-                                       **kw)
+                                       quant=cfg.quant, **kw)
         self.ln2 = LayerNorm(d, cfg.layer_norm_eps, **kw)
-        self.mlp = Mlp(d, cfg.intermediate_size, **kw)
+        self.mlp = Mlp(d, cfg.intermediate_size, act=cfg.act,
+                       quant=cfg.quant, **kw)
 
     def forward(self, x, bias=None):
         attn, _ = self.attn(self.ln1(x), bias=bias)

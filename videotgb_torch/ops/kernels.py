@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Builds happen at first use, never
 at import, into ``build/`` beside the package; a library's file name carries
-a hash of its source, so an edited kernel is rebuilt. :func:`build_all`
-starts one ``nvcc`` per source, all at once.
+a hash of its source and of the shared ``csrc/*.cuh`` headers, so an edited
+kernel is rebuilt. :func:`build_all` starts one ``nvcc`` per source, all at
+once.
 
 ``LAUNCHES`` holds one plain integer per kernel, the CUDA ones of
 ``SOURCES`` and the Triton ones of ``TRITON_KERNELS``; a wrapper adds one
@@ -27,7 +28,8 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "corr_lookup": "corr_lookup.cu",
            "select_frames": "select_frames.cu",
            "corr_lookup_blocked": "corr_lookup_blocked.cu",
-           "flash_bshd": "flash_bshd.cu"}
+           "flash_bshd": "flash_bshd.cu",
+           "int8_mm": "int8_mm.cu", "bf16_mm": "bf16_mm.cu"}
 # compiled by Triton at first launch (videotgb_torch/tools/lnprobe.py)
 TRITON_KERNELS = ("add_ln", "ln")
 LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, *TRITON_KERNELS)}
@@ -65,6 +67,10 @@ _SIGNATURES = {
     # head) x4, scale, dtype, stream) -> cudaError_t
     "flash_bshd": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12
                   + [ctypes.c_float, _I, _P],
+    # int8_mm(a, b, c, M, N, K, out_kind, tile, stream) -> cudaError_t
+    "int8_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # bf16_mm(a, b, c, M, N, K, tile, stream) -> cudaError_t
+    "bf16_mm": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -80,8 +86,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    sha = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        sha.update(header.read_bytes())
+    digest = sha.hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 
