@@ -9,9 +9,15 @@ Phases, each fatal on failure (exit code 1):
    of every kernel in ``videotgb_torch/csrc`` (one process per source);
 2. kernel A (flash-attention forward) against its plain PyTorch version at
    the main-path shape (ViT-g: 16 images x 16 heads x 264 x 88, bf16, a
-   (1,1,1,264) pad bias) and at the other bias layouts, f32, and a fully
-   masked row; timed beside the plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
+   (1,1,1,264) pad bias) and at the other bias layouts, f32, an unaligned
+   bf16 view, and a fully masked row in f32 and bf16, each on the body
+   ``flash_body`` picks (tensor cores for aligned bf16, CUDA cores for the
+   rest); timed on the tensor-core body beside the plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
+   at the serving shape, the E2E ViT-g shape (32 images) and the T5-xl
+   encoder's (8, 32, 160, 64) with its (8, 32, 160, 160) f32 bias, as
+   device time per call (calls captured in a CUDA graph: a call's host
+   overhead exceeds the kernel's time);
 3. kernel B (RAFT correlation lookup) against its plain version at 16 pairs,
    28x28 queries, 4 levels, r = 4, f32 and bf16, coordinates partly off the
    image; timed beside the plain version;
@@ -54,8 +60,9 @@ Phases, each fatal on failure (exit code 1):
    with exact launches (2 per layer, 1 flash forward per layer); timed
    beside ``F.layer_norm``; then the probe tool;
 11. kernel G (flash attention in (B, S, H, D)) at 128 x 264 x 16 x 88, f32
-   and bf16, against its plain version and kernel A on the transposes; 1
-   launch per layer of the stack; timed beside SDPA; then the probe tool;
+   (CUDA-core body) and bf16 (tensor-core body), against its plain version
+   and kernel A on the transposes; 1 launch per layer of the stack; timed
+   beside SDPA; then the probe tool;
 12. kernel H (int8 and bf16 tensor-core GEMMs): int8 bit for bit with its
    plain version (int32 and bf16 epilogues, every block tiling) at 8192^3,
    at the int8 ViT-g's three product shapes, at odd M and N, with +-127
@@ -70,8 +77,11 @@ Phases, each fatal on failure (exit code 1):
    then the three int8 tools (the GEMM probe counted: its kernel-H lines
    launch int8_mm and bf16_mm once per call).
 
-The last three lines are a JSON object of per-kernel numbers, the card's
-name and power limit, and a JSON object ``{"ok": true, "device": {...}}``.
+Every counted run of a path also checks that each launch of kernels A and
+G ran the tensor-core body (``kernels.MMA_LAUNCHES``): the paths hand them
+bf16 with 16-byte rows only. The last three lines are a JSON object of
+per-kernel numbers, the card's name and power limit, and a JSON object
+``{"ok": true, "device": {...}}``.
 Needs one CUDA card; exits non-zero without one, or without the package.
 """
 
@@ -127,6 +137,40 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=50, reps=3) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, its replays timed with CUDA events (the median of ``reps``), so
+    the host's launch overhead, which exceeds a short kernel's time, is not
+    in it."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(times)
+
+
 def check_close(name, got, want, atol, rtol, reason) -> float:
     import torch
 
@@ -161,27 +205,58 @@ def check_to_largest(name, got, want, tol, reason) -> float:
     return max_err
 
 
+# Tile<DP, MT>::kBytes of csrc/flash_mma.cuh: 64 MT rows of Q and two
+# stages of 64 rows of K and V, each DP bf16 padded by 16 bytes (dynamic, so
+# ptxas does not see it)
+def flash_mma_smem(dp: int, mt: int) -> int:
+    return (64 * mt + 4 * 64) * (2 * dp + 16)
+
+
 def ptxas_summary(report: str) -> list[str]:
     """One line per kernel instantiation of an ``nvcc -Xptxas -v`` report:
-    its name (kernel<dtype, head-dim chunks of 32> where the mangled name
-    reads so), registers and spills."""
+    its name (kernel<dtype, head-dim chunks of 32> or flash_mma_kernel<DP,
+    m-tiles, bias> where the mangled name reads so), registers, spills and
+    shared memory (static, as ptxas counts it; the tensor-core flash body's
+    dynamic share beside it)."""
     out, fn, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            fn = m.group(1)
+            fn, dyn = m.group(1), ""
             t = re.search(r"\d+([a-z_]+)I(f|13__nv_bfloat16)Li(\d+)E", fn)
+            u = re.search(r"\d+([a-z_]+)ILi(\d+)ELi(\d)ELi([012])E", fn)
             if t:
                 dtype = "f32" if t.group(2) == "f" else "bf16"
                 fn = f"{t.group(1)}<{dtype}, {t.group(3)}>"
+            elif u:
+                dp, mt = int(u.group(2)), int(u.group(3))
+                bias = ("no bias", "row bias",
+                        "full bias")[int(u.group(4))]
+                fn = f"{u.group(1)}<{dp}, {mt} m-tiles, {bias}>"
+                dyn = f" + {flash_mma_smem(dp, mt)} bytes dynamic"
         elif fn and "spill" in line:
             spill = line.strip()
         elif fn and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             out.append(f"{fn}: {regs.group(1) if regs else '?'} registers, "
-                       f"{spill}")
+                       f"{spill}, shared memory "
+                       f"{smem.group(1) if smem else 0} bytes static{dyn}")
             fn, spill = None, ""
     return out
+
+
+def check_mma(name: str, launches: dict) -> None:
+    """Fail unless every launch of kernels A and G in ``launches`` ran the
+    tensor-core body (``kernels.MMA_LAUNCHES``, reset with the counts)."""
+    from videotgb_torch.ops import kernels
+
+    mma = dict(kernels.MMA_LAUNCHES)
+    want = {k: launches.get(k, 0) for k in mma}
+    log(f"  tensor-core body launches in {name}: {mma} (expected {want})")
+    if mma != want:
+        fail(f"{name}: flash launches off the tensor-core body: {mma} != "
+             f"{want}")
 
 
 def rel_diff(a, b) -> float:
@@ -194,6 +269,7 @@ def check_flash(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from videotgb_torch.ops import kernels
     from videotgb_torch.ops.attention import NEG_INF, dot_product_attention, flash_attention
 
     dev = torch.device("cuda")
@@ -207,59 +283,110 @@ def check_flash(card: str) -> dict:
         return [torch.randn((b, s, h, d), generator=gen, device=dev).to(
             dtype).transpose(1, 2) for _ in range(3)]
 
-    def case(name, b, h, s, d, dtype, bias):
-        q, k, v = qkv(b, h, s, d, dtype)
-        got = flash_attention(q, k, v, bias)
+    def body_of(q, k, v, bias):
+        """One launch of kernel A; returns (out, the body that ran)."""
+        before = kernels.MMA_LAUNCHES["flash_fwd"]
+        out = flash_attention(q, k, v, bias)
+        return out, ("mma" if kernels.MMA_LAUNCHES["flash_fwd"] > before
+                     else "fma")
+
+    def case(name, tensors, bias, want_body):
+        q, k, v = tensors
+        got, ran = body_of(q, k, v, bias)
         want = dot_product_attention(q, k, v, bias)
         torch.cuda.synchronize()
-        atol, rtol, why = tol[dtype]
-        return check_close(f"flash {name}", got, want, atol, rtol, why), (q, k, v)
+        if ran != want_body:
+            fail(f"flash {name}: ran the {ran} body, not {want_body}")
+        atol, rtol, why = tol[q.dtype]
+        return check_close(f"flash {name} [{ran} body]", got, want, atol,
+                           rtol, why)
 
     b, h, s, d = 16, 16, 264, 88
     keys = torch.arange(s, device=dev)
     pad_bias = torch.where(keys < 257, 0.0, NEG_INF).float()[None, None, None]
-    err_main, (q, k, v) = case("main (16,16,264,88) bf16 pad bias (1,1,1,264)",
-                               b, h, s, d, torch.bfloat16, pad_bias)
+    main_qkv = qkv(b, h, s, d, torch.bfloat16)
+    err_main = case("main (16,16,264,88) bf16 pad bias (1,1,1,264)",
+                    main_qkv, pad_bias, "mma")
     lens = torch.randint(100, s + 1, (b,), generator=gen, device=dev)
     per_batch = torch.where(keys[None] < lens[:, None], 0.0,
                             NEG_INF).float()[:, None, None]
-    case("per-batch padding bias (B,1,1,S)", b, h, s, d, torch.bfloat16,
-         per_batch)
-    case("per-row bias (B,H,S,S)", 2, h, s, d, torch.bfloat16,
-         torch.randn((2, h, s, s), generator=gen, device=dev))
-    case("learned bias (1,H,S,S) S=300 D=64", 2, 12, 300, 64, torch.bfloat16,
-         torch.randn((1, 12, 300, 300), generator=gen, device=dev))
-    case("no bias", 4, h, s, d, torch.bfloat16, None)
-    case("f32 pad bias", 4, h, s, d, torch.float32, pad_bias)
+    case("per-batch padding bias (B,1,1,S)", qkv(b, h, s, d, torch.bfloat16),
+         per_batch, "mma")
+    case("per-row bias (B,H,S,S)", qkv(2, h, s, d, torch.bfloat16),
+         torch.randn((2, h, s, s), generator=gen, device=dev), "mma")
+    case("learned bias (1,H,S,S) S=300 D=64", qkv(2, 12, 300, 64,
+                                                 torch.bfloat16),
+         torch.randn((1, 12, 300, 300), generator=gen, device=dev), "mma")
+    case("no bias", qkv(4, h, s, d, torch.bfloat16), None, "mma")
+    case("f32 pad bias", qkv(4, h, s, d, torch.float32), pad_bias, "fma")
+    # a bf16 view 4 elements (8 bytes) past an allocation: rows not 16-byte
+    # aligned, so the CUDA-core body takes it
+    flat = torch.randn((3, 4 + 4 * s * h * d), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    shifted = [t[4:].view(4, s, h, d).transpose(1, 2) for t in flat]
+    case("bf16 view offset by 4 elements", shifted, pad_bias, "fma")
     masked = torch.zeros((1, 1, s, s), device=dev)
     masked[..., 10, :] = NEG_INF
-    err, (mq, mk, mv) = case("fully masked row 10", 2, h, s, d, torch.float32,
-                             masked)
-    row = flash_attention(mq, mk, mv, masked)[:, :, 10]
-    check_close("flash masked row = mean of v", row, mv.float().mean(dim=2),
-                1e-4, 1e-4, "the plain softmax's uniform average")
+    for dtype, want_body in ((torch.float32, "fma"),
+                             (torch.bfloat16, "mma")):
+        mq, mk, mv = qkv(2, h, s, d, dtype)
+        case(f"fully masked row 10 {dtype}", (mq, mk, mv), masked, want_body)
+        row = flash_attention(mq, mk, mv, masked)[:, :, 10]
+        check_close(f"flash masked row = mean of v, {dtype}", row,
+                    mv.float().mean(dim=2), *tol[dtype][:2],
+                    "the plain softmax's uniform average")
 
-    scale = d ** -0.5
-    ms = time_ms(lambda: flash_attention(q, k, v, pad_bias))
-    plain_ms = time_ms(lambda: dot_product_attention(q, k, v, pad_bias))
-    mask_bf16 = pad_bias.to(torch.bfloat16)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask_bf16, scale=scale))
-    elem = q.element_size()
-    nbytes = 4 * b * h * s * d * elem + pad_bias.numel() * 4
-    flops = 4 * b * h * s * s * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    log(f"  flash main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) on {card}")
+    def timed(name, tensors, bias):
+        """Kernel A, the plain version and SDPA at one shape, each as device
+        time per call (``graph_ms``), the kernel also per eager call; the
+        bound is q, k, v, out and the bias each moved once, or the products
+        at the bf16 peak, the larger."""
+        q, k, v = tensors
+        nb, nh, sq, dh = q.shape
+        _, ran = body_of(q, k, v, bias)
+        if ran != "mma":
+            fail(f"flash {name}: ran the {ran} body, not mma")
+        ms = graph_ms(lambda: flash_attention(q, k, v, bias))
+        eager_ms = time_ms(lambda: flash_attention(q, k, v, bias))
+        plain_ms = graph_ms(lambda: dot_product_attention(q, k, v, bias),
+                            iters=5)
+        mask = None if bias is None else bias.to(q.dtype)
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=dh ** -0.5))
+        nbytes = 4 * q.numel() * q.element_size() + (
+            0 if bias is None else bias.numel() * bias.element_size())
+        flops = 4 * nb * nh * sq * sq * dh
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        log(f"  flash {name} [{ran} body]: kernel {ms:.4f} ms ({eager_ms:.4f}"
+            f" ms a call from eager Python), plain {plain_ms:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP) on {card}")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    main = timed("ViT-g serving (16,16,264,88) pad bias (1,1,1,264)",
+                 main_qkv, pad_bias)
+    timed("ViT-g E2E (32,16,264,88) pad bias (1,1,1,264)",
+          qkv(32, h, s, d, torch.bfloat16), pad_bias)
+    # the T5-xl encoder: relative positions (1,H,S,S) + padding (B,1,1,S),
+    # summed into one (B,H,S,S) f32 bias as the model hands it over
+    t5_lens = torch.randint(120, 161, (8,), generator=gen, device=dev)
+    t5_keys = torch.arange(160, device=dev)
+    t5_bias = (torch.randn((1, 32, 160, 160), generator=gen, device=dev)
+               + torch.where(t5_keys[None] < t5_lens[:, None], 0.0,
+                             NEG_INF).float()[:, None, None])
+    t5_qkv = qkv(8, 32, 160, 64, torch.bfloat16)
+    case("T5-xl encoder (8,32,160,64) bias (8,32,160,160)", t5_qkv, t5_bias,
+         "mma")
+    timed("T5-xl encoder (8,32,160,64) bias (8,32,160,160)", t5_qkv,
+          t5_bias)
     return {"name": "flash_fwd", "route": "cuda",
             "source": "videotgb_torch/csrc/flash_fwd.cu",
             "replaces": "videotgb_tpu/ops/attention.py:54",
-            "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms}
+            "max_abs_err": err_main, **main}
 
 
 # ------------------------------------------------------------------ kernel B
@@ -447,6 +574,7 @@ def main_path(card: str) -> tuple[dict, dict]:
             b, n_flow - 1, fs, fs, 2):
         fail(f"flow features {tuple(flow.shape)} not finite")
     check_tokens("generate_blip2", tokens_g)
+    check_mma("the serving run", end)
 
     per_phase = {
         "select_phase_blip2": {k: after_select[k] for k in end},
@@ -722,6 +850,7 @@ def train_steps(name, trainer, state, batch, expected, card) -> dict:
         if launches != expected:
             fail(f"{name} launch counts of {step_name}: {launches} != "
                  f"{expected}")
+        check_mma(f"{name} {step_name}", launches)
         for k, v in launches.items():
             totals[k] += v
 
@@ -865,6 +994,7 @@ def counted(name, drive, expected) -> dict:
     log(f"  launches in {name}: {got} (expected {want})")
     if got != want:
         fail(f"launch counts of {name}: {got} != {want}")
+    check_mma(name, got)
     return got
 
 
@@ -1152,6 +1282,7 @@ def check_bshd(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from videotgb_torch.ops import kernels
     from videotgb_torch.ops.attention import flash_attention
     from videotgb_torch.tools import attnlayoutprobe as AL
 
@@ -1169,11 +1300,18 @@ def check_bshd(card: str) -> dict:
                         device=dev).to(dtype)
         w = AL.make_weights(width, dtype, dev, gen)
         q, k, v = AL._project(x, w, h)
+        kernels.reset_launches()
         got = AL.flash_bshd(q, k, v, scale)
         want = AL.flash_bshd_reference(q, k, v, scale)
         via_a = flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
                                 scale=scale).transpose(1, 2)
         torch.cuda.synchronize()
+        body = "mma" if dtype == torch.bfloat16 else "fma"
+        ran = dict(kernels.MMA_LAUNCHES)
+        log(f"  flash_bshd {dtype}: tensor-core body launches {ran} "
+            f"(expected the {body} body for G and for A)")
+        if ran != dict.fromkeys(ran, int(body == "mma")):
+            fail(f"flash_bshd {dtype}: not on the {body} body")
         e = check_close(f"flash_bshd {dtype} {tuple(q.shape)}", got, want,
                         *tol[dtype])
         check_close(f"flash_bshd {dtype} vs kernel A on the transposes", got,
@@ -1192,12 +1330,13 @@ def check_bshd(card: str) -> dict:
                 {kern: layers} if kern else {})
             if v_ == "b":
                 launches = got["flash_bshd"]
-        ms = time_ms(lambda: AL.flash_bshd(q, k, v, scale))
-        plain_ms = time_ms(lambda: AL.flash_bshd_reference(q, k, v, scale),
-                           iters=5)
+        # device time per call (graph_ms), without a call's host overhead
+        ms = graph_ms(lambda: AL.flash_bshd(q, k, v, scale))
+        plain_ms = graph_ms(lambda: AL.flash_bshd_reference(q, k, v, scale),
+                            iters=5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        a_ms = time_ms(lambda: flash_attention(qt, kt, vt, scale=scale))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        a_ms = graph_ms(lambda: flash_attention(qt, kt, vt, scale=scale))
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, scale=scale))
     nbytes = 4 * q.numel() * q.element_size()
     flops = 4 * frames * h * AL.TOKENS ** 2 * d
@@ -1369,7 +1508,8 @@ def device_breakdown(name, fn, card) -> None:
         log(f"  {name}: the profiler recorded no device time (traced wall "
             f"{wall:.2f} ms)")
         return
-    families = {"kernel H": ("gemm_kernel",), "kernel A": ("flash_fwd",),
+    families = {"kernel H": ("gemm_kernel",),
+                "kernel A": ("flash_mma_kernel", "flash_fma_kernel"),
                 "cuBLAS/cuDNN": ("gemm", "xmma", "cutlass", "nvjet", "conv",
                                  "cudnn")}
     fam = dict.fromkeys((*families, "eager elementwise/reductions/copies"),
@@ -1443,6 +1583,7 @@ def int8_serving_path(card: str) -> int:
     kernels.reset_launches()
     cand, sel, tokens, after_select = drive()
     end = dict(kernels.LAUNCHES)
+    check_mma("the W8A8 serving run", end)
     zero = dict.fromkeys(kernels.LAUNCHES, 0)
     layers = cfg.blip2.vit.num_layers
     for phase, got, want in (

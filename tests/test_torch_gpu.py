@@ -97,6 +97,17 @@ def _close_to_largest(got, want, tol, name=""):
     assert err <= bound, f"{name}: max |err| {err:.3e} > {bound:.3e}"
 
 
+def _launch_a(q, k, v, bias, body):
+    """One launch of kernel A; checks that it counted once and ran
+    ``body``."""
+    kernels.reset_launches()
+    out = flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == 1
+    assert kernels.MMA_LAUNCHES["flash_fwd"] == int(body == "mma"), body
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", BIAS_LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -107,24 +118,85 @@ def test_flash_kernel_matches_plain(cuda, layout, dtype):
     k, v = (torch.randn((b, h, skv, d), generator=gen, device=cuda).to(dtype)
             for _ in range(2))
     bias = _bias(layout, gen, b, h, sq, skv, cuda)
-    before = kernels.LAUNCHES["flash_fwd"]
-    got = flash_attention(q, k, v, bias)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_fwd"] == before + 1
+    body = "mma" if dtype == torch.bfloat16 else "fma"
+    got = _launch_a(q, k, v, bias, body)
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, dot_product_attention(q, k, v, bias), TOL[dtype])
 
 
+# (Sq, Skv): each of 1, 15, 70, 264 and 300 on both sides, ragged against
+# the tensor-core body's 64-row and 64-key tiles
+SEQ_PAIRS = [(1, 1), (15, 300), (70, 264), (264, 70), (300, 15)]
+MMA_DIMS = [16, 64, 72, 88, 96, 128]
+
+
 @pytest.mark.gpu
-def test_flash_kernel_masked_row_is_uniform(cuda):
+@pytest.mark.parametrize("seqs", SEQ_PAIRS)
+@pytest.mark.parametrize("d", MMA_DIMS)
+@pytest.mark.parametrize("layout", BIAS_LAYOUTS)
+def test_flash_kernel_mma_body_matches_plain(cuda, layout, d, seqs):
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    (b, h), (sq, skv) = (2, 3), seqs
+    q = _strided(b, h, sq, d, torch.bfloat16, gen, cuda)
+    k, v = (_strided(b, h, skv, d, torch.bfloat16, gen, cuda)
+            for _ in range(2))
+    bias = _bias(layout, gen, b, h, sq, skv, cuda)
+    got = _launch_a(q, k, v, bias, "mma")
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _close(got, dot_product_attention(q, k, v, bias), TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", BIAS_LAYOUTS)
+def test_flash_kernel_unaligned_bf16_takes_the_fma_body(cuda, layout):
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    b, h, s, d = 2, 3, 70, 64
+    flat = torch.randn((3, 4 + b * s * h * d), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    # 4 elements (8 bytes) into the allocation: rows not 16-byte aligned
+    q, k, v = (t[4:].view(b, s, h, d).transpose(1, 2) for t in flat)
+    bias = _bias(layout, gen, b, h, s, s, cuda)
+    got = _launch_a(q, k, v, bias, "fma")
+    _close(got, dot_product_attention(q, k, v, bias), TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_masked_row_is_uniform(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(23)
-    q, k, v = (torch.randn((1, 2, 40, 64), generator=gen, device=cuda)
-               for _ in range(3))
+    q, k, v = (torch.randn((1, 2, 40, 64), generator=gen,
+                           device=cuda).to(dtype) for _ in range(3))
     bias = torch.zeros((1, 1, 40, 40), device=cuda)
     bias[..., 7, :] = NEG_INF
-    got = flash_attention(q, k, v, bias)
+    body = "mma" if dtype == torch.bfloat16 else "fma"
+    got = _launch_a(q, k, v, bias, body)
     assert torch.isfinite(got).all()
-    _close(got[:, :, 7], v.mean(dim=2), 1e-4)
+    _close(got[:, :, 7], v.float().mean(dim=2), TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_c_entries_refuse_the_mma_body_without_16_byte_rows(cuda):
+    """The C entries check the rule themselves: f32, or a bf16 row 8 bytes
+    off, with body 1 (tensor cores) is cudaErrorInvalidValue (1)."""
+    lib_a = kernels.library("flash_fwd")
+    lib_g = kernels.library("flash_bshd")
+    stream = torch.cuda.current_stream().cuda_stream
+    b, s, h, d = 1, 16, 2, 64
+    for dtype, shift in ((torch.float32, 0), (torch.bfloat16, 4)):
+        buf = torch.zeros(shift + b * s * h * d, dtype=dtype, device=cuda)
+        x = buf[shift:].view(b, s, h, d)
+        out = torch.empty((b, s, h, d), dtype=dtype, device=cuda)
+        code = 0 if dtype == torch.float32 else 1
+        strides = [t.stride(i) for t in (x, x, x, out) for i in (0, 2, 1)]
+        rc = lib_a.flash_fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), None,
+                             out.data_ptr(), b, h, s, s, d, *strides,
+                             0, 0, 0, 0, 0.125, code, 1, stream)
+        assert rc == 1, (dtype, rc)
+        strides = [t.stride(i) for t in (x, x, x, out) for i in range(3)]
+        rc = lib_g.flash_bshd(x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                              out.data_ptr(), b, s, h, d, *strides, 0.125,
+                              code, 1, stream)
+        assert rc == 1, (dtype, rc)
 
 
 @pytest.mark.gpu
@@ -257,29 +329,35 @@ def test_flash_bwd_kernel_masked_row(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias_needs_grad", [True, False])
-def test_flash_attention_gradients_through_the_kernels(cuda, bias_needs_grad):
-    """autograd through the flash Function (kernels A and C) against
-    autograd of the plain attention, with a bias that requires its gradient
-    (kernel C writes ds) and with a constant one."""
+def test_flash_attention_gradients_through_the_kernels(cuda, bias_needs_grad,
+                                                       dtype):
+    """autograd through the flash Function (kernel A's forward, on the
+    CUDA-core body in f32 and the tensor-core body in bf16, and kernel C)
+    against autograd of the plain attention, with a bias that requires its
+    gradient (kernel C writes ds) and with a constant one."""
     gen = torch.Generator(device=cuda).manual_seed(33)
     b, h, s, d = 2, 4, 150, 64
-    leaves = [_strided(b, h, s, d, torch.float32, gen, cuda).requires_grad_()
+    leaves = [_strided(b, h, s, d, dtype, gen, cuda).requires_grad_()
               for _ in range(3)]
     bias = torch.randn((1, h, s, s), generator=gen,
                        device=cuda).requires_grad_(bias_needs_grad)
     wrt = leaves + ([bias] if bias_needs_grad else [])
-    g = torch.randn((b, h, s, d), generator=gen, device=cuda)
+    g = torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype)
     kernels.reset_launches()
     out = flash_attention(*leaves, bias)
     got = torch.autograd.grad(out, wrt, g)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_fwd"] == 1
+    assert kernels.MMA_LAUNCHES["flash_fwd"] == int(dtype == torch.bfloat16)
     assert kernels.LAUNCHES["flash_bwd"] == 1
-    want = torch.autograd.grad(dot_product_attention(*leaves, bias), wrt, g)
+    want_out = dot_product_attention(*leaves, bias)
+    _close(out.detach(), want_out.detach(), TOL[dtype])
+    want = torch.autograd.grad(want_out, wrt, g)
     assert len(got) == len(want)
     for a, e in zip(got, want):
-        _close_to_largest(a, e, 1e-4)
+        _close_to_largest(a, e, TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -434,20 +512,33 @@ def test_add_ln_and_ln_kernels_match_plain(cuda, dtype):
     _close(alone, ln_reference(res, g, b), TOL[dtype])
 
 
+def _check_bshd(gen, dev, dtype, b, s, h, d):
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(dtype)
+    q, k, v = qkv.unbind(2)  # strided (B, S, H, D) views
+    kernels.reset_launches()
+    got = flash_bshd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bshd"] == 1
+    assert kernels.LAUNCHES["flash_fwd"] == 0
+    assert kernels.MMA_LAUNCHES["flash_bshd"] == int(dtype == torch.bfloat16)
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, flash_bshd_reference(q, k, v, d ** -0.5), TOL[dtype])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [88, 64, 128])
 def test_flash_bshd_kernel_matches_plain(cuda, dtype, d):
     gen = torch.Generator(device=cuda).manual_seed(34)
-    b, s, h = 2, 70, 12  # a ragged sequence, a partial group of heads
-    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=cuda).to(dtype)
-    q, k, v = qkv.unbind(2)  # strided (B, S, H, D) views
-    before = kernels.LAUNCHES["flash_bshd"]
-    got = flash_bshd(q, k, v, d ** -0.5)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_bshd"] == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    _close(got, flash_bshd_reference(q, k, v, d ** -0.5), TOL[dtype])
+    _check_bshd(gen, cuda, dtype, 2, 70, 12, d)  # a ragged sequence
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 15, 70, 264, 300])
+@pytest.mark.parametrize("d", MMA_DIMS)
+def test_flash_bshd_kernel_mma_body_matches_plain(cuda, d, s):
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    _check_bshd(gen, cuda, torch.bfloat16, 2, s, 5, d)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,136 @@
+"""The port's kernel plumbing on the CPU: which body kernels A and G run
+(``ops.attention.flash_body``), and the ``ctypes`` signatures of every C
+entry in ``videotgb_torch/csrc`` against the declarations in the sources.
+
+A pointer or a 64-bit stride that ``ctypes`` passes as a 32-bit int is cut
+without an error, so the declarations and ``kernels._SIGNATURES`` are held
+against each other here, where no compiler runs.
+"""
+
+import ctypes
+import re
+
+import pytest
+import torch
+
+from videotgb_torch.ops import kernels
+from videotgb_torch.ops.attention import BODY_CODES, flash_body
+
+
+def _bhsd_views(b, s, h, d, dtype):
+    """The (B, H, S, D) views of separate (B, S, H, D) projections."""
+    return [torch.zeros((b, s, h, d), dtype=dtype).transpose(1, 2)
+            for _ in range(3)]
+
+
+def _fused_views(b, s, h, d, dtype):
+    """unbind of a packed (B, S, 3, H, D) projection: k and v start H * D
+    elements past q."""
+    return list(torch.zeros((b, s, 3, h, d), dtype=dtype).unbind(2))
+
+
+def _offset(b, s, h, d, dtype, shift):
+    """(B, H, S, D) views that start ``shift`` elements into an
+    allocation."""
+    flat = torch.zeros((3, shift + b * s * h * d), dtype=dtype)
+    return [t[shift:].view(b, s, h, d).transpose(1, 2) for t in flat]
+
+
+BODY_CASES = {
+    # bf16 with 16-byte rows: the tensor-core body
+    "bf16 D=88 strided projections (ViT-g)":
+        (lambda: _bhsd_views(2, 264, 16, 88, torch.bfloat16), "mma"),
+    "bf16 D=64 strided projections (T5-xl)":
+        (lambda: _bhsd_views(2, 160, 32, 64, torch.bfloat16), "mma"),
+    "bf16 D=88 unbind of a packed qkv, as (B, H, S, D) views":
+        (lambda: [t.transpose(1, 2) for t in _fused_views(
+            2, 70, 12, 88, torch.bfloat16)], "mma"),
+    "bf16 D=88 (B, S, H, D) as kernel G takes it":
+        (lambda: _fused_views(2, 70, 12, 88, torch.bfloat16), "mma"),
+    "bf16 D=16 contiguous (B, H, S, D)":
+        (lambda: [torch.zeros((1, 2, 5, 16), dtype=torch.bfloat16)] * 3,
+         "mma"),
+    "bf16 offset by 8 elements (16 bytes)":
+        (lambda: _offset(2, 70, 4, 64, torch.bfloat16, 8), "mma"),
+    # everything else: the CUDA-core body
+    "f32 D=88 strided projections":
+        (lambda: _bhsd_views(2, 264, 16, 88, torch.float32), "fma"),
+    "f32 D=64 contiguous":
+        (lambda: [torch.zeros((2, 4, 70, 64))] * 3, "fma"),
+    "bf16 D=12":
+        (lambda: _bhsd_views(2, 70, 4, 12, torch.bfloat16), "fma"),
+    "bf16 view offset by 4 elements":
+        (lambda: _offset(2, 70, 4, 64, torch.bfloat16, 4), "fma"),
+    "bf16 only v offset by 4 elements":
+        (lambda: _bhsd_views(2, 70, 4, 64, torch.bfloat16)[:2]
+         + _offset(2, 70, 4, 64, torch.bfloat16, 4)[2:], "fma"),
+    "bf16 D=8 sliced from rows of 12 (seq stride 12 * H)":
+        (lambda: [torch.zeros((2, 70, 3, 12), dtype=torch.bfloat16)[..., :8]
+                  .transpose(1, 2)] * 3, "fma"),
+    "fp16 D=16 (not bf16)":
+        (lambda: [torch.zeros((1, 2, 5, 16), dtype=torch.float16)] * 3,
+         "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(BODY_CASES))
+def test_flash_body_rule(case):
+    make, want = BODY_CASES[case]
+    q, k, v = make()
+    assert flash_body(q, k, v) == want
+    assert want in BODY_CODES
+
+
+def test_flash_body_reads_the_first_three_strides_of_either_layout():
+    # kernel G hands over (B, S, H, D) tensors directly; the rule reads
+    # their (batch, seq, head) strides just as A's (batch, head, seq)
+    q = torch.zeros((2, 70, 12, 88), dtype=torch.bfloat16)
+    assert flash_body(q, q, q) == "mma"
+    wide = torch.zeros((2, 70, 12, 92), dtype=torch.bfloat16)[..., :88]
+    assert wide.stride(2) % 8 and flash_body(wide, wide, wide) == "fma"
+
+
+_EXTERN = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+
+
+def _ctype(arg: str):
+    """The ctypes type a C parameter declaration needs."""
+    if "*" in arg:
+        return ctypes.c_void_p
+    words = arg.split()[:-1]  # drop the parameter's name
+    kinds = {("long", "long"): ctypes.c_longlong, ("float",): ctypes.c_float,
+             ("int",): ctypes.c_int, ("uint32_t",): ctypes.c_uint32}
+    return kinds[tuple(w for w in words if w != "const")]
+
+
+def _declarations():
+    found = {}
+    for path in sorted(kernels.CSRC.glob("*.cu")):
+        for name, args in _EXTERN.findall(path.read_text()):
+            found[name] = (path.name, [_ctype(" ".join(a.split()))
+                                       for a in args.split(",")])
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SOURCES))
+def test_ctypes_signature_matches_the_c_declaration(name):
+    decls = _declarations()
+    assert name in decls, f"no extern \"C\" {name} in csrc/"
+    source, types = decls[name]
+    assert source == kernels.SOURCES[name]
+    assert kernels._SIGNATURES[name] == types, (
+        f"{name}: ctypes {kernels._SIGNATURES[name]} vs C {types}")
+
+
+def test_every_c_entry_has_a_signature():
+    assert set(_declarations()) == set(kernels._SIGNATURES) == set(
+        kernels.SOURCES)
+
+
+def test_mma_counters_reset_with_the_launch_counts():
+    assert set(kernels.MMA_LAUNCHES) <= set(kernels.LAUNCHES)
+    kernels.LAUNCHES["flash_fwd"] += 2
+    kernels.MMA_LAUNCHES["flash_fwd"] += 1
+    kernels.reset_launches()
+    assert not any(kernels.LAUNCHES.values())
+    assert not any(kernels.MMA_LAUNCHES.values())

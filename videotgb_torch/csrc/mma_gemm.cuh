@@ -16,7 +16,8 @@
 //     under this slice's products), rows padded to 144 bytes so that the
 //     eight rows an ldmatrix phase reads fall on distinct banks;
 //   * fragments come out of shared memory by ldmatrix.x4 (b16 8 x 8
-//     matrices: a 16 x 32-byte A tile, or two 8 x 32-byte B tiles);
+//     matrices: a 16 x 32-byte A tile, or two 8 x 32-byte B tiles; the PTX
+//     helpers are in mma_util.cuh);
 //   * the epilogue converts each accumulator and stores it with bounds
 //     checks (two neighbouring columns in one store where N is even).
 // wgmma, TMA and deeper pipelines are later work.
@@ -26,38 +27,19 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_util.cuh"
+
 namespace mma_gemm {
 
 constexpr int kSliceBytes = 128;              // bytes of K per slice
 constexpr int kRowBytes = kSliceBytes + 16;   // padded shared-memory row
 constexpr int kChunks = kSliceBytes / 16;     // 16-byte copies per row slice
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;  // 0 source bytes: 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+using mma_util::cp_async16;
+using mma_util::cp_async_commit;
+using mma_util::cp_async_wait;
+using mma_util::ldmatrix_x4;
+using mma_util::smem_addr;
 
 // Warp tiles of WM x WN in a block tile of BM x BN.
 template <int BM_, int BN_, int WM_, int WN_>

@@ -1,15 +1,26 @@
-"""Attention: the plain PyTorch version and the flash-attention kernel.
+"""Attention: the plain PyTorch version and the flash-attention kernels.
 
 * :func:`dot_product_attention` - plain attention with the JAX package's
   casts: f32 scores, f32 softmax, probabilities cast to ``v.dtype`` before
   the PV product (f32 accumulation), output in ``q.dtype``.
-* :func:`flash_attention` - the CUDA kernel ``csrc/flash_fwd.cu`` on CUDA
-  tensors (the Hopper counterpart of the Pallas ``_flash_kernel``), the
-  plain version on CPU tensors. On a CUDA tensor it launches the kernel or
-  raises; there is no fallback. Its gradient is the CUDA kernel
+* :func:`flash_attention` - kernel A, ``csrc/flash_fwd.cu``, on CUDA tensors
+  (the Hopper counterpart of the Pallas ``_flash_kernel``), the plain
+  version on CPU tensors. On a CUDA tensor it launches the kernel or raises;
+  there is no fallback. Its gradient is the CUDA kernel
   ``csrc/flash_bwd.cu`` (the counterpart of ``_flash_bwd_kernel``), which is
   tiled and takes any sequence length.
+* :func:`flash_body` - which of kernel A's two bodies a launch runs: the
+  tensor-core body (``csrc/flash_mma.cuh``: ``mma.sync`` for both products,
+  P kept in registers) for bf16 inputs with 16-byte rows, every shape the
+  port's paths hand it; the CUDA-core body (``csrc/flash_fma.cuh``: plain
+  FMAs) for f32 inputs, which the tensor cores would take only as TF32, and
+  for unaligned bf16 rows. Kernel G (``tools/attnlayoutprobe.py``) follows
+  the same rule.
 * :func:`flash_backward_reference` - the plain version of that backward.
+
+On the H100 attention at the ViT-g and T5-xl shapes is bound by memory (~130
+FLOP per byte, under the card's ~295); the tensor-core body keeps the score
+matrix in registers and reads q, k and v once per 64-row query tile.
 
 Shapes follow (batch, heads, seq, head_dim); biases are additive, f32, and
 broadcastable to (B, H, Sq, Skv).
@@ -23,6 +34,7 @@ from videotgb_torch.ops import kernels
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+BODY_CODES = {"fma": 0, "mma": 1}  # the C entries' ``body`` argument
 
 
 def dot_product_attention(q, k, v, bias=None, scale=None):
@@ -39,6 +51,20 @@ def dot_product_attention(q, k, v, bias=None, scale=None):
 
 def _strides3(t):
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def flash_body(q, k, v) -> str:
+    """``"mma"`` (the tensor-core body) for bf16 inputs whose rows are 16
+    bytes aligned: the head dim a multiple of 8, every base pointer a
+    multiple of 16 bytes and the first three strides multiples of 8
+    elements; else ``"fma"`` (the CUDA-core body). A pure function of the
+    tensors' dtype, shape, strides and addresses, on any device."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] % 8:
+        return "fma"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            return "fma"
+    return "mma"
 
 
 def _check_inputs(q, k, v, bias, g=None):
@@ -94,15 +120,18 @@ def flash_forward_cuda(q, k, v, bias, scale):
     s_kv = k.shape[2]
     out = torch.empty((b, s_q, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    body = flash_body(q, k, v)
     lib = kernels.library("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
         b, h, s_q, s_kv, d, *_strides3(q), *_strides3(k), *_strides3(v),
         *_strides3(out), *b_strides, float(scale), _DTYPE_CODES[q.dtype],
-        stream)
+        BODY_CODES[body], stream)
     kernels.check_launch("flash_fwd", rc)
     kernels.LAUNCHES["flash_fwd"] += 1
+    if body == "mma":
+        kernels.MMA_LAUNCHES["flash_fwd"] += 1
     return out
 
 

@@ -10,7 +10,9 @@ once.
 
 ``LAUNCHES`` holds one plain integer per kernel, the CUDA ones of
 ``SOURCES`` and the Triton ones of ``TRITON_KERNELS``; a wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. ``MMA_LAUNCHES`` counts, of
+the launches of kernels A and G, those that ran the tensor-core body
+(``csrc/flash_mma.cuh``; the rest ran the CUDA-core body).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
 # compiled by Triton at first launch (videotgb_torch/tools/lnprobe.py)
 TRITON_KERNELS = ("add_ln", "ln")
 LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, *TRITON_KERNELS)}
+MMA_LAUNCHES: dict[str, int] = {"flash_fwd": 0, "flash_bshd": 0}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -45,9 +48,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # flash_fwd(q, k, v, bias, out, B, H, Sq, Skv, D, q/k/v/out strides
     # (batch, head, seq) x4, bias strides (batch, head, q, k), scale, dtype,
-    # stream) -> cudaError_t
+    # body, stream) -> cudaError_t
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 16
-                 + [ctypes.c_float, _I, _P],
+                 + [ctypes.c_float, _I, _I, _P],
     # flash_bwd(q, k, v, bias, dO, dq, dk, dv, ds, stats, B, H, Sq, Skv, D,
     # q/k/v/dO/dq/dk/dv strides (batch, head, seq) x7, bias strides (batch,
     # head, q, k), scale, dtype, stream) -> cudaError_t
@@ -64,9 +67,9 @@ _SIGNATURES = {
     "corr_lookup_blocked": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P],
     # flash_bshd(q, k, v, out, B, S, H, D, q/k/v/out strides (batch, seq,
-    # head) x4, scale, dtype, stream) -> cudaError_t
+    # head) x4, scale, dtype, body, stream) -> cudaError_t
     "flash_bshd": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12
-                  + [ctypes.c_float, _I, _P],
+                  + [ctypes.c_float, _I, _I, _P],
     # int8_mm(a, b, c, M, N, K, out_kind, tile, stream) -> cudaError_t
     "int8_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # bf16_mm(a, b, c, M, N, K, tile, stream) -> cudaError_t
@@ -139,8 +142,9 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, MMA_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def check_launch(name: str, rc: int) -> None:

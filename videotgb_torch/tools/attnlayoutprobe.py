@@ -9,11 +9,10 @@ heads x 88, bf16):
 
   a) kernel A (``csrc/flash_fwd.cu``) on the (B, H, S, D) transposes of the
      projections. On the card these transposes are stride views that kernel
-     A reads in place (no copy, unlike the TPU's layout moves); it blocks
-     one head x 32 queries.
+     A reads in place (no copy, unlike the TPU's layout moves).
   b) kernel G (``csrc/flash_bshd.cu``): the projections read and the output
-     written in (B, S, H, D), a block per (frame, group of 8 heads, 32
-     queries), each key row of the group 8 x 88 contiguous values.
+     written in (B, S, H, D), through kernel A's bodies (the tensor-core
+     body in bf16), a block per (frame, head, 128 queries).
   c) plain attention from (B, S, H, D) (``flash_bshd_reference``).
 
 It prints each variant's ms per layer and (b)'s max abs difference from
@@ -33,8 +32,10 @@ from videotgb_torch.device import resolve_device
 from videotgb_torch.ops import kernels
 from videotgb_torch.ops.attention import (
     _DTYPE_CODES,
+    BODY_CODES,
     dot_product_attention,
     flash_attention,
+    flash_body,
 )
 from videotgb_torch.tools import timed
 
@@ -67,15 +68,19 @@ def flash_bshd_cuda(q, k, v, scale):
     if d > 128:
         raise ValueError(f"flash_bshd: head dim {d} > 128")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    body = flash_body(q, k, v)
     lib = kernels.library("flash_bshd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_bshd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), b, s, h, d,
                         *(t.stride(i) for t in (q, k, v, out)
                           for i in range(3)),
-                        float(scale), _DTYPE_CODES[q.dtype], stream)
+                        float(scale), _DTYPE_CODES[q.dtype],
+                        BODY_CODES[body], stream)
     kernels.check_launch("flash_bshd", rc)
     kernels.LAUNCHES["flash_bshd"] += 1
+    if body == "mma":
+        kernels.MMA_LAUNCHES["flash_bshd"] += 1
     return out
 
 
