@@ -6,7 +6,8 @@
 Phases, each fatal on failure (exit code 1):
 
 1. the card's name and power limit (``nvidia-smi``), then an ``nvcc`` build
-   of every kernel in ``videotgb_torch/csrc`` (one process per source);
+   of every kernel in ``videotgb_torch/csrc`` (one process per source), with
+   each instantiation's registers, spills and shared memory;
 2. kernel A (flash-attention forward) against its plain PyTorch version at
    the main-path shape (ViT-g: 16 images x 16 heads x 264 x 88, bf16, a
    (1,1,1,264) pad bias) and at the other bias layouts, f32, an unaligned
@@ -63,19 +64,25 @@ Phases, each fatal on failure (exit code 1):
    (CUDA-core body) and bf16 (tensor-core body), against its plain version
    and kernel A on the transposes; 1 launch per layer of the stack; timed
    beside SDPA; then the probe tool;
-12. kernel H (int8 and bf16 tensor-core GEMMs): int8 bit for bit with its
-   plain version (int32 and bf16 epilogues, every block tiling) at 8192^3,
-   at the int8 ViT-g's three product shapes, at odd M and N, with +-127
-   saturated inputs; bf16 at 8192^3 within one bf16 ulp; timed beside
-   ``torch._int_mm`` and ``torch.matmul`` (yardsticks the port never
-   calls); then the W8A8 serving path at flagship width (``vit.quant =
-   "int8"``) for 4 requests, select -> answer with exact launch counts (234
-   int8_mm and 39 flash_fwd per ViT pass, 20 corr_lookup per refine), the
-   ViT-g output bit-identical with kernel H swapped for its plain version
-   and within the JAX package's int8 gate of the bf16 tower on the same
-   images, the int8 tower's time split into products and quantize passes;
-   then the three int8 tools (the GEMM probe counted: its kernel-H lines
-   launch int8_mm and bf16_mm once per call).
+12. kernel H (int8 and bf16 GEMMs on one warp-specialised wgmma + TMA main
+   loop): int8 bit for bit with its plain version (int32 and bf16
+   epilogues, every block tiling and the tiling rule's pick) at 8192^3, at
+   the int8 ViT-g's three product shapes, at odd M and N, with +-127
+   saturated inputs; bf16 at 8192^3 within one bf16 ulp plus the f32 order
+   bound; every tiling timed (device time per call, launches captured in a
+   CUDA graph; the rule's pick also per eager call) at the W8A8 path's
+   three shapes and for one image (M = 264; int32 out), at 8192^3 int8 ->
+   bf16 and bf16, in TOP/s or TF/s beside ``torch._int_mm`` and
+   ``torch.matmul`` (yardsticks the port never calls); then the W8A8
+   serving path at flagship width
+   (``vit.quant = "int8"``) for 4 requests, select -> answer with exact
+   launch counts (234 int8_mm and 39 flash_fwd per ViT pass, 20
+   corr_lookup per refine) and the host time of kernel H's TMA descriptor
+   encodes, the ViT-g output bit-identical with kernel H swapped for its
+   plain version and within the JAX package's int8 gate of the bf16 tower
+   on the same images, the int8 tower's time split into products and
+   quantize passes; then the three int8 tools (the GEMM probe counted: its
+   kernel-H lines launch int8_mm and bf16_mm once per call).
 
 Every counted run of a path also checks that each launch of kernels A and
 G ran the tensor-core body (``kernels.MMA_LAUNCHES``): the paths hand them
@@ -212,12 +219,20 @@ def flash_mma_smem(dp: int, mt: int) -> int:
     return (64 * mt + 4 * 64) * (2 * dp + 16)
 
 
+# Tile<BM, BN, STAGES, _>::kSmemBytes of csrc/wgmma_gemm.cuh: the stages of
+# BM + BN rows of 128 bytes, 1024 bytes of alignment slack, two mbarriers a
+# stage
+def wgmma_gemm_smem(bm: int, bn: int, stages: int) -> int:
+    return stages * (bm + bn) * 128 + 1024 + 16 * stages
+
+
 def ptxas_summary(report: str) -> list[str]:
     """One line per kernel instantiation of an ``nvcc -Xptxas -v`` report:
-    its name (kernel<dtype, head-dim chunks of 32> or flash_mma_kernel<DP,
-    m-tiles, bias> where the mangled name reads so), registers, spills and
-    shared memory (static, as ptxas counts it; the tensor-core flash body's
-    dynamic share beside it)."""
+    its name (kernel<dtype, head-dim chunks of 32>, flash_mma_kernel<DP,
+    m-tiles, bias> or gemm_kernel<type, tile, stages, blocks a SM> where the
+    mangled name reads so), registers, spills and shared memory (static, as
+    ptxas counts it; the tensor-core flash body's and kernel H's dynamic
+    share beside it)."""
     out, fn, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -225,7 +240,15 @@ def ptxas_summary(report: str) -> list[str]:
             fn, dyn = m.group(1), ""
             t = re.search(r"\d+([a-z_]+)I(f|13__nv_bfloat16)Li(\d+)E", fn)
             u = re.search(r"\d+([a-z_]+)ILi(\d+)ELi(\d)ELi([012])E", fn)
-            if t:
+            h = re.search(r"\d+(S8|Bf16)ENS_4TileILi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELi(\d)E", fn)
+            if h:
+                bm, bn, stages = (int(h.group(i)) for i in (2, 3, 4))
+                fn = (f"gemm_kernel<{h.group(1)}, {bm}x{bn}, {stages} stages,"
+                      f" {h.group(5)} block(s) a SM>")
+                dyn = (f" + {wgmma_gemm_smem(bm, bn, stages)} bytes "
+                       "dynamic")
+            elif t:
                 dtype = "f32" if t.group(2) == "f" else "bf16"
                 fn = f"{t.group(1)}<{dtype}, {t.group(3)}>"
             elif u:
@@ -1361,6 +1384,8 @@ def check_bshd(card: str) -> dict:
 # the int8 ViT-g's products at 16 images x 264 tokens: (M, K, N, per layer)
 VIT_GEMMS = ((4224, 1408, 1408, 4), (4224, 1408, 6144, 1),
              (4224, 6144, 1408, 1))
+# the same products for one image (264 tokens): small M
+ONE_IMAGE_GEMMS = tuple((264, k, n, c) for _, k, n, c in VIT_GEMMS)
 
 
 def check_gemms(card: str) -> list:
@@ -1374,6 +1399,9 @@ def check_gemms(card: str) -> list:
     gen = torch.Generator(device=dev).manual_seed(12)
     tiles = range(len(Q.TILES))
 
+    def tile_name(tile):
+        return "rule's pick" if tile is None else Q.TILES[tile]
+
     def ints(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=dev,
                              dtype=torch.int8)
@@ -1381,14 +1409,14 @@ def check_gemms(card: str) -> list:
     def exact(name, x, w_t):
         for out_dtype in (torch.int32, torch.bfloat16):
             want = Q.int8_mm_reference(x, w_t, out_dtype)
-            for tile in tiles:
+            for tile in (*tiles, None):
                 got = Q.int8_mm(x, w_t, out_dtype, tile=tile)
                 torch.cuda.synchronize()
                 same = got.dtype == out_dtype and torch.equal(got, want)
-                log(f"  int8_mm {name} {Q.TILES[tile]} -> {out_dtype}: equal "
-                    f"to the plain version {same}")
+                log(f"  int8_mm {name} {tile_name(tile)} -> {out_dtype}: "
+                    f"equal to the plain version {same}")
                 if not same:
-                    fail(f"int8_mm {name} tile {Q.TILES[tile]} {out_dtype} "
+                    fail(f"int8_mm {name} tile {tile_name(tile)} {out_dtype} "
                          "differs from its plain version")
 
     cube = 8192
@@ -1414,70 +1442,78 @@ def check_gemms(card: str) -> list:
                                       * wb.float().abs().max())
     ulp = Q.bf16_ulp(want)
     bf16_err = 0.0
-    for tile in tiles:
+    for tile in (*tiles, None):
         got = Q.bf16_mm(xb, wb, tile=tile)
         torch.cuda.synchronize()
         err = (got.float() - want).abs()
         ok = got.dtype == torch.bfloat16 and bool((err <= ulp + order).all())
         worst = float((err / (ulp + order)).max())
         bf16_err = max(bf16_err, float(err.max()))
-        log(f"  bf16_mm {cube}^3 {Q.TILES[tile]}: max_abs_err "
+        log(f"  bf16_mm {cube}^3 {tile_name(tile)}: max_abs_err "
             f"{float(err.max()):.3e}, at most {worst:.3f} of the tolerance "
             f"(one bf16 ulp of the entry + the f32 summation order's "
             f"{order:.3e}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"bf16_mm tile {Q.TILES[tile]} disagrees with its plain "
+            fail(f"bf16_mm tile {tile_name(tile)} disagrees with its plain "
                  "version")
     del want, ulp
 
-    # times: every tiling, the plain version and the library's one call
-    def gemm_times(label, kern, plain, lib, tile_ms):
-        for tile in tiles:
-            tile_ms[tile] = time_ms(lambda tile=tile: kern(tile))
-        plain_ms = time_ms(plain, iters=5, warmup=1)
-        lib_ms = time_ms(lib)
+    # device time per call (graph_ms: captured launches, no host issue
+    # time) of every tiling, the rule's pick also per eager call (CUDA
+    # events over back-to-back calls), the plain version and
+    # the library's one call
+    def gemm_times(label, kern, plain, lib, flops, unit, iters, pick):
+        tile_ms = {t: graph_ms(lambda t=t: kern(t), iters=iters)
+                   for t in tiles}
+        eager_ms = time_ms(lambda: kern(pick))
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        lib_ms = graph_ms(lib, iters=iters)
+        best = min(tile_ms, key=tile_ms.get)
+        peak = PEAK_FLOPS["int8" if unit == "TOP/s" else "bfloat16"]
         log(f"  {label}: kernel " + ", ".join(
-            f"{Q.TILES[t]} {ms:.4f} ms" for t, ms in tile_ms.items())
-            + f"; plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms on {card}")
-        return plain_ms, lib_ms
+            f"{Q.TILES[t]} {ms:.4f} ms ({flops / ms / 1e9:.1f} {unit})"
+            for t, ms in tile_ms.items()) + f"; fastest {Q.TILES[best]}")
+        log(f"    rule's pick {Q.TILES[pick]} {tile_ms[pick]:.4f} ms, "
+            f"{eager_ms:.4f} ms a call from eager Python; plain "
+            f"{plain_ms:.4f} ms; library {lib_ms:.4f} ms "
+            f"({flops / lib_ms / 1e9:.1f} {unit}); bound "
+            f"{flops / peak * 1e3:.4f} ms (operations) on {card}")
+        return tile_ms[pick], plain_ms, lib_ms
 
     rows = []
-    m, k, n, _ = VIT_GEMMS[1]  # the path's largest product, MLP in
-    xv, wv = ints(m, k), ints(n, k)
-    t_path = {}
-    plain_ms, lib_ms = gemm_times(
-        f"int8_mm {m}x{k}x{n} -> int32 (the serving path's)",
-        lambda t: Q.int8_mm(xv, wv, tile=t),
-        lambda: Q.int8_mm_reference(xv, wv),
-        lambda: torch._int_mm(xv, wv.t()), t_path)
-    row_int8 = row("int8_mm", "videotgb_torch/csrc/int8_mm.cu",
-                   "tools/int8pallas_probe.py:22", 0.0, t_path[0], plain_ms,
-                   m * k + n * k + 4 * m * n, 2 * m * k * n, "int8", lib_ms)
-    rows.append(row_int8)
-    t_cube = {}
+    for i, (m, k, n, _) in enumerate(VIT_GEMMS + ONE_IMAGE_GEMMS):
+        xv, wv = ints(m, k), ints(n, k)
+        whose = "the W8A8 path's" if i < len(VIT_GEMMS) else "one image"
+        times = gemm_times(
+            f"int8_mm {m}x{k}x{n} -> int32 ({whose})",
+            lambda t: Q.int8_mm(xv, wv, tile=t),
+            lambda: Q.int8_mm_reference(xv, wv),
+            lambda: torch._int_mm(xv, wv.t()), 2 * m * k * n, "TOP/s", 20,
+            Q.gemm_tile(m, n, k, torch.int8))
+        if i == 1:  # the path's largest product, MLP in
+            rows.append(row("int8_mm", "videotgb_torch/csrc/int8_mm.cu",
+                            "tools/int8pallas_probe.py:22", 0.0, *times[:2],
+                            m * k + n * k + 4 * m * n, 2 * m * k * n,
+                            "int8", times[2]))
+    del xv, wv
+    flops = 2 * cube ** 3
     gemm_times(f"int8_mm {cube}^3 -> bf16 (the probe's)",
                lambda t: Q.int8_mm(x8, w8, torch.bfloat16, tile=t),
                lambda: Q.int8_mm_reference(x8, w8, torch.bfloat16),
-               lambda: torch._int_mm(x8, w8.t()).to(torch.bfloat16), t_cube)
-    t_bf16 = {}
-    plain_ms, lib_ms = gemm_times(
+               lambda: torch._int_mm(x8, w8.t()).to(torch.bfloat16), flops,
+               "TOP/s", 10, Q.gemm_tile(cube, cube, cube, torch.int8))
+    ms, plain_ms, lib_ms = gemm_times(
         f"bf16_mm {cube}^3", lambda t: Q.bf16_mm(xb, wb, tile=t),
-        lambda: Q.bf16_mm_reference(xb, wb), lambda: xb @ wb.t(), t_bf16)
+        lambda: Q.bf16_mm_reference(xb, wb), lambda: xb @ wb.t(), flops,
+        "TF/s", 10, Q.gemm_tile(cube, cube, cube, torch.bfloat16))
     rows.append(row("bf16_mm", "videotgb_torch/csrc/bf16_mm.cu",
-                    "tools/int8pallas_probe.py:80", bf16_err, t_bf16[0],
-                    plain_ms, 6 * cube * cube, 2 * cube ** 3, "bfloat16",
-                    lib_ms))
-    flops = 2 * cube ** 3
-    log(f"  rates at {cube}^3 on {card}: int8 " + ", ".join(
-        f"{Q.TILES[t]} {flops / ms / 1e9:.1f} TOP/s" for t, ms in
-        t_cube.items()) + "; bf16 " + ", ".join(
-        f"{Q.TILES[t]} {flops / ms / 1e9:.1f} TF/s" for t, ms in
-        t_bf16.items()) + f"; bounds int8 {flops / PEAK_FLOPS['int8'] * 1e3:.4f}"
-        f" ms, bf16 {flops / PEAK_FLOPS['bfloat16'] * 1e3:.4f} ms (operations)")
+                    "tools/int8pallas_probe.py:80", bf16_err, ms, plain_ms,
+                    6 * cube * cube, flops, "bfloat16", lib_ms))
     for r in rows:
-        log(f"  {r['name']} row: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-            f"ms ({r['bound_by']}), library {r['library_ms']:.4f} ms")
-    del x8, w8, xb, wb, xv, wv
+        log(f"  {r['name']} row: {r['ms']:.4f} ms at the rule's pick, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+            f"{r['library_ms']:.4f} ms")
+    del x8, w8, xb, wb
     torch.cuda.empty_cache()
     return rows
 
@@ -1581,9 +1617,14 @@ def int8_serving_path(card: str) -> int:
 
     drive()  # warm, uncounted
     kernels.reset_launches()
+    Q.ENCODE_NS["int8_mm"] = 0
     cand, sel, tokens, after_select = drive()
     end = dict(kernels.LAUNCHES)
     check_mma("the W8A8 serving run", end)
+    encode_us = Q.ENCODE_NS["int8_mm"] / 1e3
+    log(f"  host time of kernel H's TMA descriptor encodes (two a call) in "
+        f"the counted run: {encode_us / max(end['int8_mm'], 1):.3f} us a "
+        f"call, {encode_us:.1f} us over its {end['int8_mm']} calls")
     zero = dict.fromkeys(kernels.LAUNCHES, 0)
     layers = cfg.blip2.vit.num_layers
     for phase, got, want in (

@@ -561,15 +561,21 @@ def test_selection_and_probe_wrappers_raise_on_bad_inputs(cuda):
 
 
 # ------------------------------------------------------------------ kernel H
-INT8_SHAPES = [(48, 64, 40), (1001, 1424, 999), (300, 2064, 257)]  # M, K, N
+# M, K, N: ragged M and N; K = 64 (half a 128-byte stage); K off a multiple
+# of 128; K = 8192; K = 2320 = 128 * 6 stages * 3 + 16, past three turns of
+# the deepest ring; the W8A8 ViT-g's q/k/v/o product
+INT8_SHAPES = [(48, 64, 40), (1001, 1424, 999), (300, 2064, 257),
+               (136, 8192, 72), (257, 2320, 520), (4224, 1408, 1408)]
+# every tiling by index, and None: gemm_tile's pick
+TILE_CHOICES = [*range(len(TILES)), None]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("out_dtype", [torch.int32, torch.bfloat16])
-@pytest.mark.parametrize("tile", range(len(TILES)))
+@pytest.mark.parametrize("tile", TILE_CHOICES)
 def test_int8_mm_kernel_equals_plain(cuda, tile, out_dtype):
-    """Bit for bit at ragged M and N and K past a whole 128-byte slice, each
-    block tiling, both epilogues."""
+    """Bit for bit at ragged M and N, K past whole stages and past several
+    turns of the ring, each block tiling, both epilogues."""
     gen = torch.Generator(device=cuda).manual_seed(41)
     for m, k, n in INT8_SHAPES:
         x = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
@@ -581,20 +587,22 @@ def test_int8_mm_kernel_equals_plain(cuda, tile, out_dtype):
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["int8_mm"] == before + 1
         assert got.dtype == out_dtype and tuple(got.shape) == (m, n)
-        assert torch.equal(got, int8_mm_reference(x, w_t, out_dtype))
+        assert torch.equal(got, int8_mm_reference(x, w_t, out_dtype)), (
+            m, k, n)
 
 
 @pytest.mark.gpu
-def test_int8_mm_kernel_saturated_and_double_rounded(cuda):
+@pytest.mark.parametrize("tile", TILE_CHOICES)
+def test_int8_mm_kernel_saturated_and_double_rounded(cuda, tile):
     gen = torch.Generator(device=cuda).manual_seed(42)
     m, k, n = 136, 8192, 72
     sign = torch.randint(0, 2, (m + n, k), generator=gen, device=cuda) * 2 - 1
     x, w_t = (sign * 127).to(torch.int8).split([m, n])
     for out_dtype in (torch.int32, torch.bfloat16):
-        assert torch.equal(int8_mm(x, w_t, out_dtype),
+        assert torch.equal(int8_mm(x, w_t, out_dtype, tile=tile),
                            int8_mm_reference(x, w_t, out_dtype))
     full = torch.full((16, k), 127, dtype=torch.int8, device=cuda)
-    assert int(int8_mm(full, full).max()) == 127 * 127 * k
+    assert int(int8_mm(full, full, tile=tile).max()) == 127 * 127 * k
     # 2088 * 127^2 + 127 * 64 + 5 * 5 = 2^25 + 2^17 + 1: bf16 via f32 is 2^25
     x = torch.zeros((1, 2096), dtype=torch.int8, device=cuda)
     w_t = torch.zeros_like(x)
@@ -602,12 +610,12 @@ def test_int8_mm_kernel_saturated_and_double_rounded(cuda):
     w_t[0, :2088] = 127
     w_t[0, 2088] = 64
     x[0, 2089] = w_t[0, 2089] = 5
-    assert int8_mm(x, w_t).item() == 2 ** 25 + 2 ** 17 + 1
-    assert int8_mm(x, w_t, torch.bfloat16).item() == 2 ** 25
+    assert int8_mm(x, w_t, tile=tile).item() == 2 ** 25 + 2 ** 17 + 1
+    assert int8_mm(x, w_t, torch.bfloat16, tile=tile).item() == 2 ** 25
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", range(len(TILES)))
+@pytest.mark.parametrize("tile", TILE_CHOICES)
 def test_bf16_mm_kernel_within_one_ulp(cuda, tile):
     """One bf16 ulp for a rounding flipped by the f32 summation order, plus
     that order's own difference (<= K * 2^-24 * max|x| * max|w|)."""
@@ -620,11 +628,13 @@ def test_bf16_mm_kernel_within_one_ulp(cuda, tile):
         got = bf16_mm(x, w_t, tile=tile)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["bf16_mm"] == before + 1
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
         want = bf16_mm_reference(x, w_t).float()
         order = k * 2.0 ** -24 * float(x.float().abs().max()
                                        * w_t.float().abs().max())
         err = (got.float() - want).abs()
-        assert bool((err <= bf16_ulp(want) + order).all()), float(err.max())
+        assert bool((err <= bf16_ulp(want) + order).all()), (
+            m, k, n, float(err.max()))
 
 
 @pytest.mark.gpu

@@ -16,6 +16,9 @@ package, on the CPU.
   seed and carried across by ``convert.py``, against the JAX tower; the
   port's int8 tower against its own bf16 tower under the JAX package's
   serving gate (``tests/test_quant.py``).
+* Kernel H's tiling rule ``gemm_tile``: the tiling measured fastest on the
+  card at each timed shape, a valid index elsewhere; ``int8_matmul`` hands
+  its pick to ``int8_mm``.
 * The three int8 tools' ``main`` at tiny sizes on the CPU.
 """
 
@@ -274,6 +277,60 @@ def test_quant_dense_adds_its_bias_after_the_dequant():
     assert torch.equal(dense(x), want)
     with pytest.raises(ValueError, match="quant"):
         Dense(4, 4, quant="int4")
+
+
+# ------------------------------------------------- kernel H's tiling rule
+# Device time per call (ms) of each tiling, by index into TQ.TILES, from
+# one run of chip_smoke.py phase 12 on an H100 80GB HBM3 at 700 W (launches
+# captured in a CUDA graph): (M, K, N, dtype) -> times. The W8A8 path's
+# three products, the same for one image (264 tokens), and 8192^3 (int8
+# with the bf16 epilogue). gemm_tile must pick the fastest.
+MEASURED_TILE_MS = {
+    (4224, 1408, 1408, torch.int8): (0.0204, 0.0252, 0.0251),
+    (4224, 1408, 6144, torch.int8): (0.0760, 0.0772, 0.0946),
+    (4224, 6144, 1408, torch.int8): (0.0631, 0.0761, 0.0808),
+    (264, 1408, 1408, torch.int8): (0.0077, 0.0122, 0.0085),
+    (264, 1408, 6144, torch.int8): (0.0141, 0.0125, 0.0102),
+    (264, 6144, 1408, torch.int8): (0.0182, 0.0330, 0.0233),
+    (8192, 8192, 8192, torch.int8): (1.0430, 0.7915, 1.3557),
+    (8192, 8192, 8192, torch.bfloat16): (1.9764, 1.6043, 2.5578),
+}
+
+
+@pytest.mark.parametrize("shape", list(MEASURED_TILE_MS),
+                         ids=lambda s: f"{s[0]}x{s[1]}x{s[2]}-{s[3]}")
+def test_gemm_tile_picks_the_tiling_measured_fastest(shape):
+    m, k, n, dtype = shape
+    times = MEASURED_TILE_MS[shape]
+    assert len(times) == len(TQ.TILES)
+    assert TQ.gemm_tile(m, n, k, dtype) == min(range(len(times)),
+                                               key=times.__getitem__)
+
+
+@pytest.mark.parametrize("m, k, n", [(1, 1408, 1408), (48, 64, 40),
+                                     (64, 4096, 4096), (300, 2064, 257),
+                                     (1001, 1424, 999), (70000, 16, 16)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_gemm_tile_is_a_valid_index(m, k, n, dtype):
+    tile = TQ.gemm_tile(m, n, k, dtype)
+    assert isinstance(tile, int) and 0 <= tile < len(TQ.TILES)
+
+
+def test_int8_matmul_hands_int8_mm_the_rules_tile(monkeypatch):
+    calls = []
+
+    def recording_int8_mm(x, w_t, out_dtype=torch.int32, tile=None):
+        calls.append((tuple(x.shape), tuple(w_t.shape), tile))
+        return TQ.int8_mm_reference(x, w_t, out_dtype)
+
+    monkeypatch.setattr(TQ, "int8_mm", recording_int8_mm)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((3, 100, 48), generator=gen)
+    w = torch.randn((48, 72), generator=gen)
+    got = TQ.int8_matmul(x, w)
+    assert calls == [((300, 48), (72, 48), TQ.gemm_tile(300, 72, 48))]
+    monkeypatch.undo()
+    assert torch.equal(got, TQ.int8_matmul(x, w))
 
 
 # --------------------------------------------------------------- the tools

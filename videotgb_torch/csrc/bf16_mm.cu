@@ -7,46 +7,50 @@
 // nearest even). The probe uses it as the bf16 rate beside the int8 one.
 //
 // The products run on the tensor cores through
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, over the same main
-// loop as the int8 body (mma_gemm.cuh: 16 bf16 values are the 32 bytes of K
-// an s8 mma takes, with the same register layout). B comes as (N, K) with K
-// contiguous, as the int8 body takes it, so the ldmatrix loads are the same
-// non-transposed ones; the tools transpose the probe's (K, N) w once. K must
-// be a multiple of 8 (16-byte copies).
+// wgmma.mma_async.sync.aligned.m64n{128,256}k16.f32.bf16.bf16, both
+// operands K-major from shared memory, over the same warp-specialised main
+// loop as the int8 body (wgmma_gemm.cuh: a 128-byte stage of K is 64 bf16
+// here, four k16 steps, where it is 128 int8 and four k32 steps there). B
+// comes as (N, K) with K contiguous, as the int8 body takes it; the tools
+// transpose the probe's (K, N) w once. K must be a multiple of 8 (TMA's
+// 16-byte row pitch). The f32 sums run in another order than the plain
+// version's, so a result may differ from it by one bf16 rounding plus that
+// order's f32 difference.
 //
 // Bound on the H100: at 8192^3 the work is 1.1e12 FLOPs (1.11 ms at 989
-// TFLOP/s dense) against 384 MB (0.115 ms at 3.35 TB/s): operations. As in
-// the int8 body, mma.sync and its ldmatrix loads are this version's limit.
-#include "mma_gemm.cuh"
+// TFLOP/s dense) against 384 MB (0.115 ms at 3.35 TB/s): operations.
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 struct Bf16 {
   using Acc = float;
 
-  static __device__ __forceinline__ void mma(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    mma_util::mma_bf16_16816(c, a, b);
+  template <int BN>
+  static __device__ __forceinline__ void mma(float (&c)[BN / 2], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    mma_util::Wgmma<BN>::bf16(c, a, b, accumulate);
   }
 
   static __device__ __forceinline__ void store(void* C, int row, int col,
                                                float x, float y, int M, int N,
                                                int /*out_kind*/) {
-    mma_gemm::store_pair(C, row, col, __float2bfloat16_rn(x),
-                         __float2bfloat16_rn(y), M, N);
+    wgmma_gemm::store_pair(C, row, col, __float2bfloat16_rn(x),
+                           __float2bfloat16_rn(y), M, N);
   }
 };
 
 }  // namespace
 
 // a: device (M, K) bf16, b: device (N, K) bf16, both row-major and
-// contiguous; c: device (M, N) bf16. tile: the block tiling
-// (mma_gemm.cuh::dispatch). Returns the launch's cudaError_t; the kernel
-// does not synchronise.
+// contiguous, 16-byte aligned; c: device (M, N) bf16. tile: the block tiling
+// (wgmma_gemm.cuh::dispatch). encode_ns: where the host time of the two TMA
+// descriptor encodes is written (may be null). Returns the launch's
+// cudaError_t, or 10000 + the CUresult of a failed encode; the kernel does
+// not synchronise.
 extern "C" int bf16_mm(const void* a, const void* b, void* c, int M, int N,
-                       int K, int tile, void* stream) {
+                       int K, int tile, long long* encode_ns, void* stream) {
   if (K <= 0 || K > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(mma_gemm::dispatch<Bf16>(
-      tile, a, b, c, M, N, 2 * K, 1, static_cast<cudaStream_t>(stream)));
+  return wgmma_gemm::dispatch<Bf16>(tile, a, b, c, M, N, 2 * K, 1, encode_ns,
+                                    static_cast<cudaStream_t>(stream));
 }

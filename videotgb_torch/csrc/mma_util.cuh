@@ -1,7 +1,11 @@
-// PTX helpers of the tensor-core kernels (mma_gemm.cuh, flash_mma.cuh):
-// 16-byte cp.async copies into shared memory with zero fill, ldmatrix (plain
-// and transposed) of b16 8 x 8 matrices, and the bf16 m16n8k16 mma.sync with
-// f32 accumulators.
+// PTX helpers of the tensor-core kernels:
+//   * for mma.sync (flash_mma.cuh): 16-byte cp.async copies into shared
+//     memory with zero fill, ldmatrix (plain and transposed) of b16 8 x 8
+//     matrices, and the bf16 m16n8k16 mma.sync with f32 accumulators;
+//   * for Hopper's asynchronous path (wgmma_gemm.cuh): mbarriers, 2-D TMA
+//     loads, setmaxnreg, and wgmma (fence, commit, wait, shared-memory
+//     descriptors of 128-byte-swizzled K-major tiles, and the m64n{128,256}
+//     products on bf16 and s8).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,5 +63,200 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// ------------------------------------------------------------- mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// arrive and add `bytes` to the transactions the current phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that
+// outlasts 10 s of the global timer traps (a launch error the caller sees)
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (start == 0) start = now;
+    if (now - start > 10000000000ull) __trap();
+  }
+}
+
+// ------------------------------------------------------------------ TMA
+// copy the box at (c0, c1) (innermost first, in elements) of the tensor map
+// at `tmap` (a __grid_constant__ kernel parameter) into shared memory at
+// `dst`; completion counts the box's bytes on the mbarrier `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ----------------------------------------------------------- setmaxnreg
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------- wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of accumulator registers across
+// this point (between a wgmma and its wait they belong to the tensor cores)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory descriptor of a K-major operand tile laid out as TMA's
+// 128-byte swizzle writes it: rows of 128 bytes, 8-row groups 1024 bytes
+// apart (the stride byte offset), the tile base 1024-byte aligned so the
+// swizzle's phase is 0. Adding 2 to the descriptor moves the start 32
+// bytes along K inside the swizzle atom: the next k-step.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |            // leading (unused)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |    // stride: 8 rows
+         (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
+}
+
+#define WG_REGS_0_64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63"
+#define WG_REGS_64_128 \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, " \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, " \
+  "%94, %95, %96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, " \
+  "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127"
+#define WG_ACC8(C, d, i)                                                  \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]),             \
+      C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define WG_ACC64(C, d, i)                                                 \
+  WG_ACC8(C, d, i), WG_ACC8(C, d, i + 8), WG_ACC8(C, d, i + 16),           \
+      WG_ACC8(C, d, i + 24), WG_ACC8(C, d, i + 32), WG_ACC8(C, d, i + 40), \
+      WG_ACC8(C, d, i + 48), WG_ACC8(C, d, i + 56)
+#define WG_F(x) "+f"(x)
+#define WG_R(x) "+r"(x)
+
+// d (64 x N of the warpgroup, N / 2 values a thread) = a . b^T (+ d where
+// accumulate != 0): a 64 x 16 bf16 (f32 sums) or 64 x 32 s8 (s32 sums) tile
+// of A and an N x 16 / N x 32 tile of B, both K-major in shared memory
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void bf16(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS_0_64
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC64(WG_F, d, 0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void s8(int (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" WG_REGS_0_64
+        "}, %64, %65, p;\n}\n"
+        : WG_ACC64(WG_R, d, 0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void bf16(float (&d)[128], uint64_t a,
+                                              uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_REGS_0_64
+        ", " WG_REGS_64_128 "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC64(WG_F, d, 0), WG_ACC64(WG_F, d, 64)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void s8(int (&d)[128], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" WG_REGS_0_64
+        ", " WG_REGS_64_128 "}, %128, %129, p;\n}\n"
+        : WG_ACC64(WG_R, d, 0), WG_ACC64(WG_R, d, 64)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+#undef WG_REGS_0_64
+#undef WG_REGS_64_128
+#undef WG_ACC8
+#undef WG_ACC64
+#undef WG_F
+#undef WG_R
 
 }  // namespace mma_util

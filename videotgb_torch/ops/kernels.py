@@ -70,10 +70,11 @@ _SIGNATURES = {
     # head) x4, scale, dtype, body, stream) -> cudaError_t
     "flash_bshd": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12
                   + [ctypes.c_float, _I, _I, _P],
-    # int8_mm(a, b, c, M, N, K, out_kind, tile, stream) -> cudaError_t
-    "int8_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # bf16_mm(a, b, c, M, N, K, tile, stream) -> cudaError_t
-    "bf16_mm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # int8_mm(a, b, c, M, N, K, out_kind, tile, encode_ns*, stream) ->
+    # cudaError_t, or 10000 + the CUresult of a failed TMA encode
+    "int8_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # bf16_mm(a, b, c, M, N, K, tile, encode_ns*, stream) -> as int8_mm
+    "bf16_mm": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -147,8 +148,15 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+# kernel H's C entries return this + the CUresult of a failed TMA encode
+ENCODE_ERROR = 10000
+
+
 def check_launch(name: str, rc: int) -> None:
     """Raise on a refused or failed launch (the C side returns
     ``cudaGetLastError()`` right after launching)."""
+    if rc >= ENCODE_ERROR:
+        raise RuntimeError(f"{name}: TMA descriptor encode failed: CUresult "
+                           f"{rc - ENCODE_ERROR}")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")

@@ -14,7 +14,8 @@ arithmetic in the same order:
 
 Rounding is half to even (``torch.round``, as ``jnp.round``).
 
-Kernel H (``csrc/int8_mm.cu``, ``csrc/bf16_mm.cu``, tensor-core mma.sync):
+Kernel H (``csrc/int8_mm.cu``, ``csrc/bf16_mm.cu`` over the warp-specialised
+wgmma + TMA main loop of ``csrc/wgmma_gemm.cuh``):
 
 * :func:`int8_mm` - x (M, K) int8 times w_t (N, K) int8 -> (M, N) int32
   (the serving path) or bf16 (the probe's epilogue); the kernel on CUDA
@@ -23,20 +24,57 @@ Kernel H (``csrc/int8_mm.cu``, ``csrc/bf16_mm.cu``, tensor-core mma.sync):
   an f32 accumulator; the kernel on CUDA tensors, :func:`bf16_mm_reference`
   on CPU tensors.
 
-Both take the second operand as (N, K), K contiguous: the s8 mma.sync
-exists only in .row.col form, and the port's dense weights are stored (out,
-in). ``TILES`` names the block tilings the CUDA source instantiates.
+Both take the second operand as (N, K), K contiguous: wgmma reads 8-bit
+operands only K-major from shared memory, and the port's dense weights are
+stored (out, in). ``TILES`` names the block tilings the CUDA source
+instantiates; :func:`gemm_tile` picks one from the shape, and ``tile=None``
+(the default) takes its pick.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
 from videotgb_torch.ops import kernels
 
 _EPS = 1e-8
-TILES = ("128x128", "128x256", "64x64")  # mma_gemm.cuh::dispatch, by index
+# wgmma_gemm.cuh::dispatch, by index: rows x columns of a block's output
+# tile, and the blocks each SM runs at once
+TILES = ("128x128", "128x256", "64x128")
+_TILE_SHAPES = ((128, 128, 1), (128, 256, 1), (64, 128, 2))
+# The tiling rule's constants, fitted to kernel H's device times at the
+# eight shapes chip_smoke.py phase 12 times (H100 SXM): each tiling's rate
+# per consumer warpgroup relative to 128 x 128 (128 x 256 loads fewer bytes
+# per product; two 64 x 128 blocks share an SM's tensor cores), and its
+# fixed cost per tile (pipeline fill, epilogue) in bytes of K.
+_TILE_RATES = (1.0, 1.32, 0.75)
+_TILE_FIXED = (1400, 2300, 1200)
+SMS = 132  # streaming multiprocessors of an H100 SXM
 _OUT_KINDS = {torch.int32: 0, torch.bfloat16: 1}
+# host nanoseconds spent encoding kernel H's two TMA descriptors, summed
+# over the calls (a caller resets them)
+ENCODE_NS = {"int8_mm": 0, "bf16_mm": 0}
+
+
+def gemm_tile(m: int, n: int, k: int, dtype=torch.int8) -> int:
+    """The index into ``TILES`` of kernel H's tiling for an (m, k) x (k, n)
+    product of ``dtype`` (int8 or bfloat16): the least modelled time. The
+    persistent grid runs SMS x (blocks a SM) tiles at once, so the tiles
+    take ceil(tiles / slots) rounds (wave quantisation); a round lasts one
+    consumer warpgroup's 64-row share of a tile, its bytes of K plus the
+    tile's fixed cost, over the tiling's rate."""
+    kbytes = k * (1 if dtype == torch.int8 else 2)
+
+    def cost(i):
+        bm, bn, blocks = _TILE_SHAPES[i]
+        tiles = math.ceil(m / bm) * math.ceil(n / bn)
+        return (math.ceil(tiles / (SMS * blocks)) * 64 * bn
+                * (kbytes + _TILE_FIXED[i]) / _TILE_RATES[i])
+
+    return min(range(len(TILES)), key=cost)
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -90,6 +128,8 @@ def int8_mm_reference(x, w_t, out_dtype=torch.int32):
 def _kernel_call(name, x, w_t, out_dtype, tile, *extra):
     if not x.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors")
+    if tile is None:
+        tile = gemm_tile(x.shape[0], w_t.shape[0], x.shape[1], x.dtype)
     if not 0 <= tile < len(TILES):
         raise ValueError(f"{name}: tile {tile}; one of 0..{len(TILES) - 1} "
                          f"({', '.join(TILES)})")
@@ -101,18 +141,21 @@ def _kernel_call(name, x, w_t, out_dtype, tile, *extra):
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     lib = kernels.library(name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    encode_ns = ctypes.c_longlong(0)
     rc = getattr(lib, name)(x.data_ptr(), w_t.data_ptr(), out.data_ptr(), m,
-                            n, k, *extra, tile, stream)
+                            n, k, *extra, tile, ctypes.byref(encode_ns),
+                            stream)
     kernels.check_launch(name, rc)
     kernels.LAUNCHES[name] += 1
+    ENCODE_NS[name] += encode_ns.value
     return out
 
 
-def int8_mm(x, w_t, out_dtype=torch.int32, tile: int = 0):
+def int8_mm(x, w_t, out_dtype=torch.int32, tile: int | None = None):
     """x (M, K) int8 times w_t (N, K) int8 -> (M, N) ``out_dtype`` (int32:
     the accumulator; bfloat16: rounded through f32). Kernel H on CUDA
-    tensors (K a multiple of 16, ``tile`` an index into ``TILES``), the
-    plain version on CPU tensors."""
+    tensors (K a multiple of 16, ``tile`` an index into ``TILES``, None for
+    :func:`gemm_tile`'s pick), the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return int8_mm_reference(x, w_t, out_dtype)
     _check_operands("int8_mm", x, w_t, torch.int8, 16)
@@ -128,10 +171,10 @@ def bf16_mm_reference(x, w_t):
     return (x.float() @ w_t.float().T).to(torch.bfloat16)
 
 
-def bf16_mm(x, w_t, tile: int = 0):
+def bf16_mm(x, w_t, tile: int | None = None):
     """x (M, K) bf16 times w_t (N, K) bf16 -> (M, N) bf16, accumulated in
-    f32. Kernel H's bf16 body on CUDA tensors (K a multiple of 8), the plain
-    version on CPU tensors."""
+    f32. Kernel H's bf16 body on CUDA tensors (K a multiple of 8, ``tile``
+    as for :func:`int8_mm`), the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return bf16_mm_reference(x, w_t)
     _check_operands("bf16_mm", x, w_t, torch.bfloat16, 8)
@@ -158,7 +201,10 @@ def int8_matmul(x, w, out_dtype=None, kernel: bool = True):
     lead = x.shape[:-1]
     xq, xs = quantize_rows(x.reshape(-1, x.shape[-1]))
     wq, ws = quantize_cols(w)
-    mm = int8_mm if kernel else int8_mm_reference
-    acc = mm(xq, wq.T, torch.int32)
+    if kernel:
+        acc = int8_mm(xq, wq.T, torch.int32, tile=gemm_tile(
+            xq.shape[0], wq.shape[1], xq.shape[1], torch.int8))
+    else:
+        acc = int8_mm_reference(xq, wq.T, torch.int32)
     out = acc.float() * xs * ws
     return out.reshape(*lead, w.shape[-1]).to(out_dtype)
