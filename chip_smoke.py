@@ -31,18 +31,25 @@ Phases, each fatal on failure (exit code 1):
 5. kernel C (flash-attention backward) against its plain version at the
    training path's shape (T5-xl encoder: 8 x 32 heads x 160 x 64, bf16, an
    (8,32,160,160) f32 bias, no ds) and at a learned bias with ds, padding,
-   no bias, f32, Sq != Skv, a fully masked row, S = 1024 and S = 1536; the
-   forward output and the gradients through ``flash_attention`` (kernels A
-   and C) at the T5 encoder's shape and bias, and at S = 1200, against
-   autograd of the plain attention;
-   timed beside the plain version and the backward of
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
+   no bias, f32, an unaligned bf16 view, Sq != Skv (32 x 600, 1 x 160, 65
+   x 160), D = 128, a fully masked row in f32 and bf16, S = 1024 and S =
+   1536, each on the body ``flash_body`` picks (tensor cores for aligned
+   bf16: one launch where ``flash_bwd_passes`` says so, else two; CUDA
+   cores for the rest); two launches bit-identical at the main shape and
+   with ds; the forward output and the gradients through
+   ``flash_attention`` (kernels A and C) at the T5 encoder's shape and
+   bias, and at S = 1200, against autograd of the plain attention; both
+   bodies, the plain version and the backward of
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls;
+   its kernels summed under ``torch.profiler``) timed at the main shape as
+   device time per call;
 6. the E2E training path at flagship width (f32 parameters, bf16 compute,
    uniform selection, batch 8, 32 candidate frames, 32-token questions and
    answers): 3 ``Trainer.train_step`` steps, the first uncounted, with
    exact launch counts per step (63 flash forward, 24 flash backward),
    trainable parameters moved and frozen ones bit-identical, the last step
-   split into forward, backward and optimizer;
+   split into forward, backward and optimizer, then one more step traced
+   (device time by kernel family, kernel C's among them);
 7. the TG training path at flagship TGB width (batch 32, 64 flow frames,
    24-token questions, dropout on): 3 steps, no kernel launched;
 8. kernel D (fused frame selection): one launch per call on the select
@@ -84,9 +91,9 @@ Phases, each fatal on failure (exit code 1):
    quantize passes; then the three int8 tools (the GEMM probe counted: its
    kernel-H lines launch int8_mm and bf16_mm once per call).
 
-Every counted run of a path also checks that each launch of kernels A and
-G ran the tensor-core body (``kernels.MMA_LAUNCHES``): the paths hand them
-bf16 with 16-byte rows only. The last three lines are a JSON object of
+Every counted run of a path also checks that each launch of kernels A, G
+and C ran the tensor-core body (``kernels.MMA_LAUNCHES``): the paths hand
+them bf16 with 16-byte rows only. The last three lines are a JSON object of
 per-kernel numbers, the card's name and power limit, and a JSON object
 ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; exits non-zero without one, or without the package.
@@ -229,10 +236,16 @@ def wgmma_gemm_smem(bm: int, bn: int, stages: int) -> int:
 def ptxas_summary(report: str) -> list[str]:
     """One line per kernel instantiation of an ``nvcc -Xptxas -v`` report:
     its name (kernel<dtype, head-dim chunks of 32>, flash_mma_kernel<DP,
-    m-tiles, bias> or gemm_kernel<type, tile, stages, blocks a SM> where the
+    m-tiles, bias>, bwd_{one_pass,rows,cols}<DP> (kernel C's tensor-core
+    body) or gemm_kernel<type, tile, stages, blocks a SM> where the
     mangled name reads so), registers, spills and shared memory (static, as
-    ptxas counts it; the tensor-core flash body's and kernel H's dynamic
-    share beside it)."""
+    ptxas counts it; beside it the dynamic share of kernel A's tensor-core
+    body, of kernel H and of kernel C's one-pass block at 160 x 160)."""
+    from videotgb_torch.ops.attention import (
+        flash_bwd_one_pass_bytes,
+        flash_bwd_passes,
+    )
+
     out, fn, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -242,7 +255,15 @@ def ptxas_summary(report: str) -> list[str]:
             u = re.search(r"\d+([a-z_]+)ILi(\d+)ELi(\d)ELi([012])E", fn)
             h = re.search(r"\d+(S8|Bf16)ENS_4TileILi(\d+)ELi(\d+)ELi(\d+)"
                           r"ELi(\d)E", fn)
-            if h:
+            c = re.search(r"\d+(bwd_[a-z_]+)ILi(\d+)EE", fn)
+            if c:
+                fn = f"{c.group(1)}<{c.group(2)}>"
+                dp = int(c.group(2))
+                if c.group(1) == "bwd_one_pass" and flash_bwd_passes(
+                        160, 160, dp) == 1:
+                    dyn = (f" + {flash_bwd_one_pass_bytes(160, 160, dp)} "
+                           "bytes dynamic at 160 x 160")
+            elif h:
                 bm, bn, stages = (int(h.group(i)) for i in (2, 3, 4))
                 fn = (f"gemm_kernel<{h.group(1)}, {bm}x{bn}, {stages} stages,"
                       f" {h.group(5)} block(s) a SM>")
@@ -270,8 +291,9 @@ def ptxas_summary(report: str) -> list[str]:
 
 
 def check_mma(name: str, launches: dict) -> None:
-    """Fail unless every launch of kernels A and G in ``launches`` ran the
-    tensor-core body (``kernels.MMA_LAUNCHES``, reset with the counts)."""
+    """Fail unless every launch of kernels A, G and C in ``launches`` ran
+    the tensor-core body (``kernels.MMA_LAUNCHES``, reset with the
+    counts)."""
     from videotgb_torch.ops import kernels
 
     mma = dict(kernels.MMA_LAUNCHES)
@@ -695,7 +717,58 @@ def main_path(card: str) -> tuple[dict, dict]:
     return dict(end), span
 
 
+# kernel families of a trace, by substrings of the kernels' names
+FAMILIES = {
+    "kernel C": ("bwd_one_pass", "bwd_rows", "bwd_cols"),
+    "kernel H": ("gemm_kernel",),
+    "kernel A": ("flash_mma_kernel", "flash_fma_kernel"),
+    "cuBLAS/cuDNN": ("gemm", "xmma", "cutlass", "nvjet", "conv", "cudnn"),
+}
+OTHER = "eager elementwise/reductions/copies"
+
+
+def traced(fn) -> dict:
+    """One run of ``fn`` under ``torch.profiler``, synchronised: the device
+    time of its kernels in ms, by name and by family (``FAMILIES``, the
+    rest ``OTHER``), and the wall time of the traced run (the trace's own
+    cost included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    families = dict.fromkeys((*FAMILIES, OTHER), 0.0)
+    for name, ms in by_name.items():
+        families[next((f for f, keys in FAMILIES.items()
+                       if any(k in name for k in keys)), OTHER)] += ms
+    return {"busy": sum(by_name.values()), "wall": wall,
+            "families": families, "by_name": by_name}
+
+
 # ------------------------------------------------------------------ kernel C
+def profiled_ms(fn, iters=20) -> float:
+    """Device time per call of ``fn``: the durations of every kernel it
+    launches, summed under ``torch.profiler`` over ``iters`` calls (after
+    3 untraced ones); nan where the profiler records no device time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    busy = traced(lambda: [fn() for _ in range(iters)])["busy"]
+    return busy / iters if busy else float("nan")
+
+
 def check_flash_bwd(card: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -707,6 +780,7 @@ def check_flash_bwd(card: str) -> dict:
         flash_attention,
         flash_backward_cuda,
         flash_backward_reference,
+        flash_bwd_passes,
     )
 
     dev = torch.device("cuda")
@@ -720,21 +794,43 @@ def check_flash_bwd(card: str) -> dict:
         return torch.randn((b, s, h, d), generator=gen, device=dev).to(
             dtype).transpose(1, 2)
 
+    def shifted(b, h, s, d):
+        """bf16 (B, H, S, D) views 4 elements (8 bytes) into an allocation:
+        rows not 16-byte aligned, so the CUDA-core body takes them."""
+        flat = torch.randn(4 + b * s * h * d, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        return flat[4:].view(b, s, h, d).transpose(1, 2)
+
     def pad_bias(b, s, lo):
         lens = torch.randint(lo, s + 1, (b,), generator=gen, device=dev)
         keys = torch.arange(s, device=dev)
         return torch.where(keys[None] < lens[:, None], 0.0,
                            NEG_INF).float()[:, None, None]
 
-    def case(name, b, h, sq, skv, d, dtype, bias, need_ds=False):
-        q = strided(b, h, sq, d, dtype)
-        k, v, g = (strided(b, h, s, d, dtype) for s in (skv, skv, sq))
-        scale = d ** -0.5
-        got = flash_backward_cuda(q, k, v, bias, g, scale,
+    def launch(q, k, v, bias, g, need_ds):
+        """One launch of kernel C; returns the gradients and the body that
+        ran."""
+        before = kernels.MMA_LAUNCHES["flash_bwd"]
+        got = flash_backward_cuda(q, k, v, bias, g, q.shape[-1] ** -0.5,
                                   bias_needs_grad=need_ds)
-        want = flash_backward_reference(q, k, v, bias, g, scale,
+        return got, ("mma" if kernels.MMA_LAUNCHES["flash_bwd"] > before
+                     else "fma")
+
+    def case(name, b, h, sq, skv, d, dtype, bias, need_ds=False,
+             unaligned=False):
+        make = (lambda s: shifted(b, h, s, d)) if unaligned else (
+            lambda s: strided(b, h, s, d, dtype))
+        q, k, v, g = (make(s) for s in (sq, skv, skv, sq))
+        want_body = "mma" if dtype == torch.bfloat16 and not unaligned \
+            else "fma"
+        got, ran = launch(q, k, v, bias, g, need_ds)
+        want = flash_backward_reference(q, k, v, bias, g, d ** -0.5,
                                         bias_needs_grad=need_ds)
         torch.cuda.synchronize()
+        if ran != want_body:
+            fail(f"flash_bwd {name}: ran the {ran} body, not {want_body}")
+        passes = flash_bwd_passes(sq, skv, d) if ran == "mma" else 2
+        label = f"flash_bwd {name} [{ran} body, {passes} launch(es)]"
         atol, why = tol[dtype]
         errs = []
         for grad, a, e in zip(("dq", "dk", "dv", "dbias"), got, want):
@@ -745,9 +841,18 @@ def check_flash_bwd(card: str) -> dict:
             if a.dtype != e.dtype or a.shape != e.shape:
                 fail(f"flash_bwd {name} {grad}: {a.dtype} {tuple(a.shape)} "
                      f"vs {e.dtype} {tuple(e.shape)}")
-            errs.append(check_to_largest(f"flash_bwd {name} {grad}", a, e,
-                                         atol, why))
+            errs.append(check_to_largest(f"{label} {grad}", a, e, atol, why))
         return max(errs), (q, k, v, g)
+
+    def same_bits(name, q, k, v, bias, g, need_ds):
+        first, _ = launch(q, k, v, bias, g, need_ds)
+        second, _ = launch(q, k, v, bias, g, need_ds)
+        torch.cuda.synchronize()
+        same = all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(first, second))
+        log(f"  flash_bwd {name}: two launches bit-identical: {same}")
+        if not same:
+            fail(f"flash_bwd {name}: two launches on the same inputs differ")
 
     b, h, s, d = 8, 32, 160, 64
     # the T5 encoder's bias: relative positions (1,H,S,S) + padding (B,1,1,S)
@@ -756,17 +861,30 @@ def check_flash_bwd(card: str) -> dict:
     err_main, (q, k, v, g) = case(
         "main (8,32,160,64) bf16 T5 bias (8,32,160,160)", b, h, s, s, d,
         torch.bfloat16, t5_bias)
-    case("learned bias (1,32,160,160) with ds", b, h, s, s, d, torch.bfloat16,
-         torch.randn((1, h, s, s), generator=gen, device=dev), need_ds=True)
+    learned = torch.randn((1, h, s, s), generator=gen, device=dev)
+    _, ds_inputs = case("learned bias (1,32,160,160) with ds", b, h, s, s, d,
+                        torch.bfloat16, learned, need_ds=True)
+    same_bits("main", q, k, v, t5_bias, g, False)
+    same_bits("learned bias with ds", *ds_inputs[:3], learned, ds_inputs[3],
+              True)
     case("padding bias (8,1,1,160)", b, h, s, s, d, torch.bfloat16,
          pad_bias(b, s, 100))
     case("no bias", b, h, s, s, d, torch.bfloat16, None)
     case("f32 T5 bias", 2, h, s, s, d, torch.float32, t5_bias[:2])
+    case("bf16 view offset by 4 elements, T5 bias", 2, h, s, s, d,
+         torch.bfloat16, t5_bias[:2], unaligned=True)
     case("Sq != Skv 32 x 600, padding (2,1,1,600)", 2, 8, 32, 600, d,
          torch.bfloat16, pad_bias(2, 600, 300))
+    case("Sq != Skv 1 x 160, T5 bias", 2, h, 1, s, d, torch.bfloat16,
+         t5_bias[:2, :, :1])
+    case("Sq != Skv 65 x 160, T5 bias", 2, h, 65, s, d, torch.bfloat16,
+         t5_bias[:2, :, :65])
+    case("D = 128, (2,8,160,160) learned bias with ds", 2, 8, s, s, 128,
+         torch.bfloat16, learned[:, :8], need_ds=True)
     masked = torch.zeros((1, 1, s, s), device=dev)
     masked[..., 10, :] = NEG_INF
     case("fully masked row 10, f32", 1, 4, s, s, d, torch.float32, masked)
+    case("fully masked row 10, bf16", 1, 4, s, s, d, torch.bfloat16, masked)
     case("S = 1024, padding (1,1,1,1024)", 1, 8, 1024, 1024, d,
          torch.bfloat16, pad_bias(1, 1024, 900))
     case("S = 1536, padding (1,1,1,1536)", 1, 8, 1536, 1536, d,
@@ -781,7 +899,7 @@ def check_flash_bwd(card: str) -> dict:
                torch.float32: (1e-4, 1e-4, "f32 summation order only")}
     pad = pad_bias(b, s, 120)
     long_qkvg = [strided(1, 8, 1200, d, torch.bfloat16) for _ in range(4)]
-    for name, dtype, learned, qkvg, pad_ in (
+    for name, dtype, learned_rel, qkvg, pad_ in (
             ("T5 encoder bf16", torch.bfloat16, False, (q, k, v, g), pad),
             ("T5 encoder f32, learned bias", torch.float32, True,
              (q, k, v, g), pad),
@@ -790,10 +908,11 @@ def check_flash_bwd(card: str) -> dict:
         leaves = [t.detach().to(dtype).requires_grad_() for t in qkvg[:3]]
         heads, seq = leaves[0].shape[1:3]
         rel = torch.randn((1, heads, seq, seq), generator=gen,
-                          device=dev).requires_grad_(learned)
-        wrt = leaves + ([rel] if learned else [])
+                          device=dev).requires_grad_(learned_rel)
+        wrt = leaves + ([rel] if learned_rel else [])
         gd = qkvg[3].to(dtype)
         launches = kernels.LAUNCHES["flash_bwd"]
+        mma = kernels.MMA_LAUNCHES["flash_bwd"]
         out = flash_attention(*leaves, rel + pad_)
         want_out = dot_product_attention(*leaves, rel + pad_)
         check_close(f"flash_attention forward {name}", out, want_out,
@@ -803,40 +922,72 @@ def check_flash_bwd(card: str) -> dict:
         if kernels.LAUNCHES["flash_bwd"] != launches + 1:
             fail(f"flash_attention {name}: the backward did not launch "
                  "flash_bwd once")
+        if kernels.MMA_LAUNCHES["flash_bwd"] - mma != int(
+                dtype == torch.bfloat16):
+            fail(f"flash_attention {name}: the backward ran the wrong body")
         atol, why = tol[dtype]
         for grad, a, e in zip(("dq", "dk", "dv", "dbias"), got, want):
             check_to_largest(f"flash_attention autograd {name} {grad}", a, e,
                              atol, why + "; autograd of the plain version "
                              "rounds its casts' gradients elsewhere")
 
+    # times at the main shape, each as device time per call (graph_ms), the
+    # tensor-core body also per eager call; the CUDA-core body on the same
+    # values in views 8 bytes off (its rule's case), in the same run
     scale = d ** -0.5
-    ms = time_ms(lambda: flash_backward_cuda(q, k, v, t5_bias, g, scale,
-                                             bias_needs_grad=False))
-    plain_ms = time_ms(lambda: flash_backward_reference(
-        q, k, v, t5_bias, g, scale, bias_needs_grad=False))
-    lib_ms = None
+    passes = flash_bwd_passes(s, s, d)
+    log(f"  flash_bwd main shape (8,32,160,64): {passes} launch(es) of the "
+        f"tensor-core body (flash_bwd_passes)")
+    if passes != 1:
+        fail("flash_bwd: the main shape is not on the one-pass launch")
+    fq, fk, fv, fg = (shifted(b, h, s, d) for _ in range(4))
+    for dst, src in zip((fq, fk, fv, fg), (q, k, v, g)):
+        dst.copy_(src)
+    if launch(fq, fk, fv, t5_bias, fg, False)[1] != "fma":
+        fail("flash_bwd: the shifted views did not take the CUDA-core body")
+
+    def kernel_c(*tensors):
+        return lambda: flash_backward_cuda(*tensors[:3], t5_bias, tensors[3],
+                                           scale, bias_needs_grad=False)
+
+    ms = graph_ms(kernel_c(q, k, v, g))
+    eager_ms = time_ms(kernel_c(q, k, v, g))
+    fma_ms = graph_ms(kernel_c(fq, fk, fv, fg), iters=10)
+    ds_ms = graph_ms(lambda: flash_backward_cuda(
+        q, k, v, learned, g, scale, bias_needs_grad=True))
+    plain_ms = graph_ms(lambda: flash_backward_reference(
+        q, k, v, t5_bias, g, scale, bias_needs_grad=False), iters=5)
+    # SDPA's backward alone: the kernels of autograd.grad through one
+    # forward, summed under the profiler (a yardstick the port never calls)
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
     mask = t5_bias.to(torch.bfloat16)
-    try:
-        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, scale=scale))
-        both_ms = time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                           scale=scale), (qs, ks, vs), g))
-        lib_ms = both_ms - fwd_ms
-    except RuntimeError as e:  # a yardstick only; the port never calls it
-        log(f"  SDPA backward not timed: {e}")
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         scale=scale)
+    lib_ms = profiled_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), g, retain_graph=True))
+    if not math.isfinite(lib_ms):
+        log("  SDPA backward: the profiler recorded no device time")
+        lib_ms = None
     elem = q.element_size()
     nbytes = 7 * b * h * s * d * elem + t5_bias.numel() * 4
     flops = 10 * b * h * s * s * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    ds_bound = (nbytes + b * h * s * s * 4) / HBM_BYTES_PER_S * 1e3
+    # with ds: a (1,32,160,160) learned bias read, the (8,32,160,160) f32 ds
+    # written
+    ds_bytes = 7 * b * h * s * d * elem + (learned.numel() + b * h * s * s) * 4
+    ds_bound = max(ds_bytes / HBM_BYTES_PER_S * 1e3, t_ops)
     lib_txt = "not timed" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"  flash_bwd main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, SDPA backward {lib_txt}, bound {max(t_bytes, t_ops):.4f} ms "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; with ds "
-        f"{ds_bound:.4f} ms) on {card}")
+    log(f"  flash_bwd main shape, device time per call: tensor-core body "
+        f"{ms:.4f} ms ({eager_ms:.4f} ms a call from eager Python), "
+        f"CUDA-core body {fma_ms:.4f} ms ({fma_ms / ms:.2f}x), with ds "
+        f"(learned bias) {ds_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"backward {lib_txt}; bound {max(t_bytes, t_ops):.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), with ds "
+        f"{ds_bound:.4f} ms ({ds_bytes / 1e6:.1f} MB) on {card}")
+    if ms > 0.15 or ms > fma_ms / 3:
+        log(f"  flash_bwd: the tensor-core body misses its target (at most "
+            f"0.15 ms and a third of the CUDA-core body's {fma_ms:.4f} ms)")
     return {"name": "flash_bwd", "route": "cuda",
             "source": "videotgb_torch/csrc/flash_bwd.cu",
             "replaces": "videotgb_tpu/ops/attention.py:215",
@@ -847,11 +998,13 @@ def check_flash_bwd(card: str) -> dict:
 
 
 # ----------------------------------------------------------- training paths
-def train_steps(name, trainer, state, batch, expected, card) -> dict:
+def train_steps(name, trainer, state, batch, expected, card,
+                trace=False) -> dict:
     """Step 0 uncounted; step 1 through ``Trainer.train_step``, timed; step
     2 the same step split into forward, backward and optimizer. Launch
-    counts are read per step against ``expected``. Returns the launches of
-    the counted steps."""
+    counts are read per step against ``expected``. With ``trace``, two more
+    uncounted steps, the second under the profiler (device time by kernel
+    family). Returns the launches of the counted steps."""
     import torch
 
     from videotgb_torch.ops import kernels
@@ -908,6 +1061,9 @@ def train_steps(name, trainer, state, batch, expected, card) -> dict:
         f"forward {(t1 - t0) * 1e3:.2f} + backward {(t2 - t1) * 1e3:.2f} + "
         f"optimizer {(t3 - t2) * 1e3:.2f} = {(t3 - t0) * 1e3:.2f}; peak "
         f"device memory {peak_gib:.2f} GiB on {card}")
+    if trace:  # after the counted steps: its launches are not counted
+        device_breakdown(f"{name} Trainer.train_step",
+                         lambda: trainer.train_step(state, batch), card)
     return totals
 
 
@@ -965,7 +1121,8 @@ def train_paths(card: str) -> dict:
                 "flash_fwd": cfg.blip2.vit.num_layers
                 + cfg.blip2.t5.num_encoder_layers,
                 "flash_bwd": cfg.blip2.t5.num_encoder_layers}
-    e2e_launches = train_steps("E2E", trainer, state, batch, expected, card)
+    e2e_launches = train_steps("E2E", trainer, state, batch, expected, card,
+                               trace=True)
     for group in groups:
         if not any(not torch.equal(params[n], before[n])
                    for n in before if n.startswith(group)):
@@ -1330,7 +1487,8 @@ def check_bshd(card: str) -> dict:
                                 scale=scale).transpose(1, 2)
         torch.cuda.synchronize()
         body = "mma" if dtype == torch.bfloat16 else "fma"
-        ran = dict(kernels.MMA_LAUNCHES)
+        ran = {k: kernels.MMA_LAUNCHES[k] for k in ("flash_fwd",
+                                                     "flash_bshd")}
         log(f"  flash_bshd {dtype}: tensor-core body launches {ran} "
             f"(expected the {body} body for G and for A)")
         if ran != dict.fromkeys(ran, int(body == "mma")):
@@ -1523,43 +1681,21 @@ def device_breakdown(name, fn, card) -> None:
     kernel family and the device's idle share of the synchronised wall
     time (the trace's own cost included)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-    busy = sum(by_name.values())
-    if not busy:
+    r = traced(fn)
+    if not r["busy"]:
         log(f"  {name}: the profiler recorded no device time (traced wall "
-            f"{wall:.2f} ms)")
+            f"{r['wall']:.2f} ms)")
         return
-    families = {"kernel H": ("gemm_kernel",),
-                "kernel A": ("flash_mma_kernel", "flash_fma_kernel"),
-                "cuBLAS/cuDNN": ("gemm", "xmma", "cutlass", "nvjet", "conv",
-                                 "cudnn")}
-    fam = dict.fromkeys((*families, "eager elementwise/reductions/copies"),
-                        0.0)
-    for kname, ms in by_name.items():
-        key = next((f for f, keys in families.items()
-                    if any(k in kname for k in keys)),
-                   "eager elementwise/reductions/copies")
-        fam[key] += ms
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    log(f"  {name}, traced: device busy {busy:.2f} ms of {wall:.2f} ms wall "
-        f"(idle share {1 - busy / wall:.3f}); by family " + ", ".join(
-            f"{f} {ms:.2f} ms" for f, ms in fam.items()) + "; top kernels "
-        + "; ".join(f"{k[:48]} {ms:.2f} ms" for k, ms in top) + f" on {card}")
+    top = sorted(r["by_name"].items(), key=lambda kv: -kv[1])[:5]
+    log(f"  {name}, traced: device busy {r['busy']:.2f} ms of "
+        f"{r['wall']:.2f} ms wall (idle share {1 - r['busy'] / r['wall']:.3f});"
+        " by family " + ", ".join(f"{f} {ms:.2f} ms"
+                                  for f, ms in r["families"].items())
+        + "; top kernels " + "; ".join(f"{k[:48]} {ms:.2f} ms"
+                                       for k, ms in top) + f" on {card}")
 
 
 def int8_serving_path(card: str) -> int:

@@ -23,6 +23,7 @@ from videotgb_torch.ops.attention import (
     flash_attention,
     flash_backward_cuda,
     flash_backward_reference,
+    flash_bwd_passes,
     make_padding_bias,
 )
 from videotgb_torch.ops.correlation_pallas import (
@@ -278,6 +279,33 @@ def _strided(b, h, s, d, dtype, gen, dev):
         dtype).transpose(1, 2)
 
 
+def _launch_c(q, k, v, bias, g, scale, body, need_ds=False):
+    """One launch of kernel C; checks that it counted once and ran
+    ``body``."""
+    kernels.reset_launches()
+    got = flash_backward_cuda(q, k, v, bias, g, scale,
+                              bias_needs_grad=need_ds)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd"] == 1
+    assert kernels.MMA_LAUNCHES["flash_bwd"] == int(body == "mma"), body
+    return got
+
+
+def _check_dbias(got, want, q, k, v, bias, g, scale, tol):
+    """dbias sums ds over the bias's broadcast dims, and that sum may cancel
+    to nothing (a per-query bias shifts a whole softmax row: its gradient
+    is 0), so its error is bounded by the sum of the |ds| it adds up."""
+    b, h, sq, _ = q.shape
+    full = bias.expand(b, h, sq, k.shape[2]).contiguous()
+    ds = flash_backward_reference(q, k, v, full, g, scale)[3].abs()
+    for axis in range(4):
+        if bias.shape[axis] == 1:
+            ds = ds.sum(dim=axis, keepdim=True)
+    assert got.shape == bias.shape
+    err = float((got - want).abs().max())
+    assert err <= tol * float(ds.max()), f"dbias: {err:.3e}"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", BWD_LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -288,10 +316,8 @@ def test_flash_bwd_kernel_matches_plain(cuda, layout, dtype):
     k, v = (_strided(b, h, skv, d, dtype, gen, cuda) for _ in range(2))
     g = _strided(b, h, sq, d, dtype, gen, cuda)
     bias = _bias(layout, gen, b, h, sq, skv, cuda)
-    before = kernels.LAUNCHES["flash_bwd"]
-    got = flash_backward_cuda(q, k, v, bias, g, d ** -0.5)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_bwd"] == before + 1
+    got = _launch_c(q, k, v, bias, g, d ** -0.5, "mma" if dtype ==
+                    torch.bfloat16 else "fma", need_ds=True)
     want = flash_backward_reference(q, k, v, bias, g, d ** -0.5)
     for name, a, e in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == e.dtype and a.shape == e.shape, name
@@ -299,17 +325,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, layout, dtype):
     if bias is None:
         assert got[3] is None and want[3] is None
         return
-    # dbias sums ds over the bias's broadcast dims, and that sum may cancel
-    # to nothing (a per-query bias shifts a whole softmax row: its gradient
-    # is 0), so its error is bounded by the sum of the |ds| it adds up
-    full = bias.expand(b, h, sq, skv).contiguous()
-    ds = flash_backward_reference(q, k, v, full, g, d ** -0.5)[3].abs()
-    for axis in range(4):
-        if bias.shape[axis] == 1:
-            ds = ds.sum(dim=axis, keepdim=True)
-    assert got[3].shape == bias.shape
-    err = float((got[3] - want[3]).abs().max())
-    assert err <= TOL[dtype] * float(ds.max()), f"dbias: {err:.3e}"
+    _check_dbias(got[3], want[3], q, k, v, bias, g, d ** -0.5, TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -375,6 +391,184 @@ def test_flash_attention_long_sequence_backward_launches_the_kernel(cuda):
         _close_to_largest(a, e, 1e-4)
 
 
+def _t5_bias(gen, dev, b=8, h=32, s=160):
+    """The T5-xl encoder's bias as the model hands it to kernel C: relative
+    positions (1, H, S, S) + padding (B, 1, 1, S), one (B, H, S, S) f32."""
+    lens = torch.randint(120, s + 1, (b,), generator=gen, device=dev)
+    keys = torch.arange(s, device=dev)
+    pad = torch.where(keys[None] < lens[:, None], 0.0, NEG_INF)
+    return (torch.randn((1, h, s, s), generator=gen, device=dev)
+            + pad.float()[:, None, None])
+
+
+def _c_inputs(gen, dev, b, h, sq, skv, d):
+    q, g = (_strided(b, h, sq, d, torch.bfloat16, gen, dev)
+            for _ in range(2))
+    k, v = (_strided(b, h, skv, d, torch.bfloat16, gen, dev)
+            for _ in range(2))
+    return q, k, v, g
+
+
+def _check_c(got, want, names=("dq", "dk", "dv")):
+    for name, a, e in zip(names, got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape, name
+        assert torch.isfinite(a).all(), name
+        _close_to_largest(a, e, TOL[torch.bfloat16], name)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_mma_body_main_shape_with_the_t5_bias(cuda):
+    """The E2E path's shape, (8, 32, 160, 64) bf16 views with the T5
+    encoder's (8, 32, 160, 160) bias, no ds: one launch of the tensor-core
+    body."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    q, k, v, g = _c_inputs(gen, cuda, 8, 32, 160, 160, 64)
+    bias = _t5_bias(gen, cuda)
+    assert flash_bwd_passes(160, 160, 64) == 1
+    got = _launch_c(q, k, v, bias, g, 0.125, "mma")
+    assert got[3] is None
+    _check_c(got, flash_backward_reference(q, k, v, bias, g, 0.125,
+                                           bias_needs_grad=False))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_mma_body_learned_bias_with_ds(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    q, k, v, g = _c_inputs(gen, cuda, 8, 32, 160, 160, 64)
+    bias = torch.randn((1, 32, 160, 160), generator=gen, device=cuda)
+    got = _launch_c(q, k, v, bias, g, 0.125, "mma", need_ds=True)
+    want = flash_backward_reference(q, k, v, bias, g, 0.125)
+    _check_c(got, want)
+    _check_dbias(got[3], want[3], q, k, v, bias, g, 0.125,
+                 TOL[torch.bfloat16])
+
+
+# (Sq, Skv): the main shape, Sq != Skv on the two-pass path, one query, a
+# query count one past a 16-row tile, and one pass with more query rows than
+# the block's ten warps take at once (two and three row groups a warp; 368 x
+# 64 is the largest Sq that fits one block at D = 64)
+C_SEQS = [(160, 160), (32, 600), (1, 160), (65, 160), (192, 160), (300, 64),
+          (368, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seqs", C_SEQS)
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+def test_flash_bwd_mma_body_matches_plain(cuda, d, seqs):
+    """Every padded head dim on both launch paths (one pass where
+    ``flash_bwd_passes`` says 1, else two), with a (B, H, Sq, Skv) bias,
+    which the one-pass block stages in shared memory, and its ds."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    sq, skv = seqs
+    q, k, v, g = _c_inputs(gen, cuda, 2, 3, sq, skv, d)
+    bias = torch.randn((2, 3, sq, skv), generator=gen, device=cuda)
+    got = _launch_c(q, k, v, bias, g, d ** -0.5, "mma", need_ds=True)
+    want = flash_backward_reference(q, k, v, bias, g, d ** -0.5)
+    _check_c(got, want)
+    _check_dbias(got[3], want[3], q, k, v, bias, g, d ** -0.5,
+                 TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq", [40, 300])
+def test_flash_bwd_mma_body_masked_row(cuda, seq):
+    """A row whose keys all carry NEG_INF averages them uniformly, on the
+    one-pass (40) and the two-pass (300) launches."""
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    q, k, v, g = _c_inputs(gen, cuda, 1, 2, seq, seq, 64)
+    bias = torch.zeros((1, 1, seq, seq), device=cuda)
+    bias[..., 7, :] = NEG_INF
+    got = _launch_c(q, k, v, bias, g, 0.125, "mma")
+    _check_c(got, flash_backward_reference(q, k, v, bias, g, 0.125,
+                                           bias_needs_grad=False))
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_long_sequence_through_autograd(cuda):
+    """S = 1200 bf16 through the autograd.Function: kernel A forward, then
+    kernel C's two-pass tensor-core launch, against autograd of the plain
+    attention."""
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    leaves = [_strided(1, 8, 1200, 64, torch.bfloat16, gen,
+                       cuda).requires_grad_() for _ in range(3)]
+    lens = torch.tensor([1000], device=cuda)
+    bias = make_padding_bias(
+        (torch.arange(1200, device=cuda)[None] < lens[:, None]).float())
+    g = _strided(1, 8, 1200, 64, torch.bfloat16, gen, cuda)
+    assert flash_bwd_passes(1200, 1200, 64) == 2
+    kernels.reset_launches()
+    got = torch.autograd.grad(flash_attention(*leaves, bias), leaves, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd"] == 1
+    assert kernels.MMA_LAUNCHES["flash_bwd"] == 1
+    want = torch.autograd.grad(dot_product_attention(*leaves, bias), leaves,
+                               g)
+    _check_c(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_ds", [False, True])
+def test_flash_bwd_mma_body_is_deterministic(cuda, need_ds):
+    """Two launches on the same inputs give the same bits (no atomics), at
+    the main shape with the T5 bias and with a learned bias's ds."""
+    gen = torch.Generator(device=cuda).manual_seed(46)
+    q, k, v, g = _c_inputs(gen, cuda, 8, 32, 160, 160, 64)
+    bias = (torch.randn((1, 32, 160, 160), generator=gen, device=cuda)
+            if need_ds else _t5_bias(gen, cuda))
+    first = _launch_c(q, k, v, bias, g, 0.125, "mma", need_ds=need_ds)
+    second = _launch_c(q, k, v, bias, g, 0.125, "mma", need_ds=need_ds)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_unaligned_bf16_takes_the_fma_body(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    b, h, s, d = 2, 4, 160, 64
+    flat = torch.randn((4, 4 + b * s * h * d), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    # 4 elements (8 bytes) into the allocation: rows not 16-byte aligned
+    q, k, v, g = (t[4:].view(b, s, h, d).transpose(1, 2) for t in flat)
+    bias = _t5_bias(gen, cuda, b, h, s)
+    got = _launch_c(q, k, v, bias, g, 0.125, "fma")
+    _check_c(got, flash_backward_reference(q, k, v, bias, g, 0.125,
+                                           bias_needs_grad=False))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_c_entry_refuses_what_its_bodies_do_not_take(cuda):
+    """cudaErrorInvalidValue (1) for the tensor-core body on f32 or on a
+    bf16 row 8 bytes off, and for any launch without the stats scratch."""
+    lib = kernels.library("flash_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    b, h, d = 1, 2, 64
+
+    def call(dtype, shift, s, body, with_stats):
+        buf = torch.zeros(shift + b * s * h * d, dtype=dtype, device=cuda)
+        x = buf[shift:].view(b, s, h, d).transpose(1, 2)
+        outs = [torch.empty((b, s, h, d), dtype=dtype,
+                            device=cuda).transpose(1, 2) for _ in range(3)]
+        stats = torch.empty(3 * b * h * s, device=cuda)
+        strides = [t.stride(i) for t in (x, x, x, x, *outs) for i in range(3)]
+        rc = lib.flash_bwd(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), None, x.data_ptr(),
+            *(o.data_ptr() for o in outs), None,
+            stats.data_ptr() if with_stats else None, b, h, s, s, d,
+            *strides, 0, 0, 0, 0, 0.125, 0 if dtype == torch.float32 else 1,
+            body, stream)
+        torch.cuda.synchronize()
+        return rc
+
+    assert call(torch.float32, 0, 16, 1, True) == 1
+    assert call(torch.bfloat16, 4, 16, 1, True) == 1
+    assert call(torch.bfloat16, 0, 16, 0, False) == 1
+    assert call(torch.bfloat16, 0, 200, 1, False) == 1
+    assert call(torch.bfloat16, 0, 160, 1, False) == 1
+    assert call(torch.bfloat16, 0, 160, 1, True) == 0
+    assert call(torch.bfloat16, 0, 200, 1, True) == 0
+    assert call(torch.bfloat16, 4, 16, 0, True) == 0
+
+
 @pytest.mark.gpu
 def test_tiny_e2e_train_steps_on_the_card_match_the_cpu(cuda):
     """Three E2E (uniform selection) train steps of the tiny f32 model on
@@ -413,6 +607,8 @@ def test_tiny_e2e_train_steps_on_the_card_match_the_cpu(cuda):
             torch.cuda.synchronize()
             layers = cfg.blip2.t5.num_encoder_layers
             assert kernels.LAUNCHES["flash_bwd"] == 3 * layers
+            # f32 parameters and compute: the CUDA-core body
+            assert kernels.MMA_LAUNCHES["flash_bwd"] == 0
         assert all(torch.equal(p, frozen[n])
                    for n, p in model.named_parameters() if n in frozen)
     np.testing.assert_allclose(runs["gpu"], runs["cpu"], rtol=1e-4)

@@ -1,6 +1,8 @@
-"""The port's kernel plumbing on the CPU: which body kernels A and G run
-(``ops.attention.flash_body``), and the ``ctypes`` signatures of every C
-entry in ``videotgb_torch/csrc`` against the declarations in the sources.
+"""The port's kernel plumbing on the CPU: which body kernels A, G and C run
+(``ops.attention.flash_body``), how many launches kernel C's tensor-core
+body takes (``ops.attention.flash_bwd_passes``), and the ``ctypes``
+signatures of every C entry in ``videotgb_torch/csrc`` against the
+declarations in the sources.
 
 A pointer or a 64-bit stride that ``ctypes`` passes as a 32-bit int is cut
 without an error, so the declarations and ``kernels._SIGNATURES`` are held
@@ -14,7 +16,11 @@ import pytest
 import torch
 
 from videotgb_torch.ops import kernels
-from videotgb_torch.ops.attention import BODY_CODES, flash_body
+from videotgb_torch.ops.attention import (
+    BODY_CODES,
+    flash_body,
+    flash_bwd_passes,
+)
 
 
 def _bhsd_views(b, s, h, d, dtype):
@@ -81,6 +87,90 @@ def test_flash_body_rule(case):
     assert want in BODY_CODES
 
 
+def _with_grad(make, grad):
+    """Kernel C's four tensors: q, k, v from ``make`` and a dO."""
+    return lambda: make() + [grad()]
+
+
+BWD_BODY_CASES = {
+    # the T5-xl encoder's backward: (B, H, S, D) views of (B, S, H, D)
+    # projections, and the gradient of the output view in the same layout
+    "bf16 D=64 strided q, k, v and dO (T5-xl)":
+        (_with_grad(lambda: _bhsd_views(8, 160, 32, 64, torch.bfloat16),
+                    lambda: _bhsd_views(8, 160, 32, 64, torch.bfloat16)[0]),
+         "mma"),
+    "bf16 D=64 contiguous dO behind strided q, k, v":
+        (_with_grad(lambda: _bhsd_views(2, 160, 4, 64, torch.bfloat16),
+                    lambda: torch.zeros((2, 4, 160, 64),
+                                        dtype=torch.bfloat16)), "mma"),
+    "bf16 D=88 offset by 8 elements, dO too":
+        (lambda: _offset(2, 70, 4, 88, torch.bfloat16, 8), "mma"),
+    "bf16 only dO offset by 4 elements":
+        (_with_grad(lambda: _bhsd_views(2, 70, 4, 64, torch.bfloat16),
+                    lambda: _offset(2, 70, 4, 64, torch.bfloat16, 4)[0]),
+         "fma"),
+    "bf16 only dO with a seq stride of 12 * H":
+        (_with_grad(lambda: _bhsd_views(2, 70, 3, 8, torch.bfloat16),
+                    lambda: torch.zeros((2, 70, 3, 12), dtype=torch.bfloat16)
+                    [..., :8].transpose(1, 2)), "fma"),
+    "f32 D=64 q, k, v and dO":
+        (_with_grad(lambda: _bhsd_views(8, 160, 32, 64, torch.float32),
+                    lambda: _bhsd_views(8, 160, 32, 64, torch.float32)[0]),
+         "fma"),
+    "bf16 D=12 q, k, v and dO":
+        (_with_grad(lambda: _bhsd_views(2, 70, 4, 12, torch.bfloat16),
+                    lambda: _bhsd_views(2, 70, 4, 12, torch.bfloat16)[0]),
+         "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_BODY_CASES))
+def test_flash_body_rule_of_the_backward(case):
+    make, want = BWD_BODY_CASES[case]
+    tensors = make()
+    assert len(tensors) in (3, 4)
+    if len(tensors) == 3:  # _offset makes three: the fourth alike
+        tensors.append(tensors[0])
+    assert flash_body(*tensors) == want
+    if "only dO" in case:  # q, k and v alone would take the tensor cores
+        assert flash_body(*tensors[:3]) == "mma"
+
+
+# (Sq, Skv, D) -> launches of kernel C's tensor-core body
+BWD_PASSES = {
+    (160, 160, 64): 1,    # the T5-xl encoder: one block per head
+    (1, 160, 64): 1,
+    (65, 160, 64): 1,
+    (70, 45, 88): 1,
+    (192, 160, 64): 1,    # more query rows than the block's ten warps' 160
+    (300, 64, 64): 1,
+    (368, 64, 64): 1,     # 230,400 bytes of shared memory
+    (369, 64, 64): 2,     # 239,616 bytes
+    (161, 161, 64): 2,    # past 160 keys
+    (32, 600, 64): 2,
+    (600, 600, 64): 2,
+    (1024, 1024, 64): 2,
+    (1200, 1200, 64): 2,
+    (1536, 1536, 64): 2,
+    (160, 160, 96): 2,    # 235 KB of shared memory, over a block's 227 KB
+    (160, 160, 128): 2,
+    (64, 64, 128): 1,
+}
+
+
+@pytest.mark.parametrize("shape", list(BWD_PASSES))
+def test_flash_bwd_passes_rule(shape):
+    assert flash_bwd_passes(*shape) == BWD_PASSES[shape]
+
+
+def test_flash_bwd_passes_main_shape_fits_one_block():
+    # the T5-xl encoder's (160, 160, 64): Q, dO, K, V of 160 rows x 144
+    # bytes and bf16 P, dS of 160 rows x 336 bytes, 199,680 bytes in all
+    assert 4 * 160 * 144 + 2 * 160 * 336 == 199680 <= 232448
+    assert flash_bwd_passes(160, 160, 64) == 1
+    assert all(flash_bwd_passes(s, s, 64) == 2 for s in (600, 1024, 1536))
+
+
 def test_flash_body_reads_the_first_three_strides_of_either_layout():
     # kernel G hands over (B, S, H, D) tensors directly; the rule reads
     # their (batch, seq, head) strides just as A's (batch, head, seq)
@@ -131,6 +221,7 @@ def test_mma_counters_reset_with_the_launch_counts():
     assert set(kernels.MMA_LAUNCHES) <= set(kernels.LAUNCHES)
     kernels.LAUNCHES["flash_fwd"] += 2
     kernels.MMA_LAUNCHES["flash_fwd"] += 1
+    kernels.MMA_LAUNCHES["flash_bwd"] += 1
     kernels.reset_launches()
     assert not any(kernels.LAUNCHES.values())
     assert not any(kernels.MMA_LAUNCHES.values())

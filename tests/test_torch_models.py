@@ -198,6 +198,32 @@ def test_t5_encode_matches_jax(pair):
                       jnp.asarray(embeds), jnp.asarray(mask)))
 
 
+def test_t5_encoder_hands_the_flash_kernels_a_contiguous_bias(monkeypatch):
+    """The encoder's bias reaches attention as one contiguous (B, H, S, S)
+    f32 tensor, so the flash kernels read a row of keys per query (the
+    relative-position table's permuted view has a key stride of H)."""
+    from videotgb_torch.models import common
+
+    seen = []
+
+    def record(q, k, v, bias=None, scale=None):
+        seen.append(bias)
+        return common.dot_product_attention(q, k, v, bias=bias, scale=scale)
+
+    monkeypatch.setattr(common, "flash_attention", record)
+    cfg = TT5.T5Config.tiny()
+    model = TT5.T5Model(cfg, device="cpu")
+    s = 130  # 130 x 130 > 128 x 128: the flash path
+    embeds = torch.randn((2, s, cfg.d_model))
+    mask = torch.ones((2, s))
+    mask[1, -5:] = 0
+    model.encode(embeds, mask)
+    assert len(seen) == cfg.num_encoder_layers
+    for bias in seen:
+        assert bias.shape == (2, cfg.num_heads, s, s)
+        assert bias.dtype == torch.float32 and bias.is_contiguous()
+
+
 def test_t5_cached_decode_matches_jax(pair):
     """Prefill (token 0 + cross K/V) then two cached steps: logits equal
     the JAX decoder's at every step."""

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface.
+// Kernel C: the flash-attention backward for Hopper (sm_90a), plain C
+// interface.
 //
 // Replaces the Pallas TPU kernel videotgb_tpu/ops/attention.py::
 // _flash_bwd_kernel (driven by _flash_backward_pallas). Same function: the
@@ -17,33 +18,44 @@
 // Bound on the H100: on the main path (T5-xl encoder, 8 x 32 heads x 160 x
 // 64, bf16, (8,32,160,160) f32 bias, no ds) the five products are ~4.2 GFLOP
 // (~4 us at 989 TFLOP/s) against ~63 MB of q/k/v/dO/dq/dk/dv and bias (~19 us
-// at 3.35 TB/s), so the card's limit is memory. The TPU kernel holds whole
-// (Sq, Skv) score, probability and ds slabs of several rows in VMEM; a Hopper
-// block has at most 227 KB of shared memory (a 1024 x 1024 f32 slab is 4 MB),
-// so this kernel is tiled, and the reductions that cross tiles (dq over the
-// keys, dk and dv over the queries) are split into two passes, without
-// atomics, so the result is deterministic:
-//   * pass 1, one block per (batch*head, 32-row q tile), 8 warps x 4 rows:
-//     a sweep over 32-key K/V tiles keeps the online row max m, sum l and
-//     sum of exp(s - m) dp (lane j scores key j, as in flash_fwd.cu), which
-//     give delta = rowsum(dp p); a second sweep recomputes p and dp, forms
-//     ds, writes it where the bias needs its gradient, and accumulates dq
-//     (lane d owns dims d, d+32, ...); m, l and delta go to a small f32
-//     scratch (3, B*H, Sq);
-//   * pass 2, one block per (batch*head, 32-key k tile), 8 warps x 4 keys:
-//     a loop over 32-row Q/dO tiles recomputes p from m and l (lane i scores
-//     query i) and ds from delta, and accumulates dk and dv in registers;
-//     the bias tile is staged in shared memory so that its reads stay
-//     coalesced along the keys.
-// It computes on the CUDA cores with FMAs (no mma/wgmma, no TMA), which is
-// what limits it in practice: 9 products per score where 5 are needed, for
-// two passes without atomics. q/k/v/dO/dq/dk/dv are addressed through
-// (batch, head, seq) strides, so the (B, S, H, D) projections are read and
-// the gradients written without transpose copies; the bias through 4
-// strides, 0 on broadcast dims, so the shared (1,1,S,S), per-batch
-// (B,1,S,S), (B,1,1,S) padding, per-query (B,1,S,1), (1,H,S,S) and
-// (B,H,S,S) layouts are read without materialising a broadcast. Ragged
-// sequence tails are masked in the kernel; nothing is padded in HBM.
+// at 3.35 TB/s), so the card's limit is memory.
+//
+// Two bodies, chosen by the caller (videotgb_torch/ops/attention.py::
+// flash_body, the rule of kernel A, on q, k, v and dO) and passed as `body`:
+//   * the tensor-core body (flash_bwd_mma.cuh), for bf16 inputs with 16-byte
+//     rows, every shape the port's paths hand this kernel: mma.sync for all
+//     five products; one launch of one block per (batch*head) where the
+//     head's keys and its P and dS fit a block (Skv <= 160 and the shared
+//     memory rule of flash_bwd_mma.cuh::one_pass, mirrored by ops/
+//     attention.py::flash_bwd_passes: the T5 encoder's 160 x 160 at D = 64),
+//     else a rows pass and a columns pass on the same tile routines;
+//   * the CUDA-core body (below), for f32 inputs (a tensor-core f32 product
+//     would be TF32) and bf16 rows that are not 16-byte aligned: two passes
+//     of plain FMAs, 9 products per score where 5 are needed:
+//       - pass 1, one block per (batch*head, 32-row q tile), 8 warps x 4
+//         rows: a sweep over 32-key K/V tiles keeps the online row max m,
+//         sum l and sum of exp(s - m) dp (lane j scores key j, as in
+//         flash_fma.cuh), which give delta = rowsum(dp p); a second sweep
+//         recomputes p and dp, forms ds, writes it where the bias needs its
+//         gradient, and accumulates dq (lane d owns dims d, d+32, ...); m,
+//         l and delta go to a small f32 scratch (3, B*H, Sq);
+//       - pass 2, one block per (batch*head, 32-key k tile), 8 warps x 4
+//         keys: a loop over 32-row Q/dO tiles recomputes p from m and l
+//         (lane i scores query i) and ds from delta, and accumulates dk and
+//         dv in registers; the bias tile is staged in shared memory so that
+//         its reads stay coalesced along the keys.
+// Neither body uses atomics: the sums that cross tiles (dq over the keys,
+// dk and dv over the queries) stay in one block or go through the two
+// passes, so two runs on the same inputs give the same bits. Both address
+// q/k/v/dO/dq/dk/dv through (batch, head, seq) strides, so the (B, S, H, D)
+// projections are read and the gradients written without transpose copies,
+// and the bias through 4 strides, 0 on broadcast dims, so the shared
+// (1,1,S,S), per-batch (B,1,S,S), (B,1,1,S) padding, per-query (B,1,S,1),
+// (1,H,S,S) and (B,H,S,S) layouts are read without materialising a
+// broadcast. Ragged sequence tails are masked in the kernel; nothing is
+// padded in HBM.
+#include "flash_bwd_mma.cuh"
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -57,24 +69,7 @@ constexpr int kCols = 32;                 // inner tile: one per lane
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* g;       // dO
-  const float* bias;
-  void* dq;
-  void* dk;
-  void* dv;
-  float* ds;           // (B*H, Sq, Skv) f32, or null
-  float* stats;        // (3, B*H, Sq) f32: m, l, delta
-  int H, Sq, Skv, D, BH;
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-      g_sb, g_sh, g_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss,
-      dv_sb, dv_sh, dv_ss;
-  long long b_sb, b_sh, b_sq, b_sk;
-  float scale;
-};
+using flash_grad::Params;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -478,10 +473,14 @@ cudaError_t dispatch(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bias and ds may be null (then the bias
-// strides are ignored). stats is f32 scratch of 3 * B * H * Sq floats.
-// Returns the first launch's failing cudaError_t, or 0; the kernels do not
-// synchronise.
+// dtype: 0 = float32, 1 = bfloat16; body: 0 = CUDA cores, 1 = tensor cores
+// (bf16 with D % 8 == 0, 16-byte aligned pointers and strides that are
+// multiples of 8 elements; anything else is refused with
+// cudaErrorInvalidValue). bias and ds may be null (then the bias strides are
+// ignored). stats is f32 scratch of 3 * B * H * Sq floats, written and read
+// by the two-pass launches (every CUDA-core launch; a tensor-core launch
+// where flash_grad::mma_body::one_pass is false). Returns the first launch's
+// failing cudaError_t, or 0; the kernels do not synchronise.
 extern "C" int flash_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* g, void* dq, void* dk, void* dv, void* ds, void* stats,
@@ -494,7 +493,7 @@ extern "C" int flash_bwd(
     long long dk_sb, long long dk_sh, long long dk_ss,
     long long dv_sb, long long dv_sh, long long dv_ss,
     long long b_sb, long long b_sh, long long b_sq, long long b_sk,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int body, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D > 128 ||
       stats == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -524,13 +523,13 @@ extern "C" int flash_bwd(
   p.b_sb = b_sb; p.b_sh = b_sh; p.b_sq = b_sq; p.b_sk = b_sk;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch<float>(p, s);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(p, s);
-  } else {
-    err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (body == flash_grad::kBodyMma) {
+    if (dtype == 1 && flash_grad::mma_aligned(p))
+      err = flash_grad::mma_body::dispatch(p, s);
+  } else if (body == flash_grad::kBodyFma) {
+    if (dtype == 0) err = dispatch<float>(p, s);
+    if (dtype == 1) err = dispatch<__nv_bfloat16>(p, s);
   }
   return static_cast<int>(err);
 }

@@ -110,11 +110,6 @@ __device__ __forceinline__ void load_tile(uint8_t* dst,
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
 // the bias as a kernel reads it
 constexpr int kNoBias = 0;
 constexpr int kRowBias = 1;   // one row for every query (b_sq == 0)

@@ -1,7 +1,8 @@
 // PTX helpers of the tensor-core kernels:
-//   * for mma.sync (flash_mma.cuh): 16-byte cp.async copies into shared
-//     memory with zero fill, ldmatrix (plain and transposed) of b16 8 x 8
-//     matrices, and the bf16 m16n8k16 mma.sync with f32 accumulators;
+//   * for mma.sync (flash_mma.cuh, flash_bwd_mma.cuh): 16-byte cp.async
+//     copies into shared memory with zero fill, ldmatrix (plain and
+//     transposed) of b16 8 x 8 matrices, bf16 packing of fragment pairs,
+//     and the bf16 m16n8k16 mma.sync with f32 accumulators;
 //   * for Hopper's asynchronous path (wgmma_gemm.cuh): mbarriers, 2-D TMA
 //     loads, setmaxnreg, and wgmma (fence, commit, wait, shared-memory
 //     descriptors of 128-byte-swizzled K-major tiles, and the m64n{128,256}
@@ -9,6 +10,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace mma_util {
@@ -50,6 +52,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// two f32 values rounded to bf16 and packed into one 32-bit register, lo in
+// the low half: a pair of an mma fragment
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
 }
 
 // d += a . b on bf16 operands, f32 accumulators

@@ -173,7 +173,10 @@ class T5Model(nn.Module):
         """inputs_embeds (B, S, d_model) -> encoder hidden (B, S, d_model)."""
         s = inputs_embeds.shape[1]
         pos = torch.arange(s, device=inputs_embeds.device)
-        bias = self.enc_rel_bias(pos, pos) + make_padding_bias(attention_mask)
+        # contiguous, so that the flash kernels read a row of keys per query
+        # (as a permuted view its key stride is the head count)
+        bias = (self.enc_rel_bias(pos, pos).contiguous()
+                + make_padding_bias(attention_mask))
         x = inputs_embeds.to(self.config.dtype)
         for block in self.encoder_blocks:
             x, _ = block(x, bias)

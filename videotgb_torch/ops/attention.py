@@ -6,16 +6,20 @@
 * :func:`flash_attention` - kernel A, ``csrc/flash_fwd.cu``, on CUDA tensors
   (the Hopper counterpart of the Pallas ``_flash_kernel``), the plain
   version on CPU tensors. On a CUDA tensor it launches the kernel or raises;
-  there is no fallback. Its gradient is the CUDA kernel
-  ``csrc/flash_bwd.cu`` (the counterpart of ``_flash_bwd_kernel``), which is
-  tiled and takes any sequence length.
-* :func:`flash_body` - which of kernel A's two bodies a launch runs: the
-  tensor-core body (``csrc/flash_mma.cuh``: ``mma.sync`` for both products,
-  P kept in registers) for bf16 inputs with 16-byte rows, every shape the
-  port's paths hand it; the CUDA-core body (``csrc/flash_fma.cuh``: plain
-  FMAs) for f32 inputs, which the tensor cores would take only as TF32, and
-  for unaligned bf16 rows. Kernel G (``tools/attnlayoutprobe.py``) follows
-  the same rule.
+  there is no fallback. Its gradient is kernel C, ``csrc/flash_bwd.cu``
+  (the counterpart of ``_flash_bwd_kernel``), which takes any sequence
+  length.
+* :func:`flash_body` - which of the two bodies a launch of kernel A or C
+  runs: the tensor-core body (``mma.sync``: ``csrc/flash_mma.cuh`` for A,
+  with P kept in registers; ``csrc/flash_bwd_mma.cuh`` for C) for bf16
+  inputs with 16-byte rows, every shape the port's paths hand them; the
+  CUDA-core body (plain FMAs: ``csrc/flash_fma.cuh``, and the kernels of
+  ``csrc/flash_bwd.cu``) for f32 inputs, which the tensor cores would take
+  only as TF32, and for unaligned bf16 rows. Kernel G
+  (``tools/attnlayoutprobe.py``) follows the same rule.
+* :func:`flash_bwd_passes` - how many launches C's tensor-core body takes
+  at a shape: one where a head's keys, P and dS fit one block (the T5-xl
+  encoder's 160 x 160), else a rows pass and a columns pass.
 * :func:`flash_backward_reference` - the plain version of that backward.
 
 On the H100 attention at the ViT-g and T5-xl shapes is bound by memory (~130
@@ -53,18 +57,44 @@ def _strides3(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def flash_body(q, k, v) -> str:
+def flash_body(*tensors) -> str:
     """``"mma"`` (the tensor-core body) for bf16 inputs whose rows are 16
     bytes aligned: the head dim a multiple of 8, every base pointer a
     multiple of 16 bytes and the first three strides multiples of 8
-    elements; else ``"fma"`` (the CUDA-core body). A pure function of the
-    tensors' dtype, shape, strides and addresses, on any device."""
+    elements; else ``"fma"`` (the CUDA-core body). Kernels A and G pass q,
+    k and v, kernel C also dO. A pure function of the tensors' dtype, shape,
+    strides and addresses, on any device."""
+    q = tensors[0]
     if q.dtype != torch.bfloat16 or q.shape[-1] % 8:
         return "fma"
-    for t in (q, k, v):
+    for t in tensors:
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             return "fma"
     return "mma"
+
+
+# kernel C's tensor-core body (csrc/flash_bwd_mma.cuh::one_pass): one block
+# per head holds every key's S and dP in registers up to this many keys
+_BWD_ONE_PASS_KEYS = 160
+_SMEM_PER_BLOCK = 232448  # bytes a block may have on sm_90
+
+
+def flash_bwd_one_pass_bytes(s_q: int, s_kv: int, d: int) -> int:
+    """Shared bytes of kernel C's one-pass block at (Sq, Skv, head dim): the
+    head's Q, dO, K and V (rows of 2 DP + 16 bytes, DP the head dim padded to
+    16, 32, 64, 96 or 128) and its bf16 P and dS (rows of 2 Skv + 16 bytes),
+    every row count rounded up to 16."""
+    dp = next(p for p in (16, 32, 64, 96, 128) if d <= p)
+    qp, kp = -(-s_q // 16) * 16, -(-s_kv // 16) * 16
+    return 2 * (qp + kp) * (2 * dp + 16) + 2 * qp * (2 * kp + 16)
+
+
+def flash_bwd_passes(s_q: int, s_kv: int, d: int) -> int:
+    """Launches of kernel C's tensor-core body at (Sq, Skv, head dim): 1
+    where Skv <= 160 and :func:`flash_bwd_one_pass_bytes` fit one block,
+    else 2 (a rows pass and a columns pass)."""
+    fits = flash_bwd_one_pass_bytes(s_q, s_kv, d) <= _SMEM_PER_BLOCK
+    return 1 if s_kv <= _BWD_ONE_PASS_KEYS and fits else 2
 
 
 def _check_inputs(q, k, v, bias, g=None):
@@ -174,10 +204,11 @@ def flash_backward_reference(q, k, v, bias, g, scale, bias_needs_grad=True):
 
 def flash_backward_cuda(q, k, v, bias, g, scale, bias_needs_grad=True):
     """Launch ``flash_bwd`` on CUDA tensors; returns (dq, dk, dv, dbias or
-    None) like :func:`flash_backward_reference`. q/k/v/g may be strided
-    views (a ``g`` whose last dim is not contiguous is copied); dq/dk/dv are
-    (B,H,S,D) views of (B,S,H,D) buffers, the layout of the projections
-    they flow back into."""
+    None) like :func:`flash_backward_reference`. The body is
+    :func:`flash_body` of q, k, v and g. q/k/v/g may be strided views (a ``g``
+    whose last dim is not contiguous is copied); dq/dk/dv are (B,H,S,D)
+    views of (B,S,H,D) buffers, the layout of the projections they flow
+    back into."""
     b, h, s_q, d = q.shape
     s_kv = k.shape[2]
     if g.shape != q.shape:
@@ -193,7 +224,8 @@ def flash_backward_cuda(q, k, v, bias, g, scale, bias_needs_grad=True):
     dk = torch.empty((b, s_kv, h, d), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     dv = torch.empty_like(dk)
-    # per-row softmax max, sum and rowsum(dp * p), written by pass 1
+    body = flash_body(q, k, v, g)
+    # per-row softmax max, sum and rowsum(dp * p) of the two-pass launches
     stats = torch.empty((3, b * h, s_q), dtype=torch.float32, device=q.device)
     ds = (torch.empty((b, h, s_q, s_kv), dtype=torch.float32, device=q.device)
           if need_ds else None)
@@ -205,9 +237,12 @@ def flash_backward_cuda(q, k, v, bias, g, scale, bias_needs_grad=True):
         None if ds is None else ds.data_ptr(), stats.data_ptr(),
         b, h, s_q, s_kv, d, *_strides3(q), *_strides3(k), *_strides3(v),
         *_strides3(g), *_strides3(dq), *_strides3(dk), *_strides3(dv),
-        *b_strides, float(scale), _DTYPE_CODES[q.dtype], stream)
+        *b_strides, float(scale), _DTYPE_CODES[q.dtype], BODY_CODES[body],
+        stream)
     kernels.check_launch("flash_bwd", rc)
     kernels.LAUNCHES["flash_bwd"] += 1
+    if body == "mma":
+        kernels.MMA_LAUNCHES["flash_bwd"] += 1
     dbias = None if ds is None else _reduce_to(ds, bias.shape, bias.dtype)
     return dq, dk, dv, dbias
 

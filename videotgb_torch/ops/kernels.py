@@ -11,8 +11,9 @@ once.
 ``LAUNCHES`` holds one plain integer per kernel, the CUDA ones of
 ``SOURCES`` and the Triton ones of ``TRITON_KERNELS``; a wrapper adds one
 where it launches its kernel and nowhere else. ``MMA_LAUNCHES`` counts, of
-the launches of kernels A and G, those that ran the tensor-core body
-(``csrc/flash_mma.cuh``; the rest ran the CUDA-core body).
+the launches of kernels A, G and C, those that ran the tensor-core body
+(``csrc/flash_mma.cuh``, ``csrc/flash_bwd_mma.cuh``; the rest ran the
+CUDA-core body).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
 # compiled by Triton at first launch (videotgb_torch/tools/lnprobe.py)
 TRITON_KERNELS = ("add_ln", "ln")
 LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, *TRITON_KERNELS)}
-MMA_LAUNCHES: dict[str, int] = {"flash_fwd": 0, "flash_bshd": 0}
+MMA_LAUNCHES: dict[str, int] = {"flash_fwd": 0, "flash_bshd": 0,
+                                 "flash_bwd": 0}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -53,8 +55,9 @@ _SIGNATURES = {
                  + [ctypes.c_float, _I, _I, _P],
     # flash_bwd(q, k, v, bias, dO, dq, dk, dv, ds, stats, B, H, Sq, Skv, D,
     # q/k/v/dO/dq/dk/dv strides (batch, head, seq) x7, bias strides (batch,
-    # head, q, k), scale, dtype, stream) -> cudaError_t
-    "flash_bwd": [_P] * 10 + [_I] * 5 + [_L] * 25 + [ctypes.c_float, _I, _P],
+    # head, q, k), scale, dtype, body, stream) -> cudaError_t
+    "flash_bwd": [_P] * 10 + [_I] * 5 + [_L] * 25
+                 + [ctypes.c_float, _I, _I, _P],
     # corr_lookup(levels*, hl*, wl*, n_levels, coords, out, P, Q, radius,
     # dtype, stream) -> cudaError_t
     "corr_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
