@@ -7,7 +7,8 @@ Phases, each fatal on failure (exit code 1):
 
 1. the card's name and power limit (``nvidia-smi``), then an ``nvcc`` build
    of every kernel in ``videotgb_torch/csrc`` (one process per source), with
-   each instantiation's registers, spills and shared memory;
+   each instantiation's registers, spills and shared memory (kernels B and
+   E's tile body with its dynamic share at the serving shape);
 2. kernel A (flash-attention forward) against its plain PyTorch version at
    the main-path shape (ViT-g: 16 images x 16 heads x 264 x 88, bf16, a
    (1,1,1,264) pad bias) and at the other bias layouts, f32, an unaligned
@@ -19,15 +20,22 @@ Phases, each fatal on failure (exit code 1):
    encoder's (8, 32, 160, 64) with its (8, 32, 160, 160) f32 bias, as
    device time per call (calls captured in a CUDA graph: a call's host
    overhead exceeds the kernel's time);
-3. kernel B (RAFT correlation lookup) against its plain version at 16 pairs,
-   28x28 queries, 4 levels, r = 4, f32 and bf16, coordinates partly off the
-   image; timed beside the plain version;
+3. kernel B (RAFT correlation lookup) against its plain version at 16 pairs
+   (the serving path's) and 256 pairs (the JAX benchmark's RAFT batch of
+   128, twice), 28x28 queries, 4 levels, r = 4, f32 and bf16, RAFT's
+   coordinates (``tools/lookupprobe.py::make_coords``'s "raft"), "wild" and
+   off-map ones, on both bodies (the tile body the rule picks and the
+   gather body); in bf16 both bodies timed as device time per call (calls
+   captured in a CUDA graph), per eager call and as the host's time per
+   call, beside the bound and the plain version;
 4. the serving path at flagship width (ViT-g, Q-Former, Flan-T5-xl, TGB
    BERT-base, RAFT; random weights from a seed) for 4 requests:
    ``select_phase_blip2`` -> gather -> ``answer_phase_blip2``, then
    ``flow_features`` + ``generate_blip2`` on the same batch, with exact
-   launch counts of both kernels; the ViT once without the flash kernel and
-   RAFT once without the lookup kernel, against the kernel path;
+   launch counts of both kernels (every lookup on the tile body); the ViT
+   once without the flash kernel and RAFT once without the lookup kernel,
+   against the kernel path; one RAFT refine traced (device time by kernel
+   family, the lookup's among them);
 5. kernel C (flash-attention backward) against its plain version at the
    training path's shape (T5-xl encoder: 8 x 32 heads x 160 x 64, bf16, an
    (8,32,160,160) f32 bias, no ds) and at a learned bias with ds, padding,
@@ -92,8 +100,9 @@ Phases, each fatal on failure (exit code 1):
    kernel-H lines launch int8_mm and bf16_mm once per call).
 
 Every counted run of a path also checks that each launch of kernels A, G
-and C ran the tensor-core body (``kernels.MMA_LAUNCHES``): the paths hand
-them bf16 with 16-byte rows only. The last three lines are a JSON object of
+and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
+of B and E the tile body (``kernels.TILE_LAUNCHES``): the paths hand them
+bf16 with 16-byte rows only. The last three lines are a JSON object of
 per-kernel numbers, the card's name and power limit, and a JSON object
 ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; exits non-zero without one, or without the package.
@@ -149,6 +158,27 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fns: dict, calls=200, reps=5) -> dict:
+    """Host time per call of each of ``fns`` in µs: ``calls`` calls issued
+    back to back without a sync, on the host's clock, the median of ``reps``
+    rounds that take the functions in turn (a device that keeps up with the
+    host adds nothing to it)."""
+    import statistics
+
+    import torch
+
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[name].append((time.perf_counter() - t) / calls * 1e6)
+            torch.cuda.synchronize()
+    return {name: statistics.median(v) for name, v in times.items()}
 
 
 def graph_ms(fn, iters=50, reps=3) -> float:
@@ -233,14 +263,33 @@ def wgmma_gemm_smem(bm: int, bn: int, stages: int) -> int:
     return stages * (bm + bn) * 128 + 1024 + 16 * stages
 
 
+# the tile body's dynamic shared bytes at the serving shape (16 pairs of
+# 28 x 28, 4 levels, r = 4) with the tiling rule's block
+def lookup_serving_smem(dtype: str) -> int:
+    import torch
+
+    from videotgb_torch.ops.correlation_pallas import (
+        lookup_tile,
+        lookup_tile_bytes,
+    )
+
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tile = lookup_tile(16, 28, 28, 4, 4, dt)
+    return lookup_tile_bytes(tile.qb, 4, 4, 4 if dtype == "f32" else 2,
+                             tile.stage_bytes)
+
+
 def ptxas_summary(report: str) -> list[str]:
     """One line per kernel instantiation of an ``nvcc -Xptxas -v`` report:
     its name (kernel<dtype, head-dim chunks of 32>, flash_mma_kernel<DP,
     m-tiles, bias>, bwd_{one_pass,rows,cols}<DP> (kernel C's tensor-core
-    body) or gemm_kernel<type, tile, stages, blocks a SM> where the
-    mangled name reads so), registers, spills and shared memory (static, as
-    ptxas counts it; beside it the dynamic share of kernel A's tensor-core
-    body, of kernel H and of kernel C's one-pass block at 160 x 160)."""
+    body), tile_kernel<dtype> or corr_gather_kernel<dtype> (kernels B and
+    E) or
+    gemm_kernel<type, tile, stages, blocks a SM> where the mangled name
+    reads so), registers, spills and shared memory (static, as ptxas
+    counts it; beside it the dynamic share of kernel A's tensor-core body,
+    of kernel H, of kernel C's one-pass block at 160 x 160 and of the
+    lookup's tile body at the serving shape)."""
     from videotgb_torch.ops.attention import (
         flash_bwd_one_pass_bytes,
         flash_bwd_passes,
@@ -256,7 +305,15 @@ def ptxas_summary(report: str) -> list[str]:
             h = re.search(r"\d+(S8|Bf16)ENS_4TileILi(\d+)ELi(\d+)ELi(\d+)"
                           r"ELi(\d)E", fn)
             c = re.search(r"\d+(bwd_[a-z_]+)ILi(\d+)EE", fn)
-            if c:
+            b = re.search(r"\d+((?:tile|corr_gather)_kernel)I(f|13__nv_bfloat16)E",
+                          fn)
+            if b:
+                dtype = "f32" if b.group(2) == "f" else "bf16"
+                fn = f"{b.group(1)}<{dtype}>"
+                if b.group(1) == "tile_kernel":
+                    dyn = f" + {lookup_serving_smem(dtype)} bytes dynamic " \
+                          "at the serving shape"
+            elif c:
                 fn = f"{c.group(1)}<{c.group(2)}>"
                 dp = int(c.group(2))
                 if c.group(1) == "bwd_one_pass" and flash_bwd_passes(
@@ -290,18 +347,21 @@ def ptxas_summary(report: str) -> list[str]:
     return out
 
 
-def check_mma(name: str, launches: dict) -> None:
+def check_bodies(name: str, launches: dict) -> None:
     """Fail unless every launch of kernels A, G and C in ``launches`` ran
-    the tensor-core body (``kernels.MMA_LAUNCHES``, reset with the
+    the tensor-core body (``kernels.MMA_LAUNCHES``) and every launch of B
+    and E the tile body (``kernels.TILE_LAUNCHES``; both reset with the
     counts)."""
     from videotgb_torch.ops import kernels
 
-    mma = dict(kernels.MMA_LAUNCHES)
-    want = {k: launches.get(k, 0) for k in mma}
-    log(f"  tensor-core body launches in {name}: {mma} (expected {want})")
-    if mma != want:
-        fail(f"{name}: flash launches off the tensor-core body: {mma} != "
-             f"{want}")
+    for what, counts in (("tensor-core", kernels.MMA_LAUNCHES),
+                         ("tile", kernels.TILE_LAUNCHES)):
+        got = dict(counts)
+        want = {k: launches.get(k, 0) for k in got}
+        if any(want.values()):
+            log(f"  {what} body launches in {name}: {got} (expected {want})")
+        if got != want:
+            fail(f"{name}: launches off the {what} body: {got} != {want}")
 
 
 def rel_diff(a, b) -> float:
@@ -459,48 +519,119 @@ def lookup_needed_bytes(pyramid, coords, radius) -> int:
     return total + coords.numel() * 4 + out
 
 
-def check_lookup(card: str) -> dict:
+def lookup_coords(pairs, hw, dev, gen) -> dict:
+    """The lookup probe's "raft" and "wild" coordinates and off-map ones
+    (uniform over [-8, hw + 8), partly off every border)."""
     import torch
 
-    from videotgb_torch.ops.correlation_pallas import (
-        build_corr_pyramid_t,
-        lookup_corr_pyramid_t,
-        lookup_corr_pyramid_t_plain,
-    )
+    from videotgb_torch.tools import lookupprobe as LP
+
+    sets = LP.make_coords(pairs, hw, dev, gen)
+    sets["off map"] = torch.rand((pairs, hw, hw, 2), generator=gen,
+                                 device=dev) * (hw + 16) - 8.0
+    return sets
+
+
+LOOKUP_TOL = {
+    "torch.float32": (1e-4, 1e-4, "f32 sums, 2-tap vs dense hat order"),
+    "torch.bfloat16": (2e-2, 2e-2, "both round f32 sums to bf16: <= 1 ulp "
+                       "(2^-8 relative) apart"),
+}
+
+
+def check_lookup(card: str) -> dict:
+    """Kernel B on both bodies against its plain version, and timed."""
+    import torch
+
+    from videotgb_torch.ops import correlation_pallas as CP
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.tools import lookupprobe as LP
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    pairs, hw, radius = 16, 28, 4
-    f1, f2 = (torch.randn((pairs, hw, hw, 256), generator=gen, device=dev)
-              for _ in range(2))
-    coords = torch.rand((pairs, hw, hw, 2), generator=gen,
-                        device=dev) * 44.0 - 8.0  # partly off the 28x28 map
+    hw, radius = 28, 4
     out = None
-    for dtype, (atol, rtol, why) in (
-            (torch.float32, (1e-4, 1e-4, "f32 sums, 2-tap vs dense hat order")),
-            (torch.bfloat16, (2e-2, 2e-2, "both round f32 sums to bf16: "
-                              "<= 1 ulp (2^-8 relative) apart"))):
-        pyr = build_corr_pyramid_t(f1.to(dtype), f2.to(dtype), 4)
-        got = lookup_corr_pyramid_t(pyr, coords, radius)
-        want = lookup_corr_pyramid_t_plain(pyr, coords, radius)
-        torch.cuda.synchronize()
-        if got.dtype != dtype or tuple(got.shape) != (pairs, hw, hw, 324):
-            fail(f"lookup output {got.dtype} {tuple(got.shape)}")
-        err = check_close(f"lookup {dtype}", got, want, atol, rtol, why)
-        ms = time_ms(lambda: lookup_corr_pyramid_t(pyr, coords, radius))
-        plain_ms = time_ms(lambda: lookup_corr_pyramid_t_plain(pyr, coords,
-                                                               radius))
+    for pairs in (16, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            atol, rtol, why = LOOKUP_TOL[str(dtype)]
+            pyr = LP.make_pyramid(pairs, hw, dtype, dev, gen)
+            coord_sets = lookup_coords(pairs, hw, dev, gen)
+            tile = CP.lookup_tile(pairs, hw, hw, 4, radius, dtype)
+            if CP.lookup_body(pyr, coord_sets["raft"], radius) != "tile":
+                fail(f"lookup {pairs} pairs {dtype}: the rule does not pick "
+                     "the tile body")
+            err = 0.0
+            for cname, coords in coord_sets.items():
+                want = CP.lookup_corr_pyramid_t_plain(pyr, coords, radius)
+                for body in ("tile", "gather"):
+                    kernels.reset_launches()
+                    got = CP.corr_lookup_cuda(pyr, coords, radius, body=body)
+                    torch.cuda.synchronize()
+                    if kernels.TILE_LAUNCHES["corr_lookup"] != int(
+                            body == "tile"):
+                        fail(f"lookup: the {body} body was not launched")
+                    if got.dtype != dtype or tuple(got.shape) != (
+                            pairs, hw, hw, 324):
+                        fail(f"lookup output {got.dtype} {tuple(got.shape)}")
+                    e = check_close(f"lookup {pairs} pairs {dtype} {cname} "
+                                    f"{body} body", got, want, atol, rtol,
+                                    why)
+                    if body == "tile" and cname == "raft":
+                        err = e
+                del want
+            if dtype == torch.bfloat16:  # the serving path's pyramid dtype
+                row_b = lookup_times(card, pyr, coord_sets, radius, tile,
+                                     pairs)
+                if pairs == 16:
+                    out = dict(row_b, max_abs_err=err)
+            del pyr, coord_sets
+            torch.cuda.empty_cache()
+    return out
+
+
+def lookup_times(card, pyr, coord_sets, radius, tile, pairs) -> dict:
+    """Kernel B's two bodies timed on one bf16 pyramid: device time per
+    call (``graph_ms``), per eager call and the host's time per call
+    (``host_us``), beside the bound from this run's inputs and the plain
+    version. Returns the row of the serving shape's RAFT coords."""
+    import torch
+
+    from videotgb_torch.ops import correlation_pallas as CP
+
+    iters = 50 if pairs <= 16 else 20
+    row_b = None
+    for cname, coords in coord_sets.items():
         nbytes = lookup_needed_bytes(pyr, coords, radius)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"  lookup {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB needed) on {card}")
-        if dtype == torch.bfloat16:  # the serving path's pyramid dtype
-            out = {"name": "corr_lookup", "route": "cuda",
-                   "source": "videotgb_torch/csrc/corr_lookup.cu",
-                   "replaces": "videotgb_tpu/ops/correlation_pallas.py:73",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
-    return out
+        t, calls = {}, {}
+        for body in ("tile", "gather"):
+            def call(body=body):
+                return CP.corr_lookup_cuda(pyr, coords, radius, body=body)
+            t[body] = (graph_ms(call, iters=iters), time_ms(call))
+            calls[body] = call
+        host = host_us(calls)
+        enc = dict(CP.ENCODE_NS)
+        n0 = 10
+        for _ in range(n0):
+            CP.corr_lookup_cuda(pyr, coords, radius)
+        enc_us = (CP.ENCODE_NS["corr_lookup"] - enc["corr_lookup"]) / n0 / 1e3
+        log(f"  lookup {pairs} pairs bf16 {cname} coords: tile body "
+            f"{t['tile'][0]:.4f} ms device time per call ({t['tile'][1]:.4f} "
+            f"per eager call; {host['tile']:.1f} us of host time a call, "
+            f"TMA encodes {enc_us:.1f} us of it), gather body "
+            f"{t['gather'][0]:.4f} ({t['gather'][1]:.4f}; host "
+            f"{host['gather']:.1f} us); bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB needed); tile "
+            f"{tuple(tile)} on {card}")
+        if cname == "raft":
+            plain_ms = time_ms(lambda: CP.lookup_corr_pyramid_t_plain(
+                pyr, coords, radius), iters=3, warmup=1)
+            log(f"  lookup {pairs} pairs bf16 raft coords: plain version "
+                f"{plain_ms:.4f} ms on {card}")
+            row_b = row("corr_lookup", "videotgb_torch/csrc/corr_lookup.cu",
+                        "videotgb_tpu/ops/correlation_pallas.py:73", 0.0,
+                        t["tile"][0], plain_ms, nbytes)
+    return row_b
 
 
 # ------------------------------------------------------------- request batch
@@ -619,7 +750,7 @@ def main_path(card: str) -> tuple[dict, dict]:
             b, n_flow - 1, fs, fs, 2):
         fail(f"flow features {tuple(flow.shape)} not finite")
     check_tokens("generate_blip2", tokens_g)
-    check_mma("the serving run", end)
+    check_bodies("the serving run", end)
 
     per_phase = {
         "select_phase_blip2": {k: after_select[k] for k in end},
@@ -710,6 +841,9 @@ def main_path(card: str) -> tuple[dict, dict]:
             model, enc, mask, dcfg))
     for name, ms in parts.items():
         log(f"  component {name}: {ms:.2f} ms on {card}")
+    # one RAFT refine (16 pairs, 20 lookups) by kernel family
+    device_breakdown("RAFT flow_features (one refine of 16 pairs)",
+                     lambda: model.flow_features(flow_u8.float()), card)
     # the select phase's own span logits, for kernel D in phase 8
     span = {"start": start_logits, "end": end_logits,
             "video_length": batch["video_length"],
@@ -719,6 +853,7 @@ def main_path(card: str) -> tuple[dict, dict]:
 
 # kernel families of a trace, by substrings of the kernels' names
 FAMILIES = {
+    "kernels B/E": ("corr_tile::tile_kernel", "corr_gather_kernel"),
     "kernel C": ("bwd_one_pass", "bwd_rows", "bwd_cols"),
     "kernel H": ("gemm_kernel",),
     "kernel A": ("flash_mma_kernel", "flash_fma_kernel"),
@@ -1026,7 +1161,7 @@ def train_steps(name, trainer, state, batch, expected, card,
         if launches != expected:
             fail(f"{name} launch counts of {step_name}: {launches} != "
                  f"{expected}")
-        check_mma(f"{name} {step_name}", launches)
+        check_bodies(f"{name} {step_name}", launches)
         for k, v in launches.items():
             totals[k] += v
 
@@ -1174,7 +1309,7 @@ def counted(name, drive, expected) -> dict:
     log(f"  launches in {name}: {got} (expected {want})")
     if got != want:
         fail(f"launch counts of {name}: {got} != {want}")
-    check_mma(name, got)
+    check_bodies(name, got)
     return got
 
 
@@ -1304,57 +1439,65 @@ def check_select(card: str, span: dict) -> dict:
 def check_blocked_lookup(card: str) -> dict:
     import torch
 
-    from videotgb_torch.ops.correlation_pallas import (
-        lookup_corr_pyramid_t,
-        lookup_corr_pyramid_t_plain,
-    )
+    from videotgb_torch.ops import correlation_pallas as CP
     from videotgb_torch.tools import lookupprobe as LP
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     pairs, hw, radius, n_loop = 256, 28, 4, 20
     out = None
-    for dtype, (atol, rtol, why) in (
-            (torch.bfloat16, (2e-2, 2e-2, "both round f32 sums to bf16: "
-                              "<= 1 ulp (2^-8 relative) apart")),
-            (torch.float32, (1e-4, 1e-4, "f32 sums, 2-tap vs dense hat "
-                             "order"))):
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol, why = LOOKUP_TOL[str(dtype)]
         pyr = LP.make_pyramid(pairs, hw, dtype, dev, gen)
-        coord_sets = LP.make_coords(pairs, hw, dev, gen)
-        coord_sets["off map"] = torch.rand(
-            (pairs, hw, hw, 2), generator=gen, device=dev) * 44.0 - 8.0
+        coord_sets = lookup_coords(pairs, hw, dev, gen)
         err = 0.0
+        # the probe's block (qb 128) on every coordinate set; in bf16 every
+        # qb the entry takes on RAFT's
+        qbs = (32, 64, 96, 128) if dtype == torch.bfloat16 else (128,)
         for cname, coords in coord_sets.items():
-            want = lookup_corr_pyramid_t_plain(pyr, coords, radius)
-            for skip in (False, True):
-                got = LP.blocked_lookup(pyr, coords, radius, skip=skip)
-                torch.cuda.synchronize()
-                if got.dtype != dtype or tuple(got.shape) != (
-                        pairs, hw, hw, 324):
-                    fail(f"blocked lookup {got.dtype} {tuple(got.shape)}")
-                err = max(err, check_close(
-                    f"blocked lookup {dtype} {cname} skip={skip}", got, want,
-                    atol, rtol, why))
+            want = CP.lookup_corr_pyramid_t_plain(pyr, coords, radius)
+            for qb in qbs if cname == "raft" else (128,):
+                for skip in (False, True):
+                    got = LP.blocked_lookup(pyr, coords, radius, qb=qb,
+                                            skip=skip)
+                    torch.cuda.synchronize()
+                    if got.dtype != dtype or tuple(got.shape) != (
+                            pairs, hw, hw, 324):
+                        fail(f"blocked lookup {got.dtype} "
+                             f"{tuple(got.shape)}")
+                    e = check_close(
+                        f"blocked lookup {dtype} {cname} qb={qb} "
+                        f"skip={skip}", got, want, atol, rtol, why)
+                    err = max(err, e)
             del want
-        coords = coord_sets["raft"]
-        ms = {skip: time_ms(lambda skip=skip: LP.blocked_lookup(
-            pyr, coords, radius, skip=skip)) for skip in (False, True)}
-        wild = {skip: time_ms(lambda skip=skip: LP.blocked_lookup(
-            pyr, coord_sets["wild"], radius, skip=skip))
-            for skip in (False, True)}
-        b_ms = time_ms(lambda: lookup_corr_pyramid_t(pyr, coords, radius))
-        b_wild = time_ms(lambda: lookup_corr_pyramid_t(
-            pyr, coord_sets["wild"], radius))
-        plain_ms = time_ms(lambda: lookup_corr_pyramid_t_plain(
-            pyr, coords, radius), iters=3, warmup=1)
-        nbytes = lookup_needed_bytes(pyr, coords, radius)
-        log(f"  one lookup, {pairs} pairs {dtype}, raft coords: kernel E "
-            f"qblock {ms[False]:.4f} ms, qskip {ms[True]:.4f} ms, kernel B "
-            f"{b_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB "
-            f"needed); wild coords: qblock {wild[False]:.4f}, qskip "
-            f"{wild[True]:.4f}, kernel B {b_wild:.4f} ms on {card}")
         if dtype == torch.bfloat16:  # the probe's pyramid dtype
+            coords = coord_sets["raft"]
+            nbytes = lookup_needed_bytes(pyr, coords, radius)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            times = {}
+            for cname in ("raft", "wild"):
+                for qb in qbs:
+                    for skip in (False, True):
+                        def call(qb=qb, skip=skip, c=coord_sets[cname]):
+                            return LP.blocked_lookup(pyr, c, radius, qb=qb,
+                                                     skip=skip)
+                        times[cname, qb, skip] = (graph_ms(call, iters=20),
+                                                  time_ms(call))
+                b_ms = graph_ms(lambda c=coord_sets[cname]:
+                                CP.lookup_corr_pyramid_t(pyr, c, radius),
+                                iters=20)
+                log(f"  one lookup, {pairs} pairs bf16, {cname} coords, ms "
+                    "device time per call (per eager call): kernel E " +
+                    "; ".join(f"qb {qb} " + ("qskip" if skip else "qblock")
+                              + f" {times[cname, qb, skip][0]:.4f} "
+                              f"({times[cname, qb, skip][1]:.4f})"
+                              for qb in qbs for skip in (False, True))
+                    + f"; kernel B (rule's block) {b_ms:.4f} on {card}")
+            plain_ms = time_ms(lambda: CP.lookup_corr_pyramid_t_plain(
+                pyr, coords, radius), iters=3, warmup=1)
+            log(f"  one lookup, {pairs} pairs bf16, raft coords: plain "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f}"
+                f" MB needed) on {card}")
             launches = 0
             for skip in (False, True):
                 launches += counted(
@@ -1366,8 +1509,8 @@ def check_blocked_lookup(card: str) -> dict:
                     {"corr_lookup_blocked": n_loop})["corr_lookup_blocked"]
             out = row("corr_lookup_blocked",
                       "videotgb_torch/csrc/corr_lookup_blocked.cu",
-                      "tools/lookupprobe.py:51", err, ms[True], plain_ms,
-                      nbytes)
+                      "tools/lookupprobe.py:51", err,
+                      times["raft", 128, True][0], plain_ms, nbytes)
             out["launches"] = launches
         del pyr, coord_sets
         torch.cuda.empty_cache()
@@ -1756,7 +1899,7 @@ def int8_serving_path(card: str) -> int:
     Q.ENCODE_NS["int8_mm"] = 0
     cand, sel, tokens, after_select = drive()
     end = dict(kernels.LAUNCHES)
-    check_mma("the W8A8 serving run", end)
+    check_bodies("the W8A8 serving run", end)
     encode_us = Q.ENCODE_NS["int8_mm"] / 1e3
     log(f"  host time of kernel H's TMA descriptor encodes (two a call) in "
         f"the counted run: {encode_us / max(end['int8_mm'], 1):.3f} us a "

@@ -15,6 +15,7 @@ import torch
 
 from videotgb_torch.models import videotgb as V
 from videotgb_torch.models.common import init_params
+from videotgb_torch.models.raft import RAFT, RAFTConfig
 from videotgb_torch.models.vit import ViTConfig, ViTModel
 from videotgb_torch.ops import kernels
 from videotgb_torch.ops.attention import (
@@ -28,8 +29,12 @@ from videotgb_torch.ops.attention import (
 )
 from videotgb_torch.ops.correlation_pallas import (
     build_corr_pyramid_t,
+    corr_lookup_cuda,
+    lookup_body,
     lookup_corr_pyramid_t,
     lookup_corr_pyramid_t_plain,
+    lookup_launch_args,
+    lookup_tile,
 )
 from videotgb_torch.ops.decode import DecodeConfig
 from videotgb_torch.ops.quant import (
@@ -228,6 +233,185 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="level"):
         lookup_corr_pyramid_t(pyr[:1] + [pyr[0]], torch.zeros((1, 4, 4, 2),
                                                                device=cuda), 1)
+
+
+def _lookup_inputs(gen, dev, pairs, h, w, dtype, coords="raft", c=32):
+    """A pyramid of two random (pairs, h, w, c) feature maps and (pairs, h,
+    w, 2) coordinates: RAFT's (the grid plus N(0, 2)), or off the map."""
+    f1, f2 = (torch.randn((pairs, h, w, c), generator=gen, device=dev)
+              .to(dtype) for _ in range(2))
+    if coords == "raft":
+        gy, gx = torch.meshgrid(torch.arange(h, device=dev),
+                                torch.arange(w, device=dev), indexing="ij")
+        xy = torch.stack([gx, gy], -1)[None].float() + 2.0 * torch.randn(
+            (pairs, h, w, 2), generator=gen, device=dev)
+    else:
+        xy = torch.rand((pairs, h, w, 2), generator=gen,
+                        device=dev) * (max(h, w) + 16) - 8
+    return build_corr_pyramid_t(f1, f2, 4), xy
+
+
+def _check_tile(pyr, coords, radius, dtype):
+    assert lookup_body(pyr, coords, radius) == "tile"
+    kernels.reset_launches()
+    got = corr_lookup_cuda(pyr, coords, radius)
+    torch.cuda.synchronize()
+    assert kernels.TILE_LAUNCHES["corr_lookup"] == 1
+    assert got.dtype == dtype
+    _close(got, lookup_corr_pyramid_t_plain(pyr, coords, radius), TOL[dtype])
+
+
+def _tile_entry(pyr, xy, radius, qb, stage_bytes):
+    """Kernel B's C entry on the tile body with a block of the caller's:
+    its return code and output."""
+    out, args, _keep = lookup_launch_args("test", pyr, xy, radius)
+    rc = kernels.library("corr_lookup").corr_lookup(
+        *args, 1, qb, stage_bytes, int(out.dtype == torch.bfloat16), None,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return rc, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 4])
+def test_lookup_tile_body_matches_plain_at_the_serving_shape(cuda, dtype,
+                                                             radius):
+    # RAFT's 16 pairs of 28 x 28 queries
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    pyr, coords = _lookup_inputs(gen, cuda, 16, 28, 28, dtype, c=64)
+    _check_tile(pyr, coords, radius, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coords", ["raft", "off map"])
+def test_lookup_tile_body_matches_plain_at_256_pairs(cuda, coords):
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    pyr, xy = _lookup_inputs(gen, cuda, 256, 28, 28, torch.bfloat16, coords)
+    _check_tile(pyr, xy, 4, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(12, 12), (8, 8), (4, 4), (12, 20)])
+@pytest.mark.parametrize("coords", ["raft", "off map"])
+@pytest.mark.parametrize("qb", [32, 64, 128])
+def test_lookup_tile_body_ragged_blocks_and_1x1_levels(cuda, dtype, hw,
+                                                       coords, qb):
+    # Q not a multiple of qb (144, 64 (8 x 8) with qb 128, 16, 240); levels
+    # down to 1 x 1 (8 x 8 and 4 x 4); every qb through kernel E's entry
+    # (B's C entry with its rows skipped), the rule's through B's
+    h, w = hw
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    pyr, xy = _lookup_inputs(gen, cuda, 3, h, w, dtype, coords)
+    want = lookup_corr_pyramid_t_plain(pyr, xy, 4)
+    kernels.reset_launches()
+    got = blocked_lookup(pyr, xy, 4, qb=qb, skip=True)
+    torch.cuda.synchronize()
+    assert kernels.TILE_LAUNCHES["corr_lookup_blocked"] == 1
+    _close(got, want, TOL[dtype])
+    if lookup_tile(3, h, w, 4, 4, dtype).qb == qb:
+        _check_tile(pyr, xy, 4, dtype)
+
+
+@pytest.mark.gpu
+def test_lookup_tile_body_with_two_scanlines_a_stage(cuda):
+    # chunks of two rows: every row pair of a window in a chunk of its own
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    pyr, xy = _lookup_inputs(gen, cuda, 4, 28, 28, torch.bfloat16)
+    for qb in (32, 64, 128):
+        rc, got = _tile_entry(pyr, xy, 4, qb, 2 * 28 * qb * 2)
+        assert rc == 0
+        _close(got, lookup_corr_pyramid_t_plain(pyr, xy, 4),
+               TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairs, h, w", [(11, 8, 149), (2, 16, 118)])
+def test_lookup_tile_body_at_the_edge_of_the_shared_memory_budget(cuda, pairs,
+                                                                  h, w):
+    # blocks within 104 bytes of a block's shared memory (the cy reduction
+    # counted in the dynamic share)
+    gen = torch.Generator(device=cuda).manual_seed(49)
+    pyr, xy = _lookup_inputs(gen, cuda, pairs, h, w, torch.bfloat16)
+    _check_tile(pyr, xy, 4, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_lookup_gather_body_on_an_unaligned_query_count(cuda):
+    # 5 x 5 bf16: 50 bytes of queries a position, which TMA cannot copy
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    pyr, xy = _lookup_inputs(gen, cuda, 3, 5, 5, torch.bfloat16, "off map")
+    assert lookup_body(pyr, xy, 4) == "gather"
+    kernels.reset_launches()
+    got = lookup_corr_pyramid_t(pyr, xy, 4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["corr_lookup"] == 1
+    assert kernels.TILE_LAUNCHES["corr_lookup"] == 0
+    _close(got, lookup_corr_pyramid_t_plain(pyr, xy, 4), TOL[torch.bfloat16])
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        corr_lookup_cuda(pyr, xy, 4, body="tile")
+
+
+@pytest.mark.gpu
+def test_raft_refine_runs_every_lookup_on_the_tile_body(cuda):
+    # the serving path's RAFT: bf16 convolutions, 224 x 224 frames, 20 GRU
+    # iterations, a query-minor bf16 pyramid of 28 x 28
+    cfg = RAFTConfig(dtype=torch.bfloat16)
+    raft = init_params(RAFT(cfg, device=cuda), seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(46)
+    img = torch.randint(0, 256, (4, 224, 224, 3), generator=gen,
+                        device=cuda).float()
+    kernels.reset_launches()
+    with torch.no_grad():
+        flow = raft(img[:2], img[2:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["corr_lookup"] == cfg.iters == 20
+    assert kernels.TILE_LAUNCHES["corr_lookup"] == cfg.iters
+    assert torch.isfinite(flow).all()
+
+
+@pytest.mark.gpu
+def test_lookup_c_entries_refuse_what_the_tile_body_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib_b = kernels.library("corr_lookup")
+    lib_e = kernels.library("corr_lookup_blocked")
+
+    def rc_b(pyr, xy, radius, body, ring, dtype=1):
+        _, args, _keep = lookup_launch_args("test", pyr, xy, radius)
+        return lib_b.corr_lookup(*args, body, *ring, dtype, None, stream)
+
+    def rc_e(pyr, xy, radius, ring, dtype=1):
+        _, args, _keep = lookup_launch_args("test", pyr, xy, radius)
+        return lib_e.corr_lookup_blocked(*args, ring[0], 1, ring[1], dtype,
+                                         stream)
+
+    pyr, xy = _lookup_inputs(gen, cuda, 2, 12, 12, torch.bfloat16)
+    ring = tuple(lookup_tile(2, 12, 12, 4, 4, torch.bfloat16, qb=64))
+    assert rc_b(pyr, xy, 4, 1, ring) == 0
+    assert rc_e(pyr, xy, 4, ring) == 0
+    torch.cuda.synchronize()
+    row = 12 * 64 * 2
+    bad_rings = [(48, ring[1]), (160, ring[1]), (64, row),
+                 (64, ring[1] + 64), (64, 150 * row)]
+    # qb, a stage under 2 rows, an unaligned stage, a block over the budget
+    for bad in bad_rings:
+        assert rc_b(pyr, xy, 4, 1, bad) == 1, bad
+        assert rc_e(pyr, xy, 4, bad) == 1, bad
+    assert rc_b(pyr, xy, 4, 2, ring) == 1              # no such body
+    assert rc_b(pyr, xy, 5, 1, ring) == 1              # r > 4
+    assert rc_e(pyr, xy, 5, ring) == 1
+    assert rc_b(pyr, xy, 4, 1, ring, dtype=2) == 1     # no such dtype
+    pyr5, xy5 = _lookup_inputs(gen, cuda, 2, 5, 5, torch.bfloat16)
+    assert rc_b(pyr5, xy5, 4, 1, ring) == 1            # 50-byte rows
+    assert rc_e(pyr5, xy5, 4, ring) == 1
+    assert rc_b(pyr5, xy5, 4, 0, ring) == 0            # the gather body
+    off = [torch.empty(lvl.numel() + 4, dtype=lvl.dtype, device=cuda)[4:]
+           .view(lvl.shape).copy_(lvl) for lvl in pyr]
+    assert rc_b(off, xy, 4, 1, ring) == 1              # levels off 16 bytes
+    assert rc_e(off, xy, 4, ring) == 1
+    torch.cuda.synchronize()
 
 
 def _tiny_f32():
@@ -686,6 +870,23 @@ def test_blocked_lookup_kernel_matches_plain(cuda, dtype, skip, qb):
     assert kernels.LAUNCHES["corr_lookup_blocked"] == before + 1
     assert got.dtype == dtype
     _close(got, lookup_corr_pyramid_t_plain(pyr, coords, 4), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("qb", [32, 64, 96, 128])
+def test_blocked_lookup_runs_the_tile_body_at_every_qb(cuda, dtype, skip,
+                                                       qb):
+    # the probe's 28 x 28 maps: 7 blocks a pair at qb 128, ragged at 96
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    pyr, xy = _lookup_inputs(gen, cuda, 4, 28, 28, dtype, c=64)
+    kernels.reset_launches()
+    got = blocked_lookup(pyr, xy, qb=qb, skip=skip)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["corr_lookup_blocked"] == 1
+    assert kernels.TILE_LAUNCHES["corr_lookup_blocked"] == 1
+    _close(got, lookup_corr_pyramid_t_plain(pyr, xy, 4), TOL[dtype])
 
 
 @pytest.mark.gpu

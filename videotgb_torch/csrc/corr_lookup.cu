@@ -1,4 +1,5 @@
-// RAFT correlation-pyramid lookup for Hopper (sm_90a), plain C interface.
+// RAFT correlation-pyramid lookup for Hopper (sm_90a), plain C interface:
+// kernel B.
 //
 // Replaces the Pallas TPU kernel
 // videotgb_tpu/ops/correlation_pallas.py::_lookup_kernel (driven by
@@ -9,24 +10,30 @@
 // (P, Hl*Wl, Q); the output is (P, Q, L*(2r+1)^2) in the pyramid's dtype;
 // sums are f32.
 //
-// Bound on the H100: memory. At the main-path shape (16 pairs, 28x28
-// queries, 4 levels, r = 4) the pyramid is ~26 MB in bf16 and the output
-// ~8 MB, ~10 us at 3.35 TB/s; the arithmetic is negligible. The TPU kernel
-// evaluated the hat weights max(0, 1-|d|) densely over every row and column
-// of each level (no gathers on the TPU's vector unit), ~14x redundant work;
-// on the GPU gathers are cheap, so this kernel uses the 2-tap bilinear form:
-// four reads and three lerps per output. One thread per (pair, query,
-// level, x offset) writes the 2r+1 consecutive y-offset channels, so a warp
-// stores a contiguous run of the output. The reads are gathers (a query's
-// taps are Q elements apart in the query-minor layout); a level-0 map of a
-// pair is 1.2 MB in bf16, so the pyramid of a batch stays in the 50 MB L2.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+// Two bodies, picked by ops/correlation_pallas.py::lookup_body and passed
+// in as `body`:
+//   * 1, the tile body (corr_lookup_tile.cuh, shared with kernel E): a block
+//     per run of qb queries stages the scanlines its queries reach by TMA
+//     and writes its outputs by one bulk store. It takes f32 and bf16 with
+//     Q a multiple of 16 bytes of queries, 16-byte aligned levels and
+//     r <= 4: the RAFT path's pyramids.
+//   * 0, the gather body below, for everything else: one thread per (pair,
+//     query, level, x offset) writes the 2r+1 consecutive y-offset channels
+//     from four gathered taps per output (a query's taps lie Q elements
+//     apart in the query-minor layout, so each two-byte load fills a sector
+//     of its own).
+//
+// Bound on the H100: memory. The TPU kernel evaluated the hat weights
+// max(0, 1-|d|) densely over every row and column of each level (no gathers
+// on the TPU's vector unit), ~14x redundant work; both bodies here use the
+// 2-tap bilinear form, four taps and three lerps per output.
+#include "corr_lookup_tile.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 8;
+using corr_tile::from_f;
+using corr_tile::kMaxLevels;
+using corr_tile::to_f;
 
 struct Params {
   const void* level[kMaxLevels];
@@ -38,21 +45,8 @@ struct Params {
   int P, Q, radius;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <typename T>
-__global__ void corr_lookup_kernel(const Params p) {
+__global__ void corr_gather_kernel(const Params p) {
   const int K = 2 * p.radius + 1;
   const long long total =
       static_cast<long long>(p.P) * p.Q * p.n_levels * K;
@@ -109,15 +103,27 @@ __global__ void corr_lookup_kernel(const Params p) {
 
 // levels: host array of n_levels device pointers, each (P, hl*wl, Q);
 // hl / wl: host arrays of the level sizes; coords: device (P, Q, 2) f32;
-// out: device (P, Q, n_levels*(2r+1)^2). dtype: 0 = float32, 1 = bfloat16.
-// Returns the launch's cudaError_t; the kernel does not synchronise.
+// out: device (P, Q, n_levels*(2r+1)^2). body: 0 = gather, 1 = tile; qb
+// and stage_bytes are the tile body's (queries per block, bytes of each of
+// its two ring stages; ops/correlation_pallas.py::lookup_tile), unread by
+// the gather body. dtype: 0 = float32, 1 = bfloat16. encode_ns (may be
+// null): where the tile body's TMA descriptor encodes write their host
+// time. Returns the launch's cudaError_t, or 10000 + the CUresult of a
+// failed encode; the kernel does not synchronise.
 extern "C" int corr_lookup(const void* const* levels, const int* hl,
                            const int* wl, int n_levels, const void* coords,
-                           void* out, int P, int Q, int radius, int dtype,
-                           void* stream) {
-  if (n_levels <= 0 || n_levels > kMaxLevels || P <= 0 || Q <= 0 ||
-      radius < 0)
+                           void* out, int P, int Q, int radius, int body,
+                           int qb, int stage_bytes, int dtype,
+                           long long* encode_ns, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1)
+    return corr_tile::run(levels, hl, wl, n_levels, coords, out, P, Q, radius,
+                          qb, /*skip=*/1, stage_bytes, dtype,
+                          encode_ns, s);
+  if (body != 0 || n_levels <= 0 || n_levels > kMaxLevels || P <= 0 ||
+      Q <= 0 || radius < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (encode_ns != nullptr) *encode_ns = 0;
   Params p;
   for (int l = 0; l < n_levels; ++l) {
     p.level[l] = levels[l];
@@ -140,11 +146,11 @@ extern "C" int corr_lookup(const void* const* levels, const int* hl,
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    corr_lookup_kernel<float><<<static_cast<unsigned>(blocks), threads, 0, s>>>(p);
+    corr_gather_kernel<float>
+        <<<static_cast<unsigned>(blocks), threads, 0, s>>>(p);
   } else if (dtype == 1) {
-    corr_lookup_kernel<__nv_bfloat16>
+    corr_gather_kernel<__nv_bfloat16>
         <<<static_cast<unsigned>(blocks), threads, 0, s>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -3,12 +3,14 @@
 //     copies into shared memory with zero fill, ldmatrix (plain and
 //     transposed) of b16 8 x 8 matrices, bf16 packing of fragment pairs,
 //     and the bf16 m16n8k16 mma.sync with f32 accumulators;
-//   * for Hopper's asynchronous path (wgmma_gemm.cuh): mbarriers, 2-D TMA
-//     loads, setmaxnreg, and wgmma (fence, commit, wait, shared-memory
-//     descriptors of 128-byte-swizzled K-major tiles, and the m64n{128,256}
-//     products on bf16 and s8).
+//   * for Hopper's asynchronous path (wgmma_gemm.cuh, corr_lookup_tile.cuh):
+//     mbarriers, 2-D TMA loads, bulk stores from shared memory, the host's
+//     cuTensorMapEncodeTiled, setmaxnreg, and wgmma (fence, commit, wait,
+//     shared-memory descriptors of 128-byte-swizzled K-major tiles, and the
+//     m64n{128,256} products on bf16 and s8).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -131,6 +133,65 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// make this thread's writes to shared memory visible to the async proxy (a
+// bulk store that reads them after a barrier)
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// shared memory at `src` to global memory at `dst`, as one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until every bulk store of this thread has read its shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads's) over `count` threads, a
+// multiple of 32
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// a C entry's return code for a failed descriptor encode: this + CUresult
+constexpr int kEncodeError = 10000;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime (so
+// that the libraries need no -lcuda); null where libcuda has none
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
 // ----------------------------------------------------------- setmaxnreg

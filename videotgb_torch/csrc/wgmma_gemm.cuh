@@ -60,7 +60,7 @@ constexpr int kSliceBytes = 128;  // bytes of K per stage: one swizzle row
 constexpr int kKSteps = 4;        // 32-byte wgmma k-steps per stage
 constexpr int kGroupM = 8;        // tile rows walked together (L2 reuse)
 // a C entry's return code for a failed descriptor encode: this + CUresult
-constexpr int kEncodeError = 10000;
+constexpr int kEncodeError = mma_util::kEncodeError;
 
 using mma_util::smem_addr;
 
@@ -231,31 +231,8 @@ __device__ __forceinline__ void store_pair(void* C, int row, int col,
 }
 
 // ------------------------------------------------------------------ host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, looked up once
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
+using mma_util::EncodeTiled;
+using mma_util::encode_tiled;
 
 // a row-major (rows, kbytes) byte matrix in boxes of box_rows x 128 bytes,
 // 128-byte swizzle, zeros past its edges; no L2 promotion (promoting the

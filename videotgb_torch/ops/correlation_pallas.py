@@ -13,11 +13,20 @@ counterpart. Here:
   through the plain dense version, as the JAX package's custom vjp does.
 
 Both versions return the lookup in the pyramid's dtype with f32 sums.
+
+The kernel has two bodies: the tile body (``csrc/corr_lookup_tile.cuh``,
+shared with kernel E), which stages whole scanlines of a block of queries
+by TMA, and the gather body, for the inputs TMA cannot copy.
+:func:`lookup_body` picks one, :func:`lookup_tile` the tile body's block;
+:func:`lookup_window` mirrors the rows a block stages.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +34,115 @@ from videotgb_torch.ops import kernels
 from videotgb_torch.ops.correlation import _pool_levels, lookup_corr_pyramid_dense
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+BODY_CODES = {"gather": 0, "tile": 1}
+# host time of the tile body's TMA descriptor encodes in corr_lookup, ns
+ENCODE_NS = {"corr_lookup": 0}
+
+# csrc/corr_lookup_tile.cuh
+_TILE_ALIGN = 128          # staged rows and the output tile start so aligned
+TILE_STAGES = 2            # the ring
+_TILE_RED_BYTES = 2 * 13 * 4  # the block's min and max cy, one a warp
+SMEM_PER_BLOCK = 232448    # bytes a block may have on sm_90
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024       # the runtime's share of each block's
+SMS = 132                  # an H100 SXM's SMs
+_MIN_STAGE_ROWS = 8        # scanlines a stage before two blocks share an SM
+
+
+class LookupTile(NamedTuple):
+    """A block of the tile body: ``qb`` consecutive queries, a ring of
+    two stages of ``stage_bytes`` bytes of staged scanlines."""
+
+    qb: int
+    stage_bytes: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def lookup_row_bytes(w: int, qb: int, esize: int) -> int:
+    """Shared bytes of one staged scanline, ``w`` positions of ``qb``
+    queries, padded to 128 (``corr_lookup_tile.cuh::row_bytes``)."""
+    return _round_up(w * qb * esize, _TILE_ALIGN)
+
+
+def lookup_tile_bytes(qb: int, n_levels: int, radius: int, esize: int,
+                      stage_bytes: int) -> int:
+    """Shared bytes of a tile-body block, all of them dynamic: alignment
+    slack, the block's outputs of every level, the two stages, two
+    mbarriers a stage and the cy reduction
+    (``corr_lookup_tile.cuh::smem_bytes``)."""
+    k = 2 * radius + 1
+    return (_TILE_ALIGN + _round_up(qb * n_levels * k * k * esize, _TILE_ALIGN)
+            + TILE_STAGES * (stage_bytes + 16) + _TILE_RED_BYTES)
+
+
+@functools.lru_cache(maxsize=256)
+def lookup_tile(pairs: int, h: int, w: int, n_levels: int, radius: int,
+                dtype, qb: int | None = None) -> LookupTile | None:
+    """The tile body's block for ``pairs`` (h, w) query maps, or None where
+    the body takes no block of this shape (or dtype: f32 and bf16 only).
+
+    ``qb`` (default: 64 queries where that still gives every SM a block,
+    else 32) must be a multiple of 32 up to 128. A stage holds as many
+    level-0 scanlines (at most the map's) as fit two blocks an SM where
+    that is at least 8 (or the map), else as many as fit one block an SM,
+    at least 2 (on an H100, qb 128 ran faster at one block an SM with 8
+    scanlines a stage than at two with 2: a window of many chunks). The
+    ring has two stages (``TILE_STAGES``)."""
+    esize = _ESIZE.get(dtype)
+    if esize is None or not 0 <= radius <= 4 or w > 256 or pairs > 65535 or \
+            pairs * h * w > 2 ** 31 - 1:
+        return None
+    if qb is None:
+        qb = 64 if pairs * -(-(h * w) // 64) >= SMS else 32
+    if qb % 32 or not 32 <= qb <= 128:
+        return None
+    row = lookup_row_bytes(w, qb, esize)
+    fixed = lookup_tile_bytes(qb, n_levels, radius, esize, 0)
+    two, one = (min(max(h, 2), (budget - fixed) // TILE_STAGES // row)
+                for budget in (SMEM_PER_SM // 2 - SMEM_RESERVED,
+                               SMEM_PER_BLOCK))
+    if two >= min(max(h, 2), _MIN_STAGE_ROWS):
+        return LookupTile(qb, two * row)
+    if one >= 2:
+        return LookupTile(qb, one * row)
+    return None
+
+
+def lookup_body(pyramid_t, coords, radius: int = 4) -> str:
+    """``"tile"`` where the tile body takes the lookup: f32 or bf16 levels,
+    each 16-byte aligned, the queries of a position a multiple of 16 bytes
+    (TMA's row pitch) and a block from :func:`lookup_tile`; else
+    ``"gather"``. A pure function of the tensors' dtype, shapes and
+    addresses, on any device."""
+    pyramid_t = list(pyramid_t)
+    dtype = pyramid_t[0].dtype
+    if dtype not in _DTYPE_CODES:
+        return "gather"
+    p, h, w, _ = coords.shape
+    esize = pyramid_t[0].element_size()
+    if (h * w * esize) % 16 or any(lvl.data_ptr() % 16 for lvl in pyramid_t):
+        return "gather"
+    if lookup_tile(p, h, w, len(pyramid_t), radius, dtype) is None:
+        return "gather"
+    return "tile"
+
+
+def lookup_window(ymin: float, ymax: float, level: int, radius: int,
+                  hl: int) -> tuple[int, int]:
+    """The rows [lo, hi] of level ``level`` (``hl`` rows) that a tile-body
+    block stages when its queries' y coordinates lie in [ymin, ymax]: a
+    query at cy reads rows floor(cy / 2^l) - r .. floor(cy / 2^l) + r + 1,
+    clipped to the map; lo > hi where none is on it. Mirrors
+    ``corr_lookup_tile.cuh::window``, whose f32 steps are all exact (2^-l is
+    a power of two) for f32 inputs."""
+    sc = 2.0 ** -level
+    lo = min(max(math.floor(ymin * sc) - radius, 0), hl)
+    hi = min(max(math.floor(ymax * sc) + radius + 1, -1), hl - 1)
+    return lo, hi
 
 
 def build_corr_pyramid_t(fmap1, fmap2, num_levels: int = 4):
@@ -109,15 +227,37 @@ def lookup_launch_args(name: str, pyramid_t, coords, radius: int):
     return out, args, (ptrs, hl, wl, coords)
 
 
-def corr_lookup_cuda(pyramid_t, coords, radius: int = 4):
-    """Launch ``corr_lookup`` on CUDA tensors."""
+def corr_lookup_cuda(pyramid_t, coords, radius: int = 4,
+                     body: str | None = None):
+    """Launch ``corr_lookup`` on CUDA tensors: on the body
+    :func:`lookup_body` picks, or ``body``; the tile body with
+    :func:`lookup_tile`'s block. The C entry refuses a body that does not
+    take the inputs."""
+    pyramid_t = list(pyramid_t)
     out, args, _keep = lookup_launch_args("corr lookup", pyramid_t, coords,
                                           radius)
+    body = body or lookup_body(pyramid_t, coords, radius)
+    if body not in BODY_CODES:
+        raise ValueError(f"corr lookup: body {body!r}; one of "
+                         f"{sorted(BODY_CODES)}")
+    ring = (0, 0)
+    if body == "tile":
+        p, h, w, _ = coords.shape
+        ring = lookup_tile(p, h, w, len(pyramid_t), radius, out.dtype)
+        if ring is None:
+            raise ValueError(f"corr lookup: the tile body takes no block of "
+                             f"{p} x {h} x {w} queries at radius {radius}")
     lib = kernels.library("corr_lookup")
     stream = torch.cuda.current_stream(coords.device).cuda_stream
-    rc = lib.corr_lookup(*args, _DTYPE_CODES[out.dtype], stream)
+    encode_ns = ctypes.c_longlong(0)
+    rc = lib.corr_lookup(*args, BODY_CODES[body], *ring,
+                         _DTYPE_CODES[out.dtype], ctypes.byref(encode_ns),
+                         stream)
     kernels.check_launch("corr_lookup", rc)
     kernels.LAUNCHES["corr_lookup"] += 1
+    if body == "tile":
+        kernels.TILE_LAUNCHES["corr_lookup"] += 1
+    ENCODE_NS["corr_lookup"] += encode_ns.value
     return out
 
 

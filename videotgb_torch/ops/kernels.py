@@ -13,7 +13,9 @@ once.
 where it launches its kernel and nowhere else. ``MMA_LAUNCHES`` counts, of
 the launches of kernels A, G and C, those that ran the tensor-core body
 (``csrc/flash_mma.cuh``, ``csrc/flash_bwd_mma.cuh``; the rest ran the
-CUDA-core body).
+CUDA-core body). ``TILE_LAUNCHES`` counts, of the launches of kernels B and
+E, those that ran the tile body (``csrc/corr_lookup_tile.cuh``; the rest of
+B's ran its gather body; E has no other).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ TRITON_KERNELS = ("add_ln", "ln")
 LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, *TRITON_KERNELS)}
 MMA_LAUNCHES: dict[str, int] = {"flash_fwd": 0, "flash_bshd": 0,
                                  "flash_bwd": 0}
+TILE_LAUNCHES: dict[str, int] = {"corr_lookup": 0, "corr_lookup_blocked": 0}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -59,16 +62,18 @@ _SIGNATURES = {
     "flash_bwd": [_P] * 10 + [_I] * 5 + [_L] * 25
                  + [ctypes.c_float, _I, _I, _P],
     # corr_lookup(levels*, hl*, wl*, n_levels, coords, out, P, Q, radius,
-    # dtype, stream) -> cudaError_t
-    "corr_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # body, qb, stage_bytes, dtype, encode_ns*, stream) -> cudaError_t, or
+    # 10000 + the CUresult of a failed TMA encode
+    "corr_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                    _P],
     # select_frames(start, end, video_length, out, B, L, num_frames, nframe,
     # top_k, seed, noise_scale, inclusive_end, rescale, stream) -> cudaError_t
     "select_frames": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint32,
                       ctypes.c_float, _I, _I, _P],
     # corr_lookup_blocked(levels*, hl*, wl*, n_levels, coords, out, P, Q,
-    # radius, qb, skip, dtype, stream) -> cudaError_t
+    # radius, qb, skip, stage_bytes, dtype, stream) -> as corr_lookup
     "corr_lookup_blocked": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P],
+                            _I, _P],
     # flash_bshd(q, k, v, out, B, S, H, D, q/k/v/out strides (batch, seq,
     # head) x4, scale, dtype, body, stream) -> cudaError_t
     "flash_bshd": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12
@@ -146,12 +151,13 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, MMA_LAUNCHES):
+    for counts in (LAUNCHES, MMA_LAUNCHES, TILE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
-# kernel H's C entries return this + the CUresult of a failed TMA encode
+# kernels B, E and H's C entries return this + the CUresult of a failed TMA
+# encode
 ENCODE_ERROR = 10000
 
 

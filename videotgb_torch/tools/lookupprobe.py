@@ -5,12 +5,13 @@ function (the radius-4 windowed bilinear lookup on the query-minor pyramid)
 read two ways, at the probe's shapes (pairs x 28x28 feature maps, 256
 channels, 4 levels, bf16):
 
-  base      kernel B (``csrc/corr_lookup.cu``): each query gathers its own
-            2-tap corners, which lie Q elements apart in the pyramid
-  qblock    kernel E (``csrc/corr_lookup_blocked.cu``): a block of ``qb``
-            queries streams every scanline of each level through shared
-            memory, coalesced along the queries
-  qskip     kernel E streaming only the scanlines its block's queries touch
+  base      kernel B (``csrc/corr_lookup.cu``) as the RAFT path runs it:
+            on the probe's pyramids its tile body, whose block of queries
+            stages the scanlines they reach by TMA
+  qblock    kernel E (``csrc/corr_lookup_blocked.cu``, a thin entry over the
+            same tile body): a block of ``qb`` queries streams every
+            scanline of each level through shared memory
+  qskip     kernel E streaming only the scanlines its block's queries reach
             (``skip=True``)
 
 Coordinates: "raft" (the pixel grid plus N(0, 2) flow, the GRU's steady
@@ -37,15 +38,15 @@ from videotgb_torch.ops.correlation_pallas import (
     lookup_corr_pyramid_t,
     lookup_corr_pyramid_t_plain,
     lookup_launch_args,
+    lookup_tile,
 )
 from videotgb_torch.tools import timed
-
-ROW_BYTES = 65536  # kernel E's scanline buffer: at least one row of qb queries
 
 
 def blocked_lookup_cuda(pyramid_t, coords, radius: int = 4, qb: int = 128,
                         skip: bool = False):
-    """Launch ``corr_lookup_blocked`` on CUDA tensors."""
+    """Launch ``corr_lookup_blocked`` on CUDA tensors: the tile body with
+    ``qb`` queries a block and :func:`lookup_tile`'s stages for it."""
     if qb % 32 or not 32 <= qb <= 128:
         raise ValueError(f"blocked lookup: qb {qb}; a multiple of 32 up to "
                          "128")
@@ -59,15 +60,19 @@ def blocked_lookup_cuda(pyramid_t, coords, radius: int = 4, qb: int = 128,
         raise ValueError(f"blocked lookup: {h * w} queries; the kernel copies "
                          f"16 aligned bytes of queries at a time, so a "
                          f"multiple of {16 // elem}")
-    if w * qb * elem > ROW_BYTES:
-        raise ValueError(f"blocked lookup: a scanline of {w} x {qb} queries "
-                         "exceeds the kernel's row buffer")
+    tile = lookup_tile(coords.shape[0], h, w, len(pyramid_t), radius,
+                       out.dtype, qb=qb)
+    if tile is None:
+        raise ValueError(f"blocked lookup: a block of {qb} queries on a "
+                         f"{h} x {w} map does not fit the kernel's shared "
+                         "memory")
     lib = kernels.library("corr_lookup_blocked")
     stream = torch.cuda.current_stream(coords.device).cuda_stream
-    rc = lib.corr_lookup_blocked(*args, qb, int(skip),
+    rc = lib.corr_lookup_blocked(*args, qb, int(skip), tile.stage_bytes,
                                  _DTYPE_CODES[out.dtype], stream)
     kernels.check_launch("corr_lookup_blocked", rc)
     kernels.LAUNCHES["corr_lookup_blocked"] += 1
+    kernels.TILE_LAUNCHES["corr_lookup_blocked"] += 1
     return out
 
 
