@@ -6,9 +6,10 @@
 Phases, each fatal on failure (exit code 1):
 
 1. the card's name and power limit (``nvidia-smi``), then an ``nvcc`` build
-   of every kernel in ``videotgb_torch/csrc`` (one process per source), with
-   each instantiation's registers, spills and shared memory (kernels B and
-   E's tile body with its dynamic share at the serving shape);
+   of every kernel in ``videotgb_torch/csrc`` (one process per source, and
+   one for an empty kernel, phase 8's floor), with each instantiation's
+   registers, spills and shared memory (kernels B and E's tile body with
+   its dynamic share at the serving shape);
 2. kernel A (flash-attention forward) against its plain PyTorch version at
    the main-path shape (ViT-g: 16 images x 16 heads x 264 x 88, bf16, a
    (1,1,1,264) pad bias) and at the other bias layouts, f32, an unaligned
@@ -32,10 +33,14 @@ Phases, each fatal on failure (exit code 1):
    BERT-base, RAFT; random weights from a seed) for 4 requests:
    ``select_phase_blip2`` -> gather -> ``answer_phase_blip2``, then
    ``flow_features`` + ``generate_blip2`` on the same batch, with exact
-   launch counts of both kernels (every lookup on the tile body); the ViT
+   launch counts of the three kernels (every lookup on the tile body; one
+   kernel D per selection) and the same frames from both routes; the ViT
    once without the flash kernel and RAFT once without the lookup kernel,
    against the kernel path; one RAFT refine traced (device time by kernel
-   family, the lookup's among them);
+   family, the lookup's among them); the selection tail
+   (``model.select_frames``: a seed draw and kernel D) against the plain
+   route on the same logits, eager wall, host time and device operations
+   per call, and the select phase in turns with and without it;
 5. kernel C (flash-attention backward) against its plain version at the
    training path's shape (T5-xl encoder: 8 x 32 heads x 160 x 64, bf16, an
    (8,32,160,160) f32 bias, no ds) and at a learned bias with ds, padding,
@@ -60,13 +65,17 @@ Phases, each fatal on failure (exit code 1):
    (device time by kernel family, kernel C's among them);
 7. the TG training path at flagship TGB width (batch 32, 64 flow frames,
    24-token questions, dropout on): 3 steps, no kernel launched;
-8. kernel D (fused frame selection): one launch per call on the select
-   phase's own span logits from phase 4 and at the TG shape (32, 66), each
-   equal to its plain version at ``noise_scale=0``, as are (1024, 256) at
-   F = 128, nframe = 8 under both rescale rules and both ends, with lengths
-   1 and 2, (0, 0) peaks, NaN logits and tied rows planted; with noise,
-   reproducible per seed and, over 65,536 zero-logit rows, the histogram of
-   the plain version's frames within 0.01;
+8. kernel D (fused frame selection) on the select phase's own span logits
+   from phase 4 (4, 4), the JAX benchmark's batch (64, 4), the TG shape
+   (32, 66) and (1024, 256) at F = 128 and F = 1024, each as the strided
+   views of a (B, L, 2) head output, with lengths 1 and 2, (0, 0) peaks,
+   NaN logits and tied rows planted: equal to its plain version at
+   ``noise_scale=0`` and, as int64, with the same handed noise; F = 128 and
+   1024 under both rescale rules and both ends; with noise, reproducible
+   per seed (by value and from a device tensor) and, over 65,536
+   zero-logit rows, the histogram of the plain version's frames within
+   0.01; device time per call (``graph_ms``) beside an empty kernel's,
+   host time per call, the plain version's eager time;
 9. kernel E (the lookup probe's query-blocked lookup) at 256 pairs x 28x28,
    bf16 and f32, "raft", "wild" and off-map coordinates, with and without
    row skipping, against the plain version at phase 3's tolerances; 20
@@ -178,6 +187,28 @@ def host_us(fns: dict, calls=200, reps=5) -> dict:
                 fn()
             times[name].append((time.perf_counter() - t) / calls * 1e6)
             torch.cuda.synchronize()
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def eager_ms(fns: dict, calls=20, reps=5) -> dict:
+    """Eager wall time per call of each of ``fns`` in ms: ``calls`` calls
+    after a synchronised warm-up, up to the synchronise after the last, the
+    median of ``reps`` rounds that take the functions in turn."""
+    import statistics
+
+    import torch
+
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) / calls * 1e3)
     return {name: statistics.median(v) for name, v in times.items()}
 
 
@@ -760,19 +791,23 @@ def main_path(card: str) -> tuple[dict, dict]:
                                            for k in end}}
     zero = dict.fromkeys(kernels.LAUNCHES, 0)
     expected = {
-        "select_phase_blip2": {**zero, "corr_lookup": cfg.raft.iters},
+        "select_phase_blip2": {**zero, "corr_lookup": cfg.raft.iters,
+                               "select_frames": 1},
         "answer_phase_blip2": {**zero, "flash_fwd": cfg.blip2.vit.num_layers},
         "flow_features + generate_blip2": {
             **zero, "flash_fwd": cfg.blip2.vit.num_layers,
-            "corr_lookup": cfg.raft.iters}}
+            "corr_lookup": cfg.raft.iters, "select_frames": 1}}
     for phase, want in expected.items():
         log(f"  launches in {phase}: {per_phase[phase]} (expected {want})")
         if per_phase[phase] != want:
             fail(f"launch counts of {phase}: {per_phase[phase]} != {want}")
     agree = float((tokens_g == tokens).float().mean())
+    same_cand = torch.equal(cand_g, cand)
     log(f"  generate_blip2 vs two-phase (same flow, same noise seed): "
-        f"cand equal {torch.equal(cand_g, cand)}, greedy tokens agree on "
-        f"{agree:.3f}")
+        f"cand equal {same_cand}, greedy tokens agree on {agree:.3f}")
+    if not same_cand:
+        fail("generate_blip2 and the select phase picked other frames from "
+             "equally seeded generators")
     for name, ms in times.items():
         log(f"  wall {name}: {ms:.2f} ms warm ({cold[name]:.2f} ms on the "
             f"first pass) on {card}")
@@ -841,6 +876,9 @@ def main_path(card: str) -> tuple[dict, dict]:
             model, enc, mask, dcfg))
     for name, ms in parts.items():
         log(f"  component {name}: {ms:.2f} ms on {card}")
+    # before any trace: a profiler run slows the host's later work
+    selection_tail(model, flow_u8, batch, start_logits, end_logits, sel_gen,
+                   card)
     # one RAFT refine (16 pairs, 20 lookups) by kernel family
     device_breakdown("RAFT flow_features (one refine of 16 pairs)",
                      lambda: model.flow_features(flow_u8.float()), card)
@@ -851,8 +889,72 @@ def main_path(card: str) -> tuple[dict, dict]:
     return dict(end), span
 
 
+def selection_tail(model, flow_u8, batch, start_logits, end_logits, gen,
+                   card) -> None:
+    """The select phase's tail, ``model.select_frames`` from its span
+    logits to the indices (the seed draw and kernel D), against the plain
+    route that ran there before (``ops.select.select_frames``) on the same
+    logits: the whole select phase against the same phase ending in the
+    plain route, in turns; then the tail's eager wall per call and host
+    time per call, and its device operations in one traced call."""
+    import statistics
+
+    import torch
+
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.ops.select import select_frames
+
+    cfg = model.config
+    vl = batch["video_length"]
+
+    def tree():
+        return model.select_frames(start_logits, end_logits, vl, gen,
+                                   inclusive_end=False)
+
+    def plain():
+        return select_frames(start_logits, end_logits, vl, cfg.num_frames,
+                             cfg.nframe, gen, cfg.top_k, cfg.gumbel_tau,
+                             inclusive_end=False)
+
+    def plain_phase():
+        """select_phase_blip2 with the plain tail, as the parent ran it."""
+        flow = model.flow_features(flow_u8.float())
+        _, sl, el = model.span_logits(flow, batch["flow_mask"],
+                                      batch["sampler_question_ids"],
+                                      batch["sampler_question_mask"])
+        return select_frames(sl, el, vl, cfg.num_frames, cfg.nframe, gen,
+                             cfg.top_k, cfg.gumbel_tau, inclusive_end=False)
+
+    runs = {"select_phase_blip2": lambda: V.select_phase_blip2(
+        model, flow_u8, batch, generator=gen),
+        "the same, plain tail": plain_phase}
+    times = {name: [] for name in runs}
+    with torch.no_grad():
+        for i in range(10):  # in turns: A B B A ...
+            for name in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                runs[name]()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3)
+    log("  select phase wall, synchronised, 10 runs each in turns: " + "; ".join(
+        f"{name} median {statistics.median(v):.2f} ms (min {min(v):.2f}, "
+        f"max {max(v):.2f})" for name, v in times.items()) + f" on {card}")
+    walls = eager_ms({"kernel D": tree, "plain": plain})
+    hosts = host_us({"kernel D": tree, "plain": plain})
+    ops = {name: traced(fn)["ops"] for name, fn in (("kernel D", tree),
+                                                    ("plain", plain))}
+    log(f"  selection tail {tuple(start_logits.shape)}: eager "
+        f"{walls['kernel D']:.4f} ms a call with kernel D against "
+        f"{walls['plain']:.4f} ms on the plain route (the parent's); host "
+        f"{hosts['kernel D']:.1f} against {hosts['plain']:.1f} us a call; "
+        f"device operations in one call {ops['kernel D']} against "
+        f"{ops['plain']} on {card}")
+
+
 # kernel families of a trace, by substrings of the kernels' names
 FAMILIES = {
+    "kernel D": ("select_frames_kernel",),
     "kernels B/E": ("corr_tile::tile_kernel", "corr_gather_kernel"),
     "kernel C": ("bwd_one_pass", "bwd_rows", "bwd_cols"),
     "kernel H": ("gemm_kernel",),
@@ -865,8 +967,8 @@ OTHER = "eager elementwise/reductions/copies"
 def traced(fn) -> dict:
     """One run of ``fn`` under ``torch.profiler``, synchronised: the device
     time of its kernels in ms, by name and by family (``FAMILIES``, the
-    rest ``OTHER``), and the wall time of the traced run (the trace's own
-    cost included)."""
+    rest ``OTHER``), the number of device operations (kernels and copies),
+    and the wall time of the traced run (the trace's own cost included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -878,8 +980,10 @@ def traced(fn) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     by_name: dict[str, float] = {}
+    ops = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            ops += 1
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
     families = dict.fromkeys((*FAMILIES, OTHER), 0.0)
@@ -887,7 +991,7 @@ def traced(fn) -> dict:
         families[next((f for f, keys in FAMILIES.items()
                        if any(k in name for k in keys)), OTHER)] += ms
     return {"busy": sum(by_name.values()), "wall": wall,
-            "families": families, "by_name": by_name}
+            "families": families, "by_name": by_name, "ops": ops}
 
 
 # ------------------------------------------------------------------ kernel C
@@ -1328,10 +1432,58 @@ def row(name, source, replaces, err, ms, plain_ms, nbytes, flops=0.0,
 
 
 # ------------------------------------------------------------------ kernel D
-def check_select(card: str, span: dict) -> dict:
+# an empty kernel in kernel D's block (128 threads): the floor that D's
+# device time per call is read against, built beside phase 1's libraries
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def start_empty_build():
+    """Start ``nvcc`` on ``EMPTY_CU`` into ``build/``; returns the process
+    and the library's path."""
+    from videotgb_torch.ops import kernels
+
+    kernels.BUILD.mkdir(parents=True, exist_ok=True)
+    src = kernels.BUILD / "empty_kernel.cu"
+    src.write_text(EMPTY_CU)
+    lib = kernels.BUILD / f"libempty_kernel.{os.getpid()}.so"
+    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+                             str(lib), str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def empty_launcher(proc, lib):
+    """Wait for the empty kernel's build; returns a function that launches
+    it once on the current stream."""
+    import ctypes
+
+    import torch
+
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc of the empty kernel:\n{out}")
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        rc = fn(torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"empty kernel launch failed: cudaError_t {rc}")
+    return launch
+
+
+def check_select(card: str, span: dict, empty) -> dict:
     import torch
 
     from videotgb_torch.ops.select_pallas import (
+        select_frames_cuda,
         select_frames_pallas,
         select_frames_pallas_reference,
     )
@@ -1339,13 +1491,13 @@ def check_select(card: str, span: dict) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     f, nf = span["num_frames"], span["nframe"]
-    flag = (span["start"].float(), span["end"].float(), span["video_length"])
 
     def batch(b, l):
-        """Random logits with the edge rows planted: lengths 1 and 2,
-        degenerate (0, 0) peaks, a NaN logit, an all-tied row."""
-        sl, el = (torch.randn((b, l), generator=gen, device=dev)
-                  for _ in range(2))
+        """Random logits in the TGB head's (B, L, 2) layout, handed over as
+        its strided [..., 0] and [..., 1] views, with the edge rows
+        planted: lengths 1 and 2, degenerate (0, 0) peaks, a NaN logit, an
+        all-tied row."""
+        sl, el = torch.randn((b, l, 2), generator=gen, device=dev).unbind(-1)
         vl = torch.randint(1, l + 1, (b,), generator=gen, device=dev)
         vl[:4] = torch.tensor([1, 2, 1, 2], device=dev)
         sl[4], el[4] = -10.0, -10.0
@@ -1355,50 +1507,60 @@ def check_select(card: str, span: dict) -> dict:
         sl[7], el[7] = 0.0, 0.0
         return sl, el, vl
 
+    big = batch(1024, 256)
     tg = batch(32, 66)  # the TG recipe: batch 32, 64 flow frames + 2
-    outs = {}
+    # (name, (start, end, lengths), F, nframe): the select phase's own span
+    # logits, the JAX benchmark's batch 64 x 4 flow frames, the TG shape,
+    # and the long-video widths
+    shapes = [
+        ("serving", (span["start"], span["end"], span["video_length"]), f,
+         nf),
+        ("bench batch 64", batch(64, 4), f, nf),
+        ("TG", tg, f, nf),
+        ("F=128", big, 128, 8),
+        ("F=1024", big, 1024, 8),
+    ]
 
-    def drive():
-        """The main path: the flagship select phase's logits and the TG
-        shape, each once without and once with noise."""
-        for name, args in (("flagship", flag), ("tg", tg)):
-            outs[name] = select_frames_pallas(*args, 0, f, nf,
-                                              noise_scale=0.0)
-            outs[name + " noise"] = select_frames_pallas(*args, 11, f, nf)
-        torch.cuda.synchronize()
-
-    launches = counted("kernel D's path (4 selection calls)", drive,
-                       {"select_frames": 4})["select_frames"]
-    for name, args in (("flagship", flag), ("tg", tg)):
-        noisy = outs[name + " noise"]
-        if int(noisy.min()) < 0 or int(noisy.max()) >= f:
-            fail(f"select {name} with noise: frame index out of range")
-
-    def exact(name, args, **kw):
-        got = outs.get(name)
-        if got is None:
-            got = select_frames_pallas(*args, 0, noise_scale=0.0, **kw)
-        want = select_frames_pallas_reference(*args, noise_scale=0.0, **kw)
-        torch.cuda.synchronize()
-        same = torch.equal(got, want)
-        log(f"  select {name} {tuple(args[0].shape)}: equal to the plain "
-            f"version {same}")
-        if not same:
+    def same(name, got, want):
+        ok = torch.equal(got, want)
+        log(f"  select {name}: equal to the plain version {ok}")
+        if not ok:
             fail(f"select {name} differs from its plain version")
 
-    exact("flagship", flag, num_frames=f, nframe=nf)
-    exact("tg", tg, num_frames=f, nframe=nf)
-    big = batch(1024, 256)
-    for rescale in ("minus1", "ratio"):
-        for inclusive in (False, True):
-            exact(f"F=128 nframe=8 {rescale} inclusive_end={inclusive}", big,
-                  num_frames=128, nframe=8, rescale=rescale,
-                  inclusive_end=inclusive)
+    for name, args, ff, n in shapes:
+        kw = dict(num_frames=ff, nframe=n)
+        same(f"{name} {tuple(args[0].shape)} F={ff} noise 0",
+             select_frames_pallas(*args, 0, noise_scale=0.0, **kw),
+             select_frames_pallas_reference(*args, noise_scale=0.0, **kw))
+        # handed noise through the route VideoTGB.select_frames takes
+        noise = torch.randn((2, 2, *args[0].shape), generator=gen,
+                            device=dev)
+        same(f"{name} {tuple(args[0].shape)} F={ff} handed noise, int64",
+             select_frames_cuda(*args, 0, ff, n, 2, 1.0, False, "minus1",
+                                noise=noise, out_dtype=torch.int64),
+             select_frames_pallas_reference(*args, noise=noise, **kw).long())
+    for ff in (128, 1024):
+        for rescale in ("minus1", "ratio"):
+            for inclusive in (False, True):
+                kw = dict(num_frames=ff, nframe=8, rescale=rescale,
+                          inclusive_end=inclusive, noise_scale=0.0)
+                same(f"F={ff} nframe=8 {rescale} inclusive_end={inclusive}",
+                     select_frames_pallas(*big, 0, **kw),
+                     select_frames_pallas_reference(*big, **kw))
 
-    # noise: reproducible per seed, and the Gumbel law of the plain version
+    # noise: reproducible per seed, by value or from a device tensor, and
+    # the Gumbel law of the plain version
     a, a2, c = (select_frames_pallas(*tg, s, f, nf) for s in (5, 5, 6))
-    if not torch.equal(a, a2) or torch.equal(a, c):
-        fail("select with noise: not reproducible per seed, or seeds agree")
+    on_card = select_frames_pallas(*tg, torch.tensor(
+        [5], dtype=torch.int32, device=dev), f, nf)
+    if not torch.equal(a, a2) or torch.equal(a, c) or not torch.equal(
+            a, on_card):
+        fail("select with noise: not reproducible per seed, seeds agree, or "
+             "a device seed differs from the same seed by value")
+    for name, args, ff, _ in shapes[:3]:
+        noisy = select_frames_pallas(*args, 11, ff, nf)
+        if int(noisy.min()) < 0 or int(noisy.max()) >= ff:
+            fail(f"select {name} with noise: frame index out of range")
     b, l = 65536, 66
     zeros = torch.zeros((b, l), device=dev)
     vl = torch.full((b,), l - 2, device=dev)
@@ -1414,25 +1576,31 @@ def check_select(card: str, span: dict) -> dict:
     if not dfreq <= 0.01:
         fail("select noise histogram differs from the plain version's")
 
-    ms = time_ms(lambda: select_frames_pallas(*flag, 11, f, nf))
-    plain_ms = time_ms(lambda: select_frames_pallas_reference(
-        *flag, f, nf, generator=gen))
-    tg_ms = time_ms(lambda: select_frames_pallas(*tg, 11, f, nf))
-    tg_plain = time_ms(lambda: select_frames_pallas_reference(
-        *tg, f, nf, generator=gen))
-    one = torch.zeros((1,), device=dev)
-    floor_ms = time_ms(lambda: one.add_(1.0))
-    nbytes = 8 * flag[0].numel() + 4 * flag[0].shape[0] * (1 + nf)
-    log(f"  select flagship logits {tuple(flag[0].shape)}: kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms; TG (32, 66): kernel {tg_ms:.4f} ms, "
-        f"plain {tg_plain:.4f} ms; bytes bound "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B); launch "
-        f"floor (a one-element add_) {floor_ms:.4f} ms on {card}")
-    out = row("select_frames", "videotgb_torch/csrc/select_frames.cu",
-              "videotgb_tpu/ops/select_pallas.py:32", 0.0, ms, plain_ms,
-              nbytes)
-    out["launches"] = launches
-    return out
+    # device time per call (graph_ms) against an empty kernel's, host time
+    # per call, the plain version's eager time, the bytes bound
+    floor_ms = graph_ms(empty)
+    calls = {name: (lambda a=args, ff=ff, n=n: select_frames_pallas(
+        *a, 11, ff, n)) for name, args, ff, n in shapes}
+    hosts = host_us(calls)
+    timed = {}
+    for name, args, ff, n in shapes:
+        ms = graph_ms(calls[name])
+        plain_ms = time_ms(lambda a=args, ff=ff, n=n:
+                           select_frames_pallas_reference(
+                               *a, ff, n, generator=gen))
+        bsz, length = args[0].shape
+        nbytes = (8 * bsz * length + args[2].element_size() * bsz
+                  + 4 * bsz * n)
+        timed[name] = (ms, plain_ms, nbytes)
+        log(f"  select {name} {(bsz, length)} F={ff}: kernel D {ms:.4f} ms "
+            f"device time per call ({ms / floor_ms:.2f}x the empty "
+            f"kernel's {floor_ms:.4f}), host {hosts[name]:.1f} us a call; "
+            f"plain {plain_ms:.4f} ms eager; bytes bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.2e} ms ({nbytes} B) on {card}")
+    ms, plain_ms, nbytes = timed["serving"]
+    return row("select_frames", "videotgb_torch/csrc/select_frames.cu",
+               "videotgb_tpu/ops/select_pallas.py:32", 0.0, ms, plain_ms,
+               nbytes)
 
 
 # ------------------------------------------------------------------ kernel E
@@ -1908,7 +2076,7 @@ def int8_serving_path(card: str) -> int:
     layers = cfg.blip2.vit.num_layers
     for phase, got, want in (
             ("select_phase_blip2", after_select,
-             {**zero, "corr_lookup": cfg.raft.iters}),
+             {**zero, "corr_lookup": cfg.raft.iters, "select_frames": 1}),
             ("answer_phase_blip2", {k: end[k] - after_select[k] for k in end},
              {**zero, "flash_fwd": layers, "int8_mm": 6 * layers})):
         log(f"  W8A8 launches in {phase}: {got} (expected {want})")
@@ -2044,9 +2212,11 @@ def main() -> None:
     t_run = time.perf_counter()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    empty_build = start_empty_build()
     reports = kernels.build_all()
     for name in kernels.SOURCES:
         kernels.library(name)
+    empty = empty_launcher(*empty_build)
     build_s = time.perf_counter() - t0
     log(f"phase 1: built {sorted(kernels.SOURCES)} in {build_s:.2f} s")
     for name, text in reports.items():
@@ -2073,7 +2243,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 8: kernel D, fused frame selection")
-    select = check_select(card, span)
+    select = check_select(card, span, empty)
+    select["launches"] = launches["select_frames"]
     log("phase 9: kernel E, query-blocked correlation lookup (lookup probe)")
     blocked = check_blocked_lookup(card)
     log("phase 10: kernel F, fused add + LayerNorm in Triton (LN probe)")

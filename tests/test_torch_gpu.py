@@ -46,6 +46,9 @@ from videotgb_torch.ops.quant import (
     int8_mm_reference,
 )
 from videotgb_torch.ops.select_pallas import (
+    MAX_FRAMES,
+    draw_seed,
+    select_frames_cuda,
     select_frames_pallas,
     select_frames_pallas_reference,
 )
@@ -446,12 +449,59 @@ def test_tiny_pipeline_on_the_card_matches_the_cpu(cuda):
     kernels.reset_launches()
     cand = V.select_phase_blip2(gpu, flow, batch, noise=noise)
     assert kernels.LAUNCHES["corr_lookup"] == cfg.raft.iters
+    assert kernels.LAUNCHES["select_frames"] == 1  # kernel D, not ops.select
+    assert cand.dtype == torch.int64
     assert torch.equal(cand.cpu(), V.select_phase_blip2(cpu, flow, batch,
                                                         noise=noise))
     dcfg = DecodeConfig(max_new_tokens=4)
     got = V.answer_phase_blip2(gpu, frames, batch, dcfg).cpu()
     want = V.answer_phase_blip2(cpu, frames, batch, dcfg)
     assert float((got == want).float().mean()) >= 0.75  # near-tie argmax
+
+
+@pytest.mark.gpu
+def test_tiny_e2e_tgb_selection_on_the_card_launches_kernel_d(cuda):
+    """The E2E recipe's "tgb" selection on the card is one launch of kernel
+    D: with handed noise the same frames as the CPU route and the same loss
+    (1e-4 relative: summation order); with a CUDA generator the seed is
+    drawn there and the frames are in range."""
+    cfg = _tiny_f32()
+    cpu = V.VideoTGB(cfg, device="cpu", seed=6)
+    gpu = V.VideoTGB(cfg, device=cuda, seed=6)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(6)
+    b, l, img, fs = 2, 6, cfg.blip2.vit.image_size, cfg.tgb.flow_size
+    batch = {"frames": torch.randn((b, cfg.num_frames, img, img, 3),
+                                   generator=g),
+             "flow": torch.randn((b, l, fs, fs, 2), generator=g),
+             "flow_mask": torch.ones((b, l + 2)),
+             "video_length": torch.tensor([l, l - 2]),
+             "sampler_question_ids": torch.randint(4, 300, (b, 5),
+                                                   generator=g),
+             "sampler_question_mask": torch.ones((b, 5)),
+             "question_ids": torch.randint(4, 300, (b, 6), generator=g),
+             "question_mask": torch.ones((b, 6)),
+             "answer_ids": torch.randint(2, 300, (b, 4), generator=g)}
+    noise = torch.randn((cfg.top_k, 2, b, l), generator=g)  # (B, L) logits
+    recipe = E2ERecipe(selection="tgb")
+    with torch.no_grad():
+        want, want_aux = recipe.loss_fn(cpu, batch, deterministic=True,
+                                        noise=noise)
+        on_card = {k: v.to(cuda) for k, v in batch.items()}
+        kernels.reset_launches()
+        got, aux = recipe.loss_fn(gpu, on_card, deterministic=True,
+                                  noise=noise)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["select_frames"] == 1
+        assert torch.equal(aux["cand"].cpu(), want_aux["cand"])
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        _, drawn = recipe.loss_fn(gpu, on_card, gen, deterministic=True)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["select_frames"] == 2
+    cand = drawn["cand"]
+    assert cand.dtype == torch.int64 and tuple(cand.shape) == (b, cfg.nframe)
+    assert int(cand.min()) >= 0 and int(cand.max()) < cfg.num_frames
 
 
 BWD_LAYOUTS = BIAS_LAYOUTS + ["per_query"]
@@ -801,17 +851,24 @@ def test_tiny_e2e_train_steps_on_the_card_match_the_cpu(cuda):
 # ------------------------------------------------------ kernels D, E, F and G
 SELECT_CASES = {
     # (B, L, F, nframe, inclusive_end, rescale): the TG recipe's shape, then
-    # F = 128 at both rules and both ends
+    # F = 128 at both rules and both ends, then the long-video F = 1024 and
+    # the kernel's wider mask (32 words a lane) past it up to MAX_FRAMES
     "tg": (32, 66, 32, 4, False, "minus1"),
     "f128_minus1": (1024, 256, 128, 8, False, "minus1"),
     "f128_ratio": (1024, 256, 128, 8, False, "ratio"),
     "f128_minus1_inclusive": (1024, 256, 128, 8, True, "minus1"),
     "f128_ratio_inclusive": (1024, 256, 128, 8, True, "ratio"),
+    "f1024_minus1": (1024, 256, 1024, 8, False, "minus1"),
+    "f1024_ratio_inclusive": (1024, 256, 1024, 8, True, "ratio"),
+    "f4096_nframe64": (64, 300, 4096, 64, True, "minus1"),
+    "f32768_nframe1024": (16, 300, MAX_FRAMES, 1024, False, "ratio"),
 }
 
 
 def _select_args(gen, dev, b, l):
-    sl, el = (torch.randn((b, l), generator=gen, device=dev) for _ in range(2))
+    """Random logits in the TGB head's (B, L, 2) layout, handed over as its
+    strided [..., 0] and [..., 1] views, with edge rows planted."""
+    sl, el = torch.randn((b, l, 2), generator=gen, device=dev).unbind(-1)
     vl = torch.randint(1, l + 1, (b,), generator=gen, device=dev)
     vl[:4] = torch.tensor([1, 2, 1, 2], device=dev)  # the shortest lengths
     sl[4], el[4] = -10.0, -10.0
@@ -835,6 +892,28 @@ def test_select_kernel_matches_plain_without_noise(cuda, case):
     assert kernels.LAUNCHES["select_frames"] == before + 1
     assert got.dtype == torch.int32 and tuple(got.shape) == (b, nf)
     assert torch.equal(got, select_frames_pallas_reference(sl, el, vl, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_select_kernel_matches_plain_with_handed_noise(cuda, case):
+    """The same noise in both: the same bits, as int64 (the route of
+    ``VideoTGB.select_frames``, the seed read from the device) and int32
+    (a seed by value)."""
+    b, l, f, nf, inclusive, rescale = SELECT_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    sl, el, vl = _select_args(gen, cuda, b, l)
+    noise = torch.randn((2, 2, b, l), generator=gen, device=cuda)
+    kw = dict(num_frames=f, nframe=nf, top_k=2, inclusive_end=inclusive,
+              rescale=rescale)
+    want = select_frames_pallas_reference(sl, el, vl, noise_scale=0.5,
+                                          noise=noise, **kw)
+    seed = draw_seed(gen, cuda)
+    got = select_frames_cuda(sl, el, vl, seed, noise_scale=0.5, noise=noise,
+                             out_dtype=torch.int64, **kw)
+    assert got.dtype == torch.int64 and torch.equal(got, want.long())
+    assert torch.equal(select_frames_cuda(sl, el, vl, 1, noise_scale=0.5,
+                                          noise=noise, **kw), want)
 
 
 @pytest.mark.gpu
@@ -942,8 +1021,8 @@ def test_flash_bshd_kernel_mma_body_matches_plain(cuda, d, s):
 def test_selection_and_probe_wrappers_raise_on_bad_inputs(cuda):
     sl = torch.zeros((2, 8), device=cuda)
     vl = torch.full((2,), 8, device=cuda)
-    with pytest.raises(ValueError, match="128"):
-        select_frames_pallas(sl, sl, vl, 0, num_frames=200)
+    with pytest.raises(ValueError, match=str(MAX_FRAMES)):
+        select_frames_pallas(sl, sl, vl, 0, num_frames=MAX_FRAMES + 1)
     pyr = build_corr_pyramid_t(*(torch.randn((1, 4, 4, 8), device=cuda)
                                  for _ in range(2)), 2)
     with pytest.raises(ValueError, match="qb"):

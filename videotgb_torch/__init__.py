@@ -12,7 +12,7 @@ Pallas TPU kernels run here as CUDA C++ kernels written for ``sm_90a``
 * ``csrc/corr_lookup.cu`` RAFT correlation-pyramid lookup
   (``ops.correlation_pallas``);
 * ``csrc/select_frames.cu`` fused frame selection from the span logits
-  (``ops.select_pallas``).
+  (``ops.select_pallas``; ``VideoTGB.select_frames`` on the card).
 
 The JAX package's probe kernels have their tools in ``tools/``:
 ``csrc/corr_lookup_blocked.cu`` (``tools.lookupprobe``), the Triton fused

@@ -9,13 +9,15 @@ caches through ``VideoTGB.t5_decode_step``:
 
   frames        (B, F=32, H, W, 3)    candidate frames (CLIP-normalized)
   flow          (B, L, Hf, Wf, 2)     TGB input (``flow_features``)
-  cand_index    (B, nframe)           fixed-size gather (ops.select)
+  cand_index    (B, nframe)           fixed-size gather (ops.select; kernel
+                                      D, ops.select_pallas, on the card)
   visual tokens (B, 32, d)            mean-pooled over the selected frames
 
 Entry points run on the CUDA device unless the model was built with
-``device="cpu"``. Selection noise comes from a ``torch.Generator``, or from
-an explicit ``noise`` tensor (top_k, 2, B, L), which is how tests share the
-JAX package's Gumbel draws.
+``device="cpu"``. Selection noise comes from a ``torch.Generator`` (on the
+card, as the seed of kernel D's Philox draw), or from an explicit ``noise``
+tensor (top_k, 2, B, L), which is how tests share the JAX package's Gumbel
+draws.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from videotgb_torch.models.tgb import TGBConfig, TGBModel
 from videotgb_torch.models.vit import ViTConfig
 from videotgb_torch.ops.decode import DecodeConfig, decode
 from videotgb_torch.ops.select import select_frames
+from videotgb_torch.ops.select_pallas import draw_seed, select_frames_cuda
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,12 +152,25 @@ class VideoTGB(nn.Module):
         """Gumbel spans -> (B, nframe) frame indices. ``inclusive_end`` and
         ``rescale`` default to the training rule; the BLIP2 inference rule
         is ``inclusive_end=False`` with "minus1" int(i*(F-1)/(L-1)), the
-        E2E "tgb" rule ``inclusive_end=False`` with "ratio" int(i/L*F)."""
+        E2E "tgb" rule ``inclusive_end=False`` with "ratio" int(i/L*F).
+
+        On CUDA logits this is kernel D, one launch after a seed drawn on
+        the device from ``generator`` (none with ``noise``, which gives the
+        CPU route's indices bit for bit); on CPU logits the plain version.
+        Either returns (B, nframe) int64."""
         cfg = self.config
-        return select_frames(start_logits, end_logits, video_length,
-                             cfg.num_frames, cfg.nframe, generator, cfg.top_k,
-                             cfg.gumbel_tau, inclusive_end=inclusive_end,
-                             rescale=rescale, noise=noise)
+        if start_logits.device.type == "cpu":
+            return select_frames(start_logits, end_logits, video_length,
+                                 cfg.num_frames, cfg.nframe, generator,
+                                 cfg.top_k, cfg.gumbel_tau,
+                                 inclusive_end=inclusive_end,
+                                 rescale=rescale, noise=noise)
+        seed = 0 if noise is not None else draw_seed(generator,
+                                                     start_logits.device)
+        return select_frames_cuda(
+            start_logits, end_logits, video_length, seed, cfg.num_frames,
+            cfg.nframe, cfg.top_k, 1.0, inclusive_end, rescale, noise=noise,
+            out_dtype=torch.int64)
 
     # ------------------------------------------------- backbone entry points
     def encode_selected(self, frames, cand_index, qformer_input_ids=None,
