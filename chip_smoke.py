@@ -106,7 +106,19 @@ Phases, each fatal on failure (exit code 1):
    plain version and within the JAX package's int8 gate of the bf16 tower
    on the same images, the int8 tower's time split into products and
    quantize passes; then the three int8 tools (the GEMM probe counted: its
-   kernel-H lines launch int8_mm and bf16_mm once per call).
+   kernel-H lines launch int8_mm and bf16_mm once per call);
+13. the port's serving engine (``videotgb_torch.serve.ServingEngine``) at
+   flagship width, bf16 residency, batch 4, 4 flow pairs, 16 new tokens,
+   fed through ``submit`` with random uint8 frames from a seed: a warm-up
+   request, 4 requests one at a time, a burst of 8 (two identical pairs)
+   and 8 Poisson arrivals at 4 req/s; its select worker (kernels B and D)
+   and answer worker (kernel A) on two threads and two CUDA streams. Every
+   future resolves; the launches over the engine's run are its batches
+   times (20 lookups on the tile body, 1 selection, 39 flash forwards on
+   the tensor-core body); every batch equals direct single-threaded phase
+   calls on the same padded batch with its step's generator, indices and
+   tokens bit for bit; latency percentiles, throughput, ``phase_ms``, how
+   much select(N+1) overlapped answer(N), peak memory.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -2195,6 +2207,271 @@ def check_int8_tools(card: str) -> int:
     return got["bf16_mm"]
 
 
+# ---------------------------------------------------------- serving engine
+def serving_engine(card: str) -> dict:
+    """Phase 13: the port's ``ServingEngine`` at flagship width (bf16
+    residency, batch 4, 4 flow pairs, 16 new tokens), fed through
+    ``submit`` with random uint8 frames from a seed: a warm-up request, 4
+    requests one at a time, a burst of 8 (two identical pairs among them)
+    and 8 Poisson arrivals at 4 req/s. Its two workers launch kernels B and
+    D (select) and A (answer) from two threads on two streams. Every future
+    must resolve; the launch counts over the engine's run must be the
+    batches times (B 20 on the tile body, D 1, A 39 on the tensor-core
+    body); then every batch is run again by direct ``select_phase_blip2``
+    + gather + ``answer_phase_blip2`` calls on the same padded batch with
+    the generator of its step, and its indices and tokens must be equal
+    bit for bit (identical requests agree where their rows' noise picks
+    the same frames). Returns the engine's launches per kernel."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from videotgb_torch import serve
+    from videotgb_torch.device import step_generator
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.ops import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = serve.ServingEngine(
+        "random:flagship", preset="flagship", batch_size=4, flow_frames=4,
+        max_new_tokens=16, max_delay_ms=30)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    log(f"  engine built on the card: {n_params / 1e6:.1f}M params in "
+        f"{time.perf_counter() - t0:.2f} s (select and answer workers on "
+        f"their own CUDA streams)")
+
+    # the engine's batches as its workers see them: padded requests, step,
+    # generator state, indices and tokens, and host-clock intervals of each
+    # phase up to its stream's completion
+    rec = {"padded": [], "steps": [], "select": [], "answer": []}
+    host_batch, make_gen = engine.host_batch, serve.step_generator
+    select, answer = serve.select_phase_blip2, serve.answer_phase_blip2
+
+    def rec_batch(padded):
+        rec["padded"].append(list(padded))
+        return host_batch(padded)
+
+    def rec_gen(seed, step, device):
+        rec["steps"].append(step)
+        return make_gen(seed, step, device)
+
+    def rec_select(model, flow_u8, bd, generator=None):
+        state = generator.get_state()
+        t = time.perf_counter()
+        cand = select(model, flow_u8, bd, generator=generator)
+        torch.cuda.current_stream().synchronize()
+        rec["select"].append({"t": (t, time.perf_counter()), "state": state,
+                              "cand": cand.cpu()})
+        return cand
+
+    def rec_answer(model, frames, bd, dcfg, generator=None):
+        t = time.perf_counter()
+        tokens = answer(model, frames, bd, dcfg, generator=generator)
+        torch.cuda.current_stream().synchronize()
+        rec["answer"].append({"t": (t, time.perf_counter()),
+                              "tokens": tokens.cpu()})
+        return tokens
+
+    engine.host_batch = rec_batch
+    serve.step_generator, serve.select_phase_blip2 = rec_gen, rec_select
+    serve.answer_phase_blip2 = rec_answer
+
+    img, fs = cfg.blip2.vit.image_size, cfg.tgb.flow_size
+    rng = np.random.default_rng(0)
+
+    def request(i):
+        frames = rng.integers(0, 256, (cfg.num_frames, img, img, 3),
+                              np.uint8)
+        flow = rng.integers(0, 256, (engine.flow_frames + 1, fs, fs, 3),
+                            np.uint8)
+        return frames, flow, f"request {i}: what happens in the video?"
+
+    frames_of, replies, done_at = {}, {}, {}
+
+    def submit(req):
+        fut = engine.submit(*req)
+        frames_of[fut] = req[0]
+        fut.add_done_callback(lambda f: done_at.setdefault(
+            f, time.perf_counter()))
+        return fut
+
+    def result(fut, what):
+        try:
+            replies[fut] = fut.result(timeout=300)
+        except Exception as e:  # an exception or a timeout fails the run
+            fail(f"serving engine: {what} did not resolve: {e!r}")
+        return replies[fut]
+
+    def percentiles(lat):
+        return {q: float(np.percentile(lat, q)) for q in (50, 90, 99)}
+
+    try:
+        kernels.reset_launches()
+        result(submit(request(0)), "the warm-up request")
+        seq = []
+        for i in range(1, 5):  # each awaited: a padded batch of its own
+            fut = submit(request(i))
+            seq.append(result(fut, f"sequential request {i}"))
+        n_seq_batches = len(rec["steps"])
+        burst_reqs = [request(10 + i) for i in range(6)]
+        burst_reqs.insert(1, burst_reqs[0])  # identical pairs
+        burst_reqs.insert(5, burst_reqs[4])
+        t_load = time.perf_counter()
+        loaded = [submit(r) for r in burst_reqs]
+        gaps = np.random.default_rng(1).exponential(1 / 4.0, 8)
+        for i, gap in enumerate(gaps):
+            time.sleep(float(gap))
+            loaded.append(submit(request(20 + i)))
+        for i, fut in enumerate(loaded):
+            result(fut, f"loaded request {i}")
+        t_end = time.perf_counter()
+        stats = engine.stats()
+    finally:
+        engine.close()
+        engine.host_batch = host_batch
+        serve.step_generator, serve.select_phase_blip2 = make_gen, select
+        serve.answer_phase_blip2 = answer
+    if engine._worker.is_alive() or engine._answer_worker.is_alive():
+        fail("serving engine: a worker outlived close()")
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    batches = stats["batches"]
+    per_batch = {"corr_lookup": cfg.raft.iters, "select_frames": 1,
+                 "flash_fwd": cfg.blip2.vit.num_layers}
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0),
+            **{k: v * batches for k, v in per_batch.items()}}
+    log(f"  launches over the engine's {batches} batches: {launches} "
+        f"(expected {want})")
+    if launches != want:
+        fail(f"serving engine launch counts: {launches} != {want}")
+    check_bodies("the serving engine", launches)
+    if not (len(rec["steps"]) == len(rec["padded"]) == len(rec["select"])
+            == len(rec["answer"]) == batches):
+        fail(f"serving engine: {batches} batches but "
+             f"{[len(v) for v in rec.values()]} recorded")
+
+    # every batch again, single-threaded on the default stream
+    model, dev = engine.model, engine.device
+    agree = pairs = 0
+    direct = {"select": [], "answer": []}
+    for k, (step, padded) in enumerate(zip(rec["steps"], rec["padded"])):
+        gen = step_generator(engine.seed, step, dev)
+        if not torch.equal(gen.get_state(), rec["select"][k]["state"]):
+            fail(f"batch {k}: the engine's generator is not step {step}'s")
+        flow_u8, bd = engine.host_batch(padded)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cand = V.select_phase_blip2(model, flow_u8, bd, generator=gen)
+        torch.cuda.synchronize()
+        direct["select"].append((time.perf_counter() - t) * 1e3)
+        if not torch.equal(cand.cpu(), rec["select"][k]["cand"]):
+            fail(f"batch {k} (step {step}): frame indices differ from a "
+                 "direct select_phase_blip2 call")
+        idx = cand.cpu().numpy()
+        sel = torch.from_numpy(np.stack([
+            frames_of[r.future][idx[i]] for i, r in enumerate(padded)]))
+        sel = sel.to(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tokens = V.answer_phase_blip2(model, sel, bd, engine.decode_config,
+                                      generator=gen)
+        torch.cuda.synchronize()
+        direct["answer"].append((time.perf_counter() - t) * 1e3)
+        if not torch.equal(tokens.cpu(), rec["answer"][k]["tokens"]):
+            fail(f"batch {k} (step {step}): tokens differ from a direct "
+                 "answer_phase_blip2 call")
+        answers = engine.tok.batch_decode(tokens.cpu().numpy())
+        for i, r in enumerate(padded):
+            if i and r is padded[i - 1]:
+                continue  # a pad row
+            reply = replies[r.future]
+            if reply.selected_frames != idx[i].tolist() or \
+                    reply.answer != answers[i]:
+                fail(f"batch {k} row {i}: the reply is not its row's")
+        rows = {}
+        for i, r in enumerate(padded):
+            if i and r is padded[i - 1]:
+                continue
+            key = (id(frames_of[r.future]), r.question)
+            if key in rows:
+                pairs += 1
+                other = replies[rows[key]]
+                same = other.selected_frames == replies[r.future] \
+                    .selected_frames
+                agree += same
+                if same and other.answer != replies[r.future].answer:
+                    fail(f"batch {k}: identical requests with the same "
+                         "frames got different answers")
+            rows[key] = r.future
+    log(f"  all {batches} batches equal to direct select + gather + answer "
+        f"calls with their steps' generators (indices and tokens bit for "
+        f"bit); {pairs} identical pairs shared a batch, {agree} of them "
+        f"drew the same frames (each row draws its own Gumbel noise)")
+
+    # latency, throughput, the phases, and select(N+1) against answer(N)
+    seq_lat = [r.latency_ms for r in seq]
+    loaded_lat = [replies[f].latency_ms for f in loaded]
+    sel_t = [x["t"] for x in rec["select"]]
+    ans_t = [x["t"] for x in rec["answer"]]
+
+    def overlap(a, b):
+        return max(0.0, min(a[1], b[1]) - max(a[0], b[0]))
+
+    loaded_sel = sel_t[n_seq_batches:]
+    sel_ms = sum(b - a for a, b in loaded_sel) * 1e3
+    over_ms = sum(overlap(s, a) for s in loaded_sel for a in ans_t) * 1e3
+    alone = [(b - a) * 1e3 for (a, b) in sel_t[1:n_seq_batches]]
+    busy = [(s[1] - s[0]) * 1e3 for s in loaded_sel
+            if any(overlap(s, a) > 0 for a in ans_t)]
+    ans_alone = [(b - a) * 1e3 for (a, b) in ans_t[1:n_seq_batches]]
+    ans_busy = [(a[1] - a[0]) * 1e3 for a in ans_t[n_seq_batches:]
+                if any(overlap(s, a) > 0 for s in sel_t)]
+    burst_s = max(done_at[f] for f in loaded[:8]) - t_load
+    log(f"  one at a time (4 requests, each its own batch): latency_ms "
+        f"{seq_lat}; select {alone} ms, answer {ans_alone} ms on {card}")
+    log(f"  the same batches called directly, one thread, default stream "
+        f"(after the engine closed): select median "
+        f"{statistics.median(direct['select']):.2f} ms, answer median "
+        f"{statistics.median(direct['answer']):.2f} ms "
+        f"(select {[round(x, 2) for x in direct['select']]}, answer "
+        f"{[round(x, 2) for x in direct['answer']]}) on {card}")
+    log(f"  the burst of 8: served in {burst_s:.3f} s, "
+        f"{8 / burst_s:.3f} req/s (one batch at a time, one request after "
+        f"another: 4 / (select + answer alone) = "
+        f"{4e3 / (statistics.median(alone) + statistics.median(ans_alone)):.3f}"
+        f" req/s) on {card}")
+    log(f"  loaded (burst of 8 + 8 Poisson arrivals at 4 req/s, "
+        f"{batches - n_seq_batches} batches of "
+        f"{[len({id(r) for r in p}) for p in rec['padded'][n_seq_batches:]]}"
+        f" requests): latency_ms p50 / p90 / p99 {percentiles(loaded_lat)}, "
+        f"throughput {len(loaded) / (t_end - t_load):.3f} req/s over "
+        f"{t_end - t_load:.3f} s on {card}")
+    log(f"  select(N+1) against answer(N) under one interpreter lock: "
+        f"{over_ms:.1f} of {sel_ms:.1f} ms of loaded select wall overlapped "
+        f"an answer ({over_ms / max(sel_ms, 1e-9):.3f}); select median "
+        f"{statistics.median(alone):.2f} ms alone, "
+        f"{statistics.median(busy) if busy else float('nan'):.2f} ms "
+        f"overlapping; answer median {statistics.median(ans_alone):.2f} ms "
+        f"alone, {statistics.median(ans_busy) if ans_busy else float('nan'):.2f}"
+        f" ms overlapping a select on {card}")
+    log(f"  engine stats(): batches {batches}, served {stats['served']}, "
+        f"latency p50 / p90 / p99 {stats.get('p50_ms')} / "
+        f"{stats.get('p90_ms')} / {stats.get('p99_ms')} ms (all requests), "
+        f"throughput_req_s {stats['throughput_req_s']} (over the uptime), "
+        f"phase_ms {json.dumps(stats['phase_ms'])} on {card}")
+    log(f"  peak device memory {peak_gib:.2f} GiB on {card}")
+    log("  not run on the card: run_inference and submit_video (they decode "
+        "video with cv2, which this machine may lack; held on the CPU by "
+        "tests/test_torch_evalsuite.py and tests/test_torch_serve.py)")
+    del engine, model
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2261,9 +2538,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     bf16_row["launches"] = check_int8_tools(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    log("phase 13: the serving engine (two workers, two CUDA streams)")
+    served = serving_engine(card)
+    for kern in (flash, lookup, select):
+        kern["launches"] += served[kern["name"]]
     done = time.perf_counter()
-    log(f"phases 1-12 ran in {done - t_run:.1f} s, phase 12 in "
-        f"{done - t12:.1f} s")
+    log(f"phases 1-13 ran in {done - t_run:.1f} s, phase 12 in "
+        f"{t13 - t12:.1f} s, phase 13 in {done - t13:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

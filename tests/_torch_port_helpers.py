@@ -86,6 +86,25 @@ def random_tree(shapes, seed=0):
     return unflatten_dict(out)
 
 
+def jax_params(jmodel, jcfg, seed=0):
+    """numpy weights from ``seed`` for the JAX VideoTGB ``jmodel``, as the
+    ``{"params": ...}`` tree of jnp arrays (shapes from ``jax.eval_shape``
+    of its ``init_pipeline``: nothing is compiled)."""
+    fs = jcfg.tgb.flow_size
+    img = jcfg.blip2.vit.image_size
+    x = make_inputs(jcfg, seed)
+    args = (jnp.zeros((1, jcfg.num_frames, img, img, 3)),
+            jnp.zeros((1, L_FLOW, fs, fs, 2)),
+            *(jnp.asarray(x[k][:1]) for k in (
+                "flow_mask", "video_length", "sampler_question_ids",
+                "sampler_question_mask", "question_ids", "question_mask")))
+    shapes = jax.eval_shape(
+        lambda k: jmodel.init(k, *args, k, method=jmodel.init_pipeline),
+        jax.random.key(0))
+    tree = random_tree(nn.meta.unbox(shapes)["params"], seed)
+    return {"params": jax.tree.map(jnp.asarray, tree)}
+
+
 class Pair:
     """The tiny JAX VideoTGB with its params, and the port's VideoTGB on the
     CPU with the same weights."""
@@ -95,21 +114,8 @@ class Pair:
         self.tcfg = torch_tiny_f32()
         self.jmodel = JV.VideoTGB(self.jcfg)
         self.inputs = make_inputs(self.jcfg, seed)
-        x = self.inputs
-        fs = self.jcfg.tgb.flow_size
-        img = self.jcfg.blip2.vit.image_size
-        args = (jnp.zeros((1, self.jcfg.num_frames, img, img, 3)),
-                jnp.zeros((1, L_FLOW, fs, fs, 2)),
-                *(jnp.asarray(x[k][:1]) for k in (
-                    "flow_mask", "video_length", "sampler_question_ids",
-                    "sampler_question_mask", "question_ids",
-                    "question_mask")))
-        shapes = jax.eval_shape(
-            lambda k: self.jmodel.init(k, *args, k,
-                                       method=self.jmodel.init_pipeline),
-            jax.random.key(0))
-        self.tree = random_tree(nn.meta.unbox(shapes)["params"], seed)
-        self.params = {"params": jax.tree.map(jnp.asarray, self.tree)}
+        self.params = jax_params(self.jmodel, self.jcfg, seed)
+        self.tree = jax.tree.map(np.array, self.params["params"])
         self.tmodel = TV.VideoTGB(self.tcfg, device="cpu")
         load_flax_params(self.tmodel, self.tree)
 
@@ -139,3 +145,43 @@ def few_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(threads)
+
+
+def jax_load_model_seeded(args, with_specs=False):
+    """Stands in for ``videotgb_tpu.evalsuite.inference.load_model`` on
+    ``random:<preset>`` with f32 parameters: the same config (``nframe``,
+    ``flow_size``), weights from :func:`jax_params` in place of flax's
+    ``init``, which compiles some 800 small programs on the CPU."""
+    assert args.model_path.startswith("random:")
+    assert not getattr(args, "bf16_params", False)
+    cfg = getattr(JV.VideoTGBConfig, args.model_path.split(":", 1)[1])(
+        getattr(args, "backbone", "blip2"))
+    nframe = getattr(args, "nframe", None)
+    if nframe and nframe != cfg.nframe:
+        cfg = dataclasses.replace(cfg, nframe=nframe)
+    if getattr(args, "flow_size", None):
+        cfg = dataclasses.replace(
+            cfg, tgb=dataclasses.replace(cfg.tgb, flow_size=args.flow_size))
+    model = JV.VideoTGB(cfg)
+    params = jax_params(model, cfg)
+    return (model, params, cfg, None) if with_specs else (model, params, cfg)
+
+
+def f32_tiny_presets(monkeypatch):
+    """Both packages' ``tiny`` preset in f32 compute and parameters."""
+    j_tiny, t_tiny = JV.VideoTGBConfig.tiny, TV.VideoTGBConfig.tiny
+    monkeypatch.setattr(JV.VideoTGBConfig, "tiny", classmethod(
+        lambda cls, backbone="blip2": _f32(
+            j_tiny(backbone), dict(dtype=jnp.float32,
+                                   param_dtype=jnp.float32))))
+    monkeypatch.setattr(TV.VideoTGBConfig, "tiny", classmethod(
+        lambda cls: _f32(t_tiny(), dict(dtype=torch.float32,
+                                        param_dtype=torch.float32))))
+
+
+def gumbel_like(key, start_logits, top_k):
+    """The JAX selection's Gumbel draws from ``key`` for these (B, L)
+    logits, (top_k, 2, B, L)."""
+    shape = (top_k, 2, *start_logits.shape)
+    return torch.from_numpy(np.array(
+        jax.random.gumbel(key, shape, jnp.float32)))

@@ -1146,3 +1146,66 @@ def test_kernel_h_wrappers_raise_on_what_they_do_not_take(cuda):
         int8_mm(x, x, torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         bf16_mm(x, x)
+
+
+@pytest.mark.gpu
+def test_tiny_engine_on_the_card_equals_direct_calls(cuda, monkeypatch):
+    """The tiny engine on the card, its workers on two threads and two
+    streams: every batch equals single-threaded direct ``select_phase_blip2``
+    + gather + ``answer_phase_blip2`` calls on the same padded batch with
+    its step's generator, and the engine's launches are exactly its batches
+    times a direct batch's."""
+    from videotgb_torch import serve
+    from videotgb_torch.device import step_generator
+
+    eng = serve.ServingEngine("random:tiny", preset="tiny", batch_size=2,
+                              flow_frames=3, max_new_tokens=4,
+                              max_delay_ms=50.0)
+    steps, padded_of = [], []
+    host_batch = eng.host_batch
+    monkeypatch.setattr(eng, "host_batch", lambda padded: (
+        padded_of.append(list(padded)) or host_batch(padded)))
+    monkeypatch.setattr(serve, "step_generator", lambda s, k, d: (
+        steps.append(k) or step_generator(s, k, d)))
+    rng = np.random.default_rng(0)
+    img, fs = eng.cfg.blip2.vit.image_size, eng.cfg.tgb.flow_size
+    frames_of = {}
+    kernels.reset_launches()
+    try:
+        futs = []
+        for i in range(7):
+            frames = rng.integers(0, 255, (eng.cfg.num_frames, img, img, 3),
+                                  np.uint8)
+            flow = rng.integers(0, 255, (4, fs, fs, 3), np.uint8)
+            fut = eng.submit(frames, flow, f"question {i}?")
+            frames_of[fut] = frames
+            futs.append(fut)
+            if i < 2:
+                fut.result(timeout=300)
+        replies = {f: f.result(timeout=300) for f in futs}
+    finally:
+        eng.close()
+    assert not eng._worker.is_alive() and not eng._answer_worker.is_alive()
+    engine_launches = dict(kernels.LAUNCHES)
+    batches = eng.stats()["batches"]
+    assert batches == len(steps) == len(padded_of)
+
+    kernels.reset_launches()
+    for step, padded in zip(steps, padded_of):
+        gen = step_generator(eng.seed, step, eng.device)
+        flow_u8, bd = eng.host_batch(padded)
+        cand = V.select_phase_blip2(eng.model, flow_u8, bd, generator=gen)
+        idx = cand.cpu().numpy()
+        sel = torch.from_numpy(np.stack([frames_of[r.future][idx[i]]
+                                         for i, r in enumerate(padded)]))
+        tokens = V.answer_phase_blip2(eng.model, sel.to(cuda), bd,
+                                      eng.decode_config, generator=gen)
+        answers = eng.tok.batch_decode(tokens.cpu().numpy())
+        for i, r in enumerate(padded):
+            if i and r is padded[i - 1]:
+                continue  # a pad row
+            assert replies[r.future].selected_frames == idx[i].tolist()
+            assert replies[r.future].answer == answers[i]
+    direct = dict(kernels.LAUNCHES)
+    assert direct["select_frames"] == batches  # kernel D in every batch
+    assert engine_launches == direct

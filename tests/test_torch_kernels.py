@@ -225,3 +225,79 @@ def test_mma_counters_reset_with_the_launch_counts():
     kernels.reset_launches()
     assert not any(kernels.LAUNCHES.values())
     assert not any(kernels.MMA_LAUNCHES.values())
+
+
+def test_counts_from_eight_threads_lose_no_launch():
+    """The serving engine launches from two threads; ``kernels.count`` must
+    not lose an update when the interpreter switches between a read and a
+    write (a short switch interval makes that switch frequent)."""
+    import sys
+    import threading
+
+    per_thread, threads = 10_000, 8
+    bodies = ("mma", "fma", None, "tile")
+    names = ("flash_fwd", "flash_fwd", "select_frames", "corr_lookup")
+    kernels.reset_launches()
+    start = threading.Barrier(threads)
+
+    def work(i):
+        start.wait()
+        for _ in range(per_thread):
+            kernels.count(names[i % 4], bodies[i % 4])
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work, args=(i,))
+                for i in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    n = per_thread * threads // 4
+    try:
+        assert kernels.LAUNCHES["flash_fwd"] == 2 * n
+        assert kernels.MMA_LAUNCHES["flash_fwd"] == n
+        assert kernels.LAUNCHES["select_frames"] == n
+        assert kernels.LAUNCHES["corr_lookup"] == n
+        assert kernels.TILE_LAUNCHES["corr_lookup"] == n
+        assert sum(kernels.LAUNCHES.values()) == per_thread * threads
+    finally:
+        kernels.reset_launches()
+
+
+def test_library_builds_once_under_concurrent_first_use(monkeypatch,
+                                                        tmp_path):
+    """Two threads at the first use of one kernel run one build and load
+    one library."""
+    import threading
+
+    builds = []
+    monkeypatch.setattr(kernels, "_LIBS", {})
+    monkeypatch.setattr(kernels, "_target",
+                        lambda name: tmp_path / f"lib{name}.so")
+
+    def fake_build(names):
+        builds.append(list(names))
+        for name in names:
+            (tmp_path / f"lib{name}.so").write_bytes(b"")
+
+    class FakeLib:
+        def __init__(self, path):
+            self.select_frames = lambda *a: 0
+
+    monkeypatch.setattr(kernels, "build_all", fake_build)
+    monkeypatch.setattr(kernels.ctypes, "CDLL", FakeLib)
+    got = []
+    pool = [threading.Thread(target=lambda: got.append(
+        kernels.library("select_frames"))) for _ in range(4)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in pool)
+    assert builds == [["select_frames"]]
+    assert len(got) == 4 and all(lib is got[0] for lib in got)

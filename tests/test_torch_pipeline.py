@@ -129,7 +129,9 @@ def test_port_imports_no_jax_and_runs_tiny_path():
         import sys
         import torch
         import videotgb_torch
-        from videotgb_torch import convert
+        from videotgb_torch import convert, serve
+        from videotgb_torch.data import tokenizer, transforms, video_io
+        from videotgb_torch.evalsuite import evaluate, inference
         from videotgb_torch.models import videotgb as V
         from videotgb_torch.ops.decode import DecodeConfig
         cfg = V.VideoTGBConfig.tiny()

@@ -19,6 +19,12 @@ The JAX package's probe kernels have their tools in ``tools/``:
 add + LayerNorm (``tools.lnprobe``) and ``csrc/flash_bshd.cu``
 (``tools.attnlayoutprobe``).
 
+``serve.ServingEngine`` serves it with dynamic batching (a select and an
+answer worker, each on its own CUDA stream on the card) and
+``evalsuite.inference`` / ``evalsuite.evaluate`` run the QA benchmarks and
+their judge, over the host modules of ``data/`` (tokenizers, video I/O,
+transforms).
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; there each kernel is replaced by its plain PyTorch version.
 Nothing CUDA-specific is built or imported when this package is imported.

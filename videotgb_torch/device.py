@@ -1,7 +1,9 @@
-"""Device choice and numeric flags shared by every entry point."""
+"""Device choice, numeric flags and per-step generators shared by every
+entry point."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +32,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if device.type == "cuda":
         configure_precision()
     return device
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The random stream of one batch: ``(seed, step)`` mixed by numpy's
+    ``SeedSequence`` into the 64-bit seed of a ``torch.Generator`` on
+    ``device``. It takes the place of the JAX package's
+    ``jax.random.fold_in(jax.random.key(seed), step)``; the draws match
+    JAX's in distribution only."""
+    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(mixed[0]))

@@ -159,9 +159,7 @@ def flash_forward_cuda(q, k, v, bias, scale):
         *_strides3(out), *b_strides, float(scale), _DTYPE_CODES[q.dtype],
         BODY_CODES[body], stream)
     kernels.check_launch("flash_fwd", rc)
-    kernels.LAUNCHES["flash_fwd"] += 1
-    if body == "mma":
-        kernels.MMA_LAUNCHES["flash_fwd"] += 1
+    kernels.count("flash_fwd", body)
     return out
 
 
@@ -240,9 +238,7 @@ def flash_backward_cuda(q, k, v, bias, g, scale, bias_needs_grad=True):
         *b_strides, float(scale), _DTYPE_CODES[q.dtype], BODY_CODES[body],
         stream)
     kernels.check_launch("flash_bwd", rc)
-    kernels.LAUNCHES["flash_bwd"] += 1
-    if body == "mma":
-        kernels.MMA_LAUNCHES["flash_bwd"] += 1
+    kernels.count("flash_bwd", body)
     dbias = None if ds is None else _reduce_to(ds, bias.shape, bias.dtype)
     return dq, dk, dv, dbias
 

@@ -254,10 +254,9 @@ def corr_lookup_cuda(pyramid_t, coords, radius: int = 4,
                          _DTYPE_CODES[out.dtype], ctypes.byref(encode_ns),
                          stream)
     kernels.check_launch("corr_lookup", rc)
-    kernels.LAUNCHES["corr_lookup"] += 1
-    if body == "tile":
-        kernels.TILE_LAUNCHES["corr_lookup"] += 1
-    ENCODE_NS["corr_lookup"] += encode_ns.value
+    kernels.count("corr_lookup", body)
+    with kernels.LOCK:
+        ENCODE_NS["corr_lookup"] += encode_ns.value
     return out
 
 

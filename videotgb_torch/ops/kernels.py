@@ -9,13 +9,19 @@ kernel is rebuilt. :func:`build_all` starts one ``nvcc`` per source, all at
 once.
 
 ``LAUNCHES`` holds one plain integer per kernel, the CUDA ones of
-``SOURCES`` and the Triton ones of ``TRITON_KERNELS``; a wrapper adds one
-where it launches its kernel and nowhere else. ``MMA_LAUNCHES`` counts, of
-the launches of kernels A, G and C, those that ran the tensor-core body
+``SOURCES`` and the Triton ones of ``TRITON_KERNELS``; a wrapper calls
+:func:`count` where it launches its kernel and nowhere else.
+``MMA_LAUNCHES`` counts, of the launches of kernels A, G and C, those that
+ran the tensor-core body
 (``csrc/flash_mma.cuh``, ``csrc/flash_bwd_mma.cuh``; the rest ran the
 CUDA-core body). ``TILE_LAUNCHES`` counts, of the launches of kernels B and
 E, those that ran the tile body (``csrc/corr_lookup_tile.cuh``; the rest of
 B's ran its gather body; E has no other).
+
+The serving engine launches from two threads at once, so the counts and
+the first-use builds of :func:`library` are guarded by one lock, ``LOCK``:
+a read-modify-write of a shared count is not atomic across threads, and
+two threads must not build one library at the same time.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -46,6 +53,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+LOCK = threading.RLock()
+_BODY_COUNTS = {"mma": MMA_LAUNCHES, "tile": TILE_LAUNCHES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -138,24 +147,41 @@ def build_all(names=None) -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if needed."""
+    """The loaded library of one kernel, built first if needed (once, when
+    several threads ask at the same time)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        target = _target(name)
-        if not target.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(target))
-        fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            target = _target(name)
+            if not target.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(target))
+            fn = getattr(lib, name)
+            fn.argtypes = _SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
 
 
+def count(name: str, body: str | None = None) -> None:
+    """Add one launch of kernel ``name``; ``body`` "mma" or "tile" also
+    adds it to ``MMA_LAUNCHES`` or ``TILE_LAUNCHES`` (any other body, or
+    None, to neither)."""
+    with LOCK:
+        LAUNCHES[name] += 1
+        per_body = _BODY_COUNTS.get(body)
+        if per_body is not None:
+            per_body[name] += 1
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, MMA_LAUNCHES, TILE_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    with LOCK:
+        for counts in (LAUNCHES, MMA_LAUNCHES, TILE_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
 
 
 # kernels B, E and H's C entries return this + the CUresult of a failed TMA

@@ -146,8 +146,9 @@ def _kernel_call(name, x, w_t, out_dtype, tile, *extra):
                             n, k, *extra, tile, ctypes.byref(encode_ns),
                             stream)
     kernels.check_launch(name, rc)
-    kernels.LAUNCHES[name] += 1
-    ENCODE_NS[name] += encode_ns.value
+    kernels.count(name)
+    with kernels.LOCK:
+        ENCODE_NS[name] += encode_ns.value
     return out
 
 

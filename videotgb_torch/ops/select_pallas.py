@@ -160,7 +160,7 @@ def select_frames_cuda(start_logits, end_logits, video_length, seed,
     lib = kernels.library("select_frames")
     stream = torch.cuda.current_stream(out.device).cuda_stream
     kernels.check_launch("select_frames", lib.select_frames(*args, stream))
-    kernels.LAUNCHES["select_frames"] += 1
+    kernels.count("select_frames")
     return out
 
 

@@ -78,9 +78,7 @@ def flash_bshd_cuda(q, k, v, scale):
                         float(scale), _DTYPE_CODES[q.dtype],
                         BODY_CODES[body], stream)
     kernels.check_launch("flash_bshd", rc)
-    kernels.LAUNCHES["flash_bshd"] += 1
-    if body == "mma":
-        kernels.MMA_LAUNCHES["flash_bshd"] += 1
+    kernels.count("flash_bshd", body)
     return out
 
 

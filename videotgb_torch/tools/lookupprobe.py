@@ -71,8 +71,7 @@ def blocked_lookup_cuda(pyramid_t, coords, radius: int = 4, qb: int = 128,
     rc = lib.corr_lookup_blocked(*args, qb, int(skip), tile.stage_bytes,
                                  _DTYPE_CODES[out.dtype], stream)
     kernels.check_launch("corr_lookup_blocked", rc)
-    kernels.LAUNCHES["corr_lookup_blocked"] += 1
-    kernels.TILE_LAUNCHES["corr_lookup_blocked"] += 1
+    kernels.count("corr_lookup_blocked", "tile")
     return out
 
 
