@@ -17,8 +17,10 @@ Phases, each fatal on failure (exit code 1):
    ``flash_body`` picks (tensor cores for aligned bf16, CUDA cores for the
    rest); timed on the tensor-core body beside the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
-   at the serving shape, the E2E ViT-g shape (32 images) and the T5-xl
-   encoder's (8, 32, 160, 64) with its (8, 32, 160, 160) f32 bias, as
+   at the serving shape, the E2E ViT-g shape (32 images), the T5-xl
+   encoder's (8, 32, 160, 64) with its (8, 32, 160, 160) f32 bias and the
+   Vicuna-7B prefill's (4, 32, 96, 224, 128) with its (4, 1, 96, 224) bias
+   (also checked at Sq = Skv = 160), as
    device time per call (calls captured in a CUDA graph: a call's host
    overhead exceeds the kernel's time);
 3. kernel B (RAFT correlation lookup) against its plain version at 16 pairs
@@ -118,7 +120,20 @@ Phases, each fatal on failure (exit code 1):
    the tensor-core body); every batch equals direct single-threaded phase
    calls on the same padded batch with its step's generator, indices and
    tokens bit for bit; latency percentiles, throughput, ``phase_ms``, how
-   much select(N+1) overlapped answer(N), peak memory.
+   much select(N+1) overlapped answer(N), peak memory;
+14. InstructBLIP-Vicuna-7B at flagship width (8.0B parameters in bf16,
+   built on the card without a ``device``; random weights from a seed) for
+   4 requests with 64-token prompts and 128 new tokens:
+   ``select_phase_blip2`` in "multi_modal" mode with the "ratio" rule ->
+   gather -> ``answer_phase_instructblip``, with exact launches (20 lookups
+   and 1 selection per select phase; 71 flash forwards per answer, 39 on
+   the ViT-g and 32 on the Vicuna prefill at (4, 32, 96, 224, 128); none in
+   a decode step), then ``generate_instructblip`` on the same batch and
+   noise seed, equal in frames and tokens; the wall time of the select
+   phase, ViT-g + Q-Former, the prefill and a decode step, and one decode
+   step traced (device time by kernel family); then the serving
+   engine with ``backbone="instructblip"`` (16 new tokens: a warm-up, 4
+   requests one at a time, a burst of 8), checked as in phase 13.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -491,6 +506,7 @@ def check_flash(card: str) -> dict:
         at the bf16 peak, the larger."""
         q, k, v = tensors
         nb, nh, sq, dh = q.shape
+        skv = k.shape[2]
         _, ran = body_of(q, k, v, bias)
         if ran != "mma":
             fail(f"flash {name}: ran the {ran} body, not mma")
@@ -501,9 +517,9 @@ def check_flash(card: str) -> dict:
         mask = None if bias is None else bias.to(q.dtype)
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=dh ** -0.5))
-        nbytes = 4 * q.numel() * q.element_size() + (
-            0 if bias is None else bias.numel() * bias.element_size())
-        flops = 4 * nb * nh * sq * sq * dh
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+            + (0 if bias is None else bias.numel() * bias.element_size())
+        flops = 4 * nb * nh * sq * skv * dh
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         log(f"  flash {name} [{ran} body]: kernel {ms:.4f} ms ({eager_ms:.4f}"
@@ -531,6 +547,25 @@ def check_flash(card: str) -> dict:
          "mma")
     timed("T5-xl encoder (8,32,160,64) bias (8,32,160,160)", t5_qkv,
           t5_bias)
+    # the Vicuna-7B prefill (InstructBLIP, phase 14): 32 visual + 64 prompt
+    # tokens into caches of 96 + 128 slots, head dim 128; q from the RoPE, k
+    # and v the cache buffers, the cache forward's (B,1,Sq,Skv) bias (k_pos
+    # <= q_pos, right-padded prompts, unwritten decode slots) broadcast
+    # over the 32 heads
+    for sq, skv in ((96, 224), (160, 160)):
+        pq, pk, pv = (torch.randn((4, 32, n, 128), generator=gen,
+                                  device=dev).to(torch.bfloat16)
+                      for n in (sq, skv, skv))
+        slot = torch.arange(skv, device=dev)
+        lens = torch.tensor([sq, sq - 8, sq - 16, sq - 63], device=dev)
+        prefill_bias = torch.where(
+            slot[None] <= torch.arange(sq, device=dev)[:, None], 0.0,
+            NEG_INF)[None, None] + torch.where(
+            slot[None] < lens[:, None], 0.0, NEG_INF)[:, None, None]
+        name = f"Vicuna prefill (4,32,{sq},{skv},128) bias (4,1,{sq},{skv})"
+        case(name, (pq, pk, pv), prefill_bias, "mma")
+        if skv > sq:
+            timed(name, (pq, pk, pv), prefill_bias)
     return {"name": "flash_fwd", "route": "cuda",
             "source": "videotgb_torch/csrc/flash_fwd.cu",
             "replaces": "videotgb_tpu/ops/attention.py:54",
@@ -2207,21 +2242,225 @@ def check_int8_tools(card: str) -> int:
     return got["bf16_mm"]
 
 
+# ------------------------------------------------ InstructBLIP-Vicuna path
+def vicuna_path(card: str) -> dict:
+    """Phase 14: InstructBLIP-Vicuna-7B at flagship width, built on the card
+    without a ``device`` (bf16 parameters, RAFT's convolutions in bf16 as in
+    phase 4), random weights from a seed, 4 requests: 64-token prompts
+    (right-padded to 64, 40 to 64 real tokens), 4 flow pairs, 32 candidate
+    frames at 224^2, 128 new tokens. (a) ``select_phase_blip2`` in
+    "multi_modal" mode with the "ratio" rule -> gather ->
+    ``answer_phase_instructblip``, with exact launches per phase (B 20 on
+    the tile body and D 1; A 39 on the ViT-g and 32 on the prefill, whose
+    96 x 224 scores pass the 128^2 dispatch rule; none in a decode step);
+    (b) ``flow_features`` + ``generate_instructblip`` on the same batch and
+    noise seed: the same frames and tokens as (a). Then the wall time of
+    each part, warm. Returns the launches of the counted run."""
+    import torch
+
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.ops.decode import DecodeConfig
+
+    dev = torch.device("cuda")
+    cfg = V.bf16_param_config(V.VideoTGBConfig.flagship("instructblip"))
+    cfg = dataclasses.replace(
+        cfg, raft=dataclasses.replace(cfg.raft, dtype=torch.bfloat16))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = V.VideoTGB(cfg, seed=0)
+    torch.cuda.synchronize()
+    if model.device.type != "cuda":
+        fail(f"VideoTGB without a device built on {model.device}")
+    llm, vit = cfg.instructblip.llm, cfg.vit
+    n_params = sum(p.numel() for p in model.parameters())
+    n_llm = sum(p.numel() for p in model.model.language_model.parameters())
+    log(f"  InstructBLIP-Vicuna-7B built on the card: {n_params / 1e9:.3f}B "
+        f"params ({n_llm / 1e9:.3f}B in the LLM), "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, in "
+        f"{time.perf_counter() - t0:.2f} s; random weights from seed 0")
+
+    b, n_flow, text_len, img = 4, 5, 64, vit.image_size
+    max_new = 128
+    gen = torch.Generator(device=dev).manual_seed(14)
+    frames_u8 = torch.randint(0, 256, (b, cfg.num_frames, img, img, 3),
+                              generator=gen, device=dev, dtype=torch.uint8)
+    fs = cfg.tgb.flow_size
+    flow_u8 = torch.randint(0, 256, (b, n_flow, fs, fs, 3), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    lengths = torch.tensor([64, 56, 48, 40], device=dev)
+    mask = (torch.arange(text_len, device=dev)[None]
+            < lengths[:, None]).float()
+    batch = {
+        "flow_mask": torch.ones((b, n_flow + 1), device=dev),
+        "video_length": torch.full((b,), n_flow - 1, device=dev),
+        "sampler_question_ids": torch.randint(100, 5000, (b, text_len),
+                                              generator=gen, device=dev),
+        "sampler_question_mask": mask,
+        "question_ids": torch.randint(100, 5000, (b, text_len),
+                                      generator=gen, device=dev),
+        "question_mask": mask}
+    batch["qformer_input_ids"] = batch["sampler_question_ids"]
+    batch["qformer_attention_mask"] = mask
+    dcfg = DecodeConfig(max_new_tokens=max_new,
+                        eos_token_id=llm.eos_token_id,
+                        pad_token_id=llm.pad_token_id)
+    sel_gen = torch.Generator(device=dev)
+    mean = torch.tensor((0.48145466, 0.4578275, 0.40821073), device=dev)
+    std = torch.tensor((0.26862954, 0.26130258, 0.27577711), device=dev)
+    times = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    def drive():
+        snaps = {}
+        sel_gen.manual_seed(7)
+        cand = run("select_phase_blip2 (multi_modal, ratio)",
+                   lambda: V.select_phase_blip2(
+                       model, flow_u8, batch, generator=sel_gen,
+                       mode="multi_modal", rescale="ratio"))
+        snaps["select"] = dict(kernels.LAUNCHES)
+        sel = frames_u8[torch.arange(b, device=dev)[:, None], cand]
+        tokens = run("answer_phase_instructblip (128 new tokens)",
+                     lambda: V.answer_phase_instructblip(model, sel, batch,
+                                                         dcfg))
+        snaps["answer"] = dict(kernels.LAUNCHES)
+        flow = model.flow_features(flow_u8.float())
+        full = dict(batch, flow=flow,
+                    frames=(frames_u8.float() / 255.0 - mean) / std)
+        sel_gen.manual_seed(7)
+        tokens_g, cand_g = run("generate_instructblip (128 new tokens)",
+                               lambda: V.generate_instructblip(
+                                   model, full, dcfg, generator=sel_gen))
+        snaps["end"] = dict(kernels.LAUNCHES)
+        return cand, sel, tokens, tokens_g, cand_g, snaps
+
+    drive()  # cold: plans, lazy loading, the allocator's first blocks
+    kernels.reset_launches()
+    cand, sel, tokens, tokens_g, cand_g, snaps = drive()
+    end = snaps["end"]
+    for name, toks in (("two-phase", tokens), ("generate_instructblip",
+                                               tokens_g)):
+        if tuple(toks.shape) != (b, max_new) or int(toks.min()) < 0 or \
+                int(toks.max()) >= llm.vocab_size:
+            fail(f"Vicuna {name}: tokens {tuple(toks.shape)} outside "
+                 "(B, 128) or the vocabulary")
+    if tuple(cand.shape) != (b, cfg.nframe) or int(cand.min()) < 0 or \
+            int(cand.max()) >= cfg.num_frames:
+        fail(f"Vicuna cand_index {tuple(cand.shape)} out of range")
+    check_bodies("the Vicuna serving run", end)
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    prefill = llm.num_layers  # 96 x (96 + 128) > 128^2
+    per_phase = {
+        "select_phase_blip2 (multi_modal, ratio)": dict(snaps["select"]),
+        "answer_phase_instructblip": {
+            k: snaps["answer"][k] - snaps["select"][k] for k in end},
+        "flow_features + generate_instructblip": {
+            k: end[k] - snaps["answer"][k] for k in end}}
+    expected = {
+        "select_phase_blip2 (multi_modal, ratio)": {
+            **zero, "corr_lookup": cfg.raft.iters, "select_frames": 1},
+        "answer_phase_instructblip": {
+            **zero, "flash_fwd": vit.num_layers + prefill},
+        "flow_features + generate_instructblip": {
+            **zero, "corr_lookup": cfg.raft.iters, "select_frames": 1,
+            "flash_fwd": vit.num_layers + prefill}}
+    for phase, want in expected.items():
+        log(f"  launches in {phase}: {per_phase[phase]} (expected {want})")
+        if per_phase[phase] != want:
+            fail(f"Vicuna launch counts of {phase}: {per_phase[phase]} != "
+                 f"{want}")
+    if not torch.equal(cand_g, cand) or not torch.equal(tokens_g, tokens):
+        fail("generate_instructblip and the two phases gave other frames or "
+             "tokens from equally seeded generators")
+    eos = (tokens == llm.eos_token_id).any(dim=1).tolist()
+    log(f"  generate_instructblip equals the two phases: frames "
+        f"{cand.tolist()}, all {b} x {max_new} greedy tokens (rows ending in "
+        f"eos: {eos})")
+    for name, ms in times.items():
+        log(f"  wall {name}: {ms:.2f} ms warm on {card}")
+
+    # where the time goes, warm: select, ViT-g + Q-Former, the prefill, one
+    # decode step
+    parts = {}
+
+    def part(name, fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        parts[name] = (time.perf_counter() - t) * 1e3 / reps
+        return out
+
+    ib = model.model
+    with torch.no_grad():
+        part("select (RAFT + TGB multi_modal + kernel D)",
+             lambda: V.select_phase_blip2(model, flow_u8, batch,
+                                          generator=sel_gen,
+                                          mode="multi_modal",
+                                          rescale="ratio"))
+        visual = part("ViT-g + Q-Former + projection (16 images)",
+                      lambda: V._encode_selected_u8(model, sel, batch))
+        embeds, emask = ib.decoder_inputs(visual, batch["question_ids"],
+                                          batch["question_mask"])
+        s = embeds.shape[1]
+        pos = (emask.cumsum(dim=1).long() - 1).clamp(min=0)
+        valid = torch.cat([emask, torch.zeros((b, max_new), device=dev)], 1)
+        caches = model.init_llama_caches(b, s + max_new)
+        kernels.reset_launches()
+        part("LLaMA prefill (4 x 96 into 224 slots)", lambda: model.llama_step(
+            inputs_embeds=embeds, positions=pos, caches=caches,
+            cache_index=0, cache_positions_valid=valid), reps=1)
+        if kernels.LAUNCHES["flash_fwd"] != 2 * prefill:
+            fail(f"the prefill launched {kernels.LAUNCHES['flash_fwd']} "
+                 f"flash_fwd in 2 calls, not {2 * prefill}")
+        valid[:, s] = 1.0
+        tok = tokens[:, :1]
+        step_pos = lengths[:, None] + 32
+        part("LLaMA decode step (1 token, 225 slots)", lambda: model.llama_step(
+            tokens=tok, positions=step_pos, caches=caches, cache_index=s,
+            cache_positions_valid=valid), reps=16)
+    for name, ms in parts.items():
+        log(f"  component {name}: {ms:.2f} ms on {card}")
+    with torch.no_grad():
+        device_breakdown("Vicuna decode step (1 token, 225 slots)",
+                         lambda: model.llama_step(
+                             tokens=tok, positions=step_pos, caches=caches,
+                             cache_index=s, cache_positions_valid=valid),
+                         card)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  peak device memory {peak_gib:.2f} GiB on {card}")
+    log("  the Vicuna rows are random-weight runs (seed 0): no released "
+        "Vicuna / InstructBLIP weights are in the repository")
+    del model, caches
+    return dict(end)
+
+
 # ---------------------------------------------------------- serving engine
-def serving_engine(card: str) -> dict:
-    """Phase 13: the port's ``ServingEngine`` at flagship width (bf16
-    residency, batch 4, 4 flow pairs, 16 new tokens), fed through
-    ``submit`` with random uint8 frames from a seed: a warm-up request, 4
-    requests one at a time, a burst of 8 (two identical pairs among them)
-    and 8 Poisson arrivals at 4 req/s. Its two workers launch kernels B and
-    D (select) and A (answer) from two threads on two streams. Every future
-    must resolve; the launch counts over the engine's run must be the
-    batches times (B 20 on the tile body, D 1, A 39 on the tensor-core
-    body); then every batch is run again by direct ``select_phase_blip2``
-    + gather + ``answer_phase_blip2`` calls on the same padded batch with
-    the generator of its step, and its indices and tokens must be equal
-    bit for bit (identical requests agree where their rows' noise picks
-    the same frames). Returns the engine's launches per kernel."""
+def serving_engine(card: str, backbone: str = "blip2",
+                   arrivals: int = 8) -> dict:
+    """Phases 13 and 14: the port's ``ServingEngine`` of ``backbone`` at
+    flagship width (bf16 residency, batch 4, 4 flow pairs, 16 new tokens),
+    fed through ``submit`` with random uint8 frames from a seed: a warm-up
+    request, 4 requests one at a time, a burst of 8 (two identical pairs
+    among them) and ``arrivals`` Poisson arrivals at 4 req/s. Its two
+    workers launch kernels B and D (select) and A (answer) from two threads
+    on two streams. Every future must resolve; the launch counts over the
+    engine's run must be the batches times (B 20 on the tile body, D 1, A
+    39 on the tensor-core body); then every batch is run again by direct
+    ``select_phase_blip2`` + gather + answer-phase calls (the engine's
+    pair for the backbone) on the same padded batch with the generator of
+    its step, and its indices and tokens must be equal bit for bit
+    (identical requests agree where their rows' noise picks the same
+    frames). Returns the engine's launches per kernel."""
     import statistics
 
     import numpy as np
@@ -2236,7 +2475,7 @@ def serving_engine(card: str) -> dict:
     t0 = time.perf_counter()
     engine = serve.ServingEngine(
         "random:flagship", preset="flagship", batch_size=4, flow_frames=4,
-        max_new_tokens=16, max_delay_ms=30)
+        max_new_tokens=16, max_delay_ms=30, backbone=backbone)
     torch.cuda.synchronize()
     cfg = engine.cfg
     n_params = sum(p.numel() for p in engine.model.parameters())
@@ -2249,7 +2488,9 @@ def serving_engine(card: str) -> dict:
     # phase up to its stream's completion
     rec = {"padded": [], "steps": [], "select": [], "answer": []}
     host_batch, make_gen = engine.host_batch, serve.step_generator
-    select, answer = serve.select_phase_blip2, serve.answer_phase_blip2
+    answer_name = ("answer_phase_instructblip" if engine.decoder_only
+                   else "answer_phase_blip2")
+    select, answer = serve.select_phase_blip2, getattr(serve, answer_name)
 
     def rec_batch(padded):
         rec["padded"].append(list(padded))
@@ -2259,10 +2500,10 @@ def serving_engine(card: str) -> dict:
         rec["steps"].append(step)
         return make_gen(seed, step, device)
 
-    def rec_select(model, flow_u8, bd, generator=None):
+    def rec_select(model, flow_u8, bd, generator=None, **kw):
         state = generator.get_state()
         t = time.perf_counter()
-        cand = select(model, flow_u8, bd, generator=generator)
+        cand = select(model, flow_u8, bd, generator=generator, **kw)
         torch.cuda.current_stream().synchronize()
         rec["select"].append({"t": (t, time.perf_counter()), "state": state,
                               "cand": cand.cpu()})
@@ -2278,9 +2519,9 @@ def serving_engine(card: str) -> dict:
 
     engine.host_batch = rec_batch
     serve.step_generator, serve.select_phase_blip2 = rec_gen, rec_select
-    serve.answer_phase_blip2 = rec_answer
+    setattr(serve, answer_name, rec_answer)
 
-    img, fs = cfg.blip2.vit.image_size, cfg.tgb.flow_size
+    img, fs = cfg.vit.image_size, cfg.tgb.flow_size
     rng = np.random.default_rng(0)
 
     def request(i):
@@ -2322,7 +2563,7 @@ def serving_engine(card: str) -> dict:
         burst_reqs.insert(5, burst_reqs[4])
         t_load = time.perf_counter()
         loaded = [submit(r) for r in burst_reqs]
-        gaps = np.random.default_rng(1).exponential(1 / 4.0, 8)
+        gaps = np.random.default_rng(1).exponential(1 / 4.0, arrivals)
         for i, gap in enumerate(gaps):
             time.sleep(float(gap))
             loaded.append(submit(request(20 + i)))
@@ -2334,7 +2575,7 @@ def serving_engine(card: str) -> dict:
         engine.close()
         engine.host_batch = host_batch
         serve.step_generator, serve.select_phase_blip2 = make_gen, select
-        serve.answer_phase_blip2 = answer
+        setattr(serve, answer_name, answer)
     if engine._worker.is_alive() or engine._answer_worker.is_alive():
         fail("serving engine: a worker outlived close()")
     launches = dict(kernels.LAUNCHES)
@@ -2342,7 +2583,7 @@ def serving_engine(card: str) -> dict:
 
     batches = stats["batches"]
     per_batch = {"corr_lookup": cfg.raft.iters, "select_frames": 1,
-                 "flash_fwd": cfg.blip2.vit.num_layers}
+                 "flash_fwd": cfg.vit.num_layers}
     want = {**dict.fromkeys(kernels.LAUNCHES, 0),
             **{k: v * batches for k, v in per_batch.items()}}
     log(f"  launches over the engine's {batches} batches: {launches} "
@@ -2366,7 +2607,8 @@ def serving_engine(card: str) -> dict:
         flow_u8, bd = engine.host_batch(padded)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        cand = V.select_phase_blip2(model, flow_u8, bd, generator=gen)
+        cand = V.select_phase_blip2(model, flow_u8, bd, generator=gen,
+                                    **engine.select_kw)
         torch.cuda.synchronize()
         direct["select"].append((time.perf_counter() - t) * 1e3)
         if not torch.equal(cand.cpu(), rec["select"][k]["cand"]):
@@ -2378,13 +2620,13 @@ def serving_engine(card: str) -> dict:
         sel = sel.to(dev)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        tokens = V.answer_phase_blip2(model, sel, bd, engine.decode_config,
-                                      generator=gen)
+        tokens = getattr(V, answer_name)(model, sel, bd,
+                                         engine.decode_config, generator=gen)
         torch.cuda.synchronize()
         direct["answer"].append((time.perf_counter() - t) * 1e3)
         if not torch.equal(tokens.cpu(), rec["answer"][k]["tokens"]):
             fail(f"batch {k} (step {step}): tokens differ from a direct "
-                 "answer_phase_blip2 call")
+                 f"{answer_name} call")
         answers = engine.tok.batch_decode(tokens.cpu().numpy())
         for i, r in enumerate(padded):
             if i and r is padded[i - 1]:
@@ -2445,7 +2687,7 @@ def serving_engine(card: str) -> dict:
         f"another: 4 / (select + answer alone) = "
         f"{4e3 / (statistics.median(alone) + statistics.median(ans_alone)):.3f}"
         f" req/s) on {card}")
-    log(f"  loaded (burst of 8 + 8 Poisson arrivals at 4 req/s, "
+    log(f"  loaded (burst of 8 + {arrivals} Poisson arrivals at 4 req/s, "
         f"{batches - n_seq_batches} batches of "
         f"{[len({id(r) for r in p}) for p in rec['padded'][n_seq_batches:]]}"
         f" requests): latency_ms p50 / p90 / p99 {percentiles(loaded_lat)}, "
@@ -2545,9 +2787,21 @@ def main() -> None:
     served = serving_engine(card)
     for kern in (flash, lookup, select):
         kern["launches"] += served[kern["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    log("phase 14: InstructBLIP-Vicuna-7B serving, 4 requests, then its "
+        "serving engine")
+    vicuna = vicuna_path(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vicuna_served = serving_engine(card, backbone="instructblip", arrivals=0)
+    for kern in (flash, lookup, select):
+        kern["launches"] += vicuna[kern["name"]] + vicuna_served[kern["name"]]
     done = time.perf_counter()
-    log(f"phases 1-13 ran in {done - t_run:.1f} s, phase 12 in "
-        f"{t13 - t12:.1f} s, phase 13 in {done - t13:.1f} s")
+    log(f"phases 1-14 ran in {done - t_run:.1f} s, phase 12 in "
+        f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
+        f"{done - t14:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

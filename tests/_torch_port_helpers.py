@@ -25,29 +25,41 @@ B = 2
 
 
 def _f32(cfg, f32):
-    b = cfg.blip2
-    blip2 = dataclasses.replace(
-        b, vit=dataclasses.replace(b.vit, **f32),
-        qformer=dataclasses.replace(b.qformer, **f32),
-        t5=dataclasses.replace(b.t5, **f32))
-    return dataclasses.replace(cfg, blip2=blip2,
-                               tgb=dataclasses.replace(cfg.tgb, **f32))
+    def rep(sub):
+        return dataclasses.replace(sub, **f32)
+
+    blip2, iblip = cfg.blip2, cfg.instructblip
+    if blip2 is not None:
+        blip2 = dataclasses.replace(blip2, vit=rep(blip2.vit),
+                                    qformer=rep(blip2.qformer),
+                                    t5=rep(blip2.t5))
+    if iblip is not None:
+        iblip = dataclasses.replace(iblip, vit=rep(iblip.vit),
+                                    qformer=rep(iblip.qformer),
+                                    llm=rep(iblip.llm))
+    return dataclasses.replace(cfg, blip2=blip2, instructblip=iblip,
+                               tgb=rep(cfg.tgb))
 
 
-def jax_tiny_f32() -> JV.VideoTGBConfig:
-    return _f32(JV.VideoTGBConfig.tiny(),
+def jax_tiny_f32(backbone="blip2") -> JV.VideoTGBConfig:
+    return _f32(JV.VideoTGBConfig.tiny(backbone),
                 dict(dtype=jnp.float32, param_dtype=jnp.float32))
 
 
-def torch_tiny_f32() -> TV.VideoTGBConfig:
-    return _f32(TV.VideoTGBConfig.tiny(),
+def torch_tiny_f32(backbone="blip2") -> TV.VideoTGBConfig:
+    return _f32(TV.VideoTGBConfig.tiny(backbone),
                 dict(dtype=torch.float32, param_dtype=torch.float32))
+
+
+def image_size(cfg) -> int:
+    """The ViT input size of either package's config, either backbone."""
+    return (cfg.blip2 or cfg.instructblip).vit.image_size
 
 
 def make_inputs(cfg, seed=0):
     """numpy inputs of the tiny pipeline, made from ``seed``."""
     rng = np.random.default_rng(seed)
-    img = cfg.blip2.vit.image_size
+    img = image_size(cfg)
     fs = cfg.tgb.flow_size
     return {
         "frames_u8": rng.integers(0, 255, (B, cfg.num_frames, img, img, 3),
@@ -91,7 +103,7 @@ def jax_params(jmodel, jcfg, seed=0):
     ``{"params": ...}`` tree of jnp arrays (shapes from ``jax.eval_shape``
     of its ``init_pipeline``: nothing is compiled)."""
     fs = jcfg.tgb.flow_size
-    img = jcfg.blip2.vit.image_size
+    img = image_size(jcfg)
     x = make_inputs(jcfg, seed)
     args = (jnp.zeros((1, jcfg.num_frames, img, img, 3)),
             jnp.zeros((1, L_FLOW, fs, fs, 2)),
@@ -109,9 +121,9 @@ class Pair:
     """The tiny JAX VideoTGB with its params, and the port's VideoTGB on the
     CPU with the same weights."""
 
-    def __init__(self, seed=0):
-        self.jcfg = jax_tiny_f32()
-        self.tcfg = torch_tiny_f32()
+    def __init__(self, seed=0, backbone="blip2"):
+        self.jcfg = jax_tiny_f32(backbone)
+        self.tcfg = torch_tiny_f32(backbone)
         self.jmodel = JV.VideoTGB(self.jcfg)
         self.inputs = make_inputs(self.jcfg, seed)
         self.params = jax_params(self.jmodel, self.jcfg, seed)
@@ -175,8 +187,9 @@ def f32_tiny_presets(monkeypatch):
             j_tiny(backbone), dict(dtype=jnp.float32,
                                    param_dtype=jnp.float32))))
     monkeypatch.setattr(TV.VideoTGBConfig, "tiny", classmethod(
-        lambda cls: _f32(t_tiny(), dict(dtype=torch.float32,
-                                        param_dtype=torch.float32))))
+        lambda cls, backbone="blip2": _f32(
+            t_tiny(backbone), dict(dtype=torch.float32,
+                                   param_dtype=torch.float32))))
 
 
 def gumbel_like(key, start_logits, top_k):

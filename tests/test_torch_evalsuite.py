@@ -84,6 +84,20 @@ def _argv(qa_assets, out_dir, *extra):
 
 @pytest.mark.parametrize("mode", ["fixed", "timeline"])
 def test_run_inference_matches_jax(qa_assets, tmp_path, monkeypatch, mode):
+    _cli_matches_jax(qa_assets, tmp_path, monkeypatch, mode, "blip2")
+
+
+@pytest.mark.parametrize("backbone, mode", [("instructblip", "timeline"),
+                                            ("instructblip_t5", "fixed")])
+def test_run_inference_instructblip_matches_jax(qa_assets, tmp_path,
+                                                monkeypatch, backbone, mode):
+    """Vicuna (its eos / pad, ``generate_instructblip``) and the
+    instruction-aware T5 variant: the JAX CLI's rows."""
+    _cli_matches_jax(qa_assets, tmp_path, monkeypatch, mode, backbone)
+
+
+def _cli_matches_jax(qa_assets, tmp_path, monkeypatch, mode, backbone):
+    """Both CLIs on the fixture's videos: the same JSONL rows."""
     from videotgb_tpu.data import native
 
     f32_tiny_presets(monkeypatch)
@@ -91,7 +105,7 @@ def test_run_inference_matches_jax(qa_assets, tmp_path, monkeypatch, mode):
     monkeypatch.setattr(native, "available", lambda: False)
     flags = ["--batch_size", "2", "--flow_frames", "3", "--max_new_tokens",
              "4", "--do_sample", "0", "--bf16_params", "0", "--flow_mode",
-             mode]
+             mode, "--backbone", backbone]
 
     # the port: the JAX weights, and the JAX draws of the batch's key
     load = TI.load_model
@@ -160,11 +174,18 @@ def test_load_model_honours_flags_and_refuses_what_is_not_ported():
         SimpleNamespace(**dict(base, nframe=3, flow_size=48)), device="cpu")
     assert cfg.nframe == 3 and cfg.tgb.flow_size == 48
     assert model.config is cfg
+    for backbone in ("instructblip", "instructblip_t5"):
+        model, cfg = TI.load_model(
+            SimpleNamespace(**dict(base, backbone=backbone)), device="cpu")
+        assert cfg == TV.VideoTGBConfig.tiny(backbone)
+        assert cfg.instruction_aware
+        for change, match in ((dict(model_path="/ckpt"), "queue 1 item 4"),
+                              (dict(lora=1), "queue 1 item 5")):
+            with pytest.raises(NotImplementedError, match=match):
+                TI.load_model(SimpleNamespace(
+                    **dict(base, backbone=backbone, **change)), device="cpu")
     for change, match in ((dict(model_path="/ckpt"), "queue 1 item 4"),
-                          (dict(lora=1), "queue 1 item 5"),
-                          (dict(backbone="instructblip"), "queue 1 item 6"),
-                          (dict(backbone="instructblip_t5"),
-                           "queue 1 item 6")):
+                          (dict(lora=1), "queue 1 item 5")):
         with pytest.raises(NotImplementedError, match=match):
             TI.load_model(SimpleNamespace(**dict(base, **change)),
                           device="cpu")

@@ -459,6 +459,79 @@ def test_tiny_pipeline_on_the_card_matches_the_cpu(cuda):
     assert float((got == want).float().mean()) >= 0.75  # near-tie argmax
 
 
+def _prefill_bias(lengths, s, slots, dev):
+    """The Vicuna cache forward's (B, 1, S, slots) bias: k_pos <= q_pos and
+    the prompt's right padding and the unwritten decode slots masked."""
+    keys = torch.arange(slots, device=dev)
+    causal = torch.where(keys[None] <= torch.arange(s, device=dev)[:, None],
+                         0.0, NEG_INF)
+    valid = (keys[None] < lengths[:, None]).float()
+    return causal[None, None] + make_padding_bias(valid)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_mma_body_at_the_vicuna_prefill_shape(cuda):
+    """Kernel A as the Vicuna-7B prefill launches it: (4, 32, 96, 224, 128),
+    q a strided view, k/v the contiguous cache buffers, a per-batch (4, 1,
+    96, 224) bias broadcast over the heads (stride 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    b, h, sq, skv, d = 4, 32, 96, 224, 128
+    q = _strided(b, h, sq, d, torch.bfloat16, gen, cuda)
+    k, v = (torch.randn((b, h, skv, d), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([96, 80, 64, 33], device=cuda)
+    bias = _prefill_bias(lengths, sq, skv, cuda)
+    got = _launch_a(q, k, v, bias, "mma")
+    _close(got, dot_product_attention(q, k, v, bias), TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_vicuna_phases_launch_counts_at_small_width(cuda):
+    """The Vicuna path at ``small`` width in bf16: the select phase in
+    "multi_modal" / "ratio" launches B per refine and D once; the answer
+    phase A once per ViT layer, and once per LLaMA layer on the prefill
+    exactly when 96 * (96 + max_new_tokens) > 128^2 (max_new_tokens >=
+    75); the decode steps none."""
+    cfg = V.bf16_param_config(V.VideoTGBConfig.small("instructblip"))
+    model = V.VideoTGB(cfg, device=cuda, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, text_len = 2, 64
+    flow = torch.randint(0, 256, (b, 5, cfg.tgb.flow_size, cfg.tgb.flow_size,
+                                  3), generator=g, device=cuda,
+                         dtype=torch.uint8)
+    frames = torch.randint(0, 256, (b, cfg.nframe, 224, 224, 3), generator=g,
+                           device=cuda, dtype=torch.uint8)
+    ids = torch.randint(100, 5000, (b, text_len), generator=g, device=cuda)
+    mask = torch.ones((b, text_len), device=cuda)
+    mask[1, 40:] = 0
+    batch = {"flow_mask": torch.ones((b, 6), device=cuda),
+             "video_length": torch.full((b,), 4, device=cuda),
+             "sampler_question_ids": ids, "sampler_question_mask": mask,
+             "question_ids": ids, "question_mask": mask,
+             "qformer_input_ids": ids, "qformer_attention_mask": mask}
+    kernels.reset_launches()
+    cand = V.select_phase_blip2(model, flow, batch, generator=g,
+                                mode="multi_modal", rescale="ratio")
+    assert dict(kernels.LAUNCHES, corr_lookup=0, select_frames=0) == \
+        dict.fromkeys(kernels.LAUNCHES, 0)
+    assert kernels.LAUNCHES["corr_lookup"] == cfg.raft.iters
+    assert kernels.LAUNCHES["select_frames"] == 1
+    assert cand.shape == (b, cfg.nframe) and int(cand.max()) < cfg.num_frames
+    llm = cfg.instructblip.llm
+    for max_new, prefill in ((74, 0), (75, llm.num_layers)):
+        kernels.reset_launches()
+        tokens = V.answer_phase_instructblip(
+            model, frames, batch, DecodeConfig(
+                max_new_tokens=max_new, eos_token_id=llm.eos_token_id,
+                pad_token_id=llm.pad_token_id))
+        assert tokens.shape == (b, max_new)
+        assert 0 <= int(tokens.min()) and int(tokens.max()) < llm.vocab_size
+        want = {**dict.fromkeys(kernels.LAUNCHES, 0),
+                "flash_fwd": cfg.instructblip.vit.num_layers + prefill}
+        assert dict(kernels.LAUNCHES) == want, max_new
+        assert kernels.MMA_LAUNCHES["flash_fwd"] == want["flash_fwd"]
+
+
 @pytest.mark.gpu
 def test_tiny_e2e_tgb_selection_on_the_card_launches_kernel_d(cuda):
     """The E2E recipe's "tgb" selection on the card is one launch of kernel

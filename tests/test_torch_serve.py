@@ -12,6 +12,7 @@ carried into the port's model with ``videotgb_torch.convert``. The JAX engine's 
 captured and its Gumbel draws handed to the port's ``select_frames``, as
 ``tests/test_torch_pipeline.py::_noise`` does."""
 
+import contextlib
 import dataclasses
 import json
 import threading
@@ -41,19 +42,21 @@ ENGINE = dict(preset="tiny", batch_size=2, flow_frames=3, max_new_tokens=4,
               max_delay_ms=200.0, bf16_params=False)
 
 
-@pytest.fixture(scope="module")
-def engines():
-    """(JAX engine, port engine, selection keys): the JAX engine's keys are
-    queued as it selects, and the port's next selection takes the next one
-    (none queued: the port draws from its own generator)."""
+@contextlib.contextmanager
+def engine_pair(backbone="blip2"):
+    """(JAX engine, port engine, selection keys) of ``backbone``: the JAX
+    engine's keys are queued as it selects, and the port's next selection
+    takes the next one (none queued: the port draws from its own
+    generator)."""
     from videotgb_tpu.evalsuite import inference as jinference
     from videotgb_tpu.serve import ServingEngine
 
     with pytest.MonkeyPatch.context() as mp:
         f32_tiny_presets(mp)
         mp.setattr(jinference, "load_model", jax_load_model_seeded)
-        jeng = ServingEngine("random:tiny", **ENGINE)
-        peng = TS.ServingEngine("random:tiny", device="cpu", **ENGINE)
+        jeng = ServingEngine("random:tiny", backbone=backbone, **ENGINE)
+        peng = TS.ServingEngine("random:tiny", backbone=backbone,
+                                device="cpu", **ENGINE)
         load_flax_params(peng.model, jax.device_get(jeng.params))
         keys = []
         select = jeng._select
@@ -74,14 +77,22 @@ def engines():
                           **kw)
 
         mp.setattr(peng.model, "select_frames", port_select)
-        yield jeng, peng, keys
-        jeng.close()
-        peng.close()
+        try:
+            yield jeng, peng, keys
+        finally:
+            jeng.close()
+            peng.close()
+
+
+@pytest.fixture(scope="module")
+def engines():
+    with engine_pair() as pair:
+        yield pair
 
 
 def _inputs(eng, seed=0):
     rng = np.random.default_rng(seed)
-    image = eng.cfg.blip2.vit.image_size
+    image = eng.cfg.vit.image_size
     fs = eng.cfg.tgb.flow_size
     frames = rng.integers(0, 255, (eng.cfg.num_frames, image, image, 3),
                           np.uint8)
@@ -89,12 +100,11 @@ def _inputs(eng, seed=0):
     return frames, flow
 
 
-def test_engine_matches_the_jax_engine_request_by_request(engines):
+def _request_by_request(jeng, peng, keys, n=4):
     """One request at a time (each its own batch, padded by repeating it):
-    the same frames and the same answer as the JAX engine."""
-    jeng, peng, keys = engines
+    the same frames and the same answer from both engines."""
     assert not keys
-    for i in range(4):
+    for i in range(n):
         frames, flow = _inputs(peng, seed=100 + i)
         question = ["what happens?", "who is there", "", "why " * 30][i]
         want = jeng.submit(frames, flow, question).result(timeout=600)
@@ -103,6 +113,19 @@ def test_engine_matches_the_jax_engine_request_by_request(engines):
         assert not keys
         assert got.selected_frames == want.selected_frames, i
         assert got.answer == want.answer, i
+
+
+def test_engine_matches_the_jax_engine_request_by_request(engines):
+    _request_by_request(*engines)
+
+
+def test_instructblip_engine_matches_the_jax_engine():
+    """InstructBLIP-Vicuna: TGB "multi_modal" with the "ratio" rule, the
+    instruction-aware Q-Former reading the question, a decoder-only answer
+    with Vicuna's eos / pad; right-padded prompts of different lengths."""
+    with engine_pair("instructblip") as (jeng, peng, keys):
+        assert peng.decoder_only and peng.decode_config.eos_token_id == 2
+        _request_by_request(jeng, peng, keys, n=3)
 
 
 class Batches:
@@ -327,14 +350,15 @@ def test_bf16_residency_by_default_and_f32_opt_out():
 
 @pytest.mark.parametrize("kw, match", [
     (dict(mesh="dp=2,tp=2"), "queue 1 item 7"),
-    (dict(backbone="instructblip"), "queue 1 item 6"),
-    (dict(backbone="instructblip_t5"), "queue 1 item 6"),
+    (dict(mesh="dp=2,tp=2", backbone="instructblip"), "queue 1 item 7"),
+    (dict(mesh="dp=2,tp=2", backbone="instructblip_t5"), "queue 1 item 7"),
 ])
 def test_what_the_port_lacks_raises(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         TS.ServingEngine("random:tiny", device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TS.ServingEngine("/some/checkpoint", device="cpu")
+        TS.ServingEngine("/some/checkpoint", device="cpu",
+                         backbone=kw.get("backbone", "blip2"))
 
 
 def test_engine_wants_cuda_without_a_device(monkeypatch):

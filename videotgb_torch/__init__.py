@@ -1,8 +1,9 @@
 """VideoTGB in PyTorch for NVIDIA Hopper (H100).
 
-A port of the BLIP2-Flan-T5 video-QA serving path of ``videotgb_tpu``
-(RAFT optical flow -> Temporal Grounding Bridge span selection -> ViT-g ->
-Q-Former -> Flan-T5 generation) and of its TG and E2E training recipes
+A port of the video-QA serving paths of ``videotgb_tpu`` (RAFT optical
+flow -> Temporal Grounding Bridge span selection -> ViT-g -> Q-Former ->
+Flan-T5 or, through the instruction-aware Q-Former, Vicuna-7B generation)
+and of its BLIP2-Flan-T5 TG and E2E training recipes
 (``training/``, ``train.py``). The hot spots that the JAX package ran as
 Pallas TPU kernels run here as CUDA C++ kernels written for ``sm_90a``
 (``csrc/``), built with ``nvcc`` on first use:

@@ -11,13 +11,18 @@ module names, so the mapping is:
 * norm ``scale`` and embedding ``embedding`` -> ``weight``;
 * RAFT's frozen batch norms ``normN/norm/{scale,bias,mean,var}`` ->
   ``normN.{weight,bias,running_mean,running_var}``;
-* per-layer scopes ``layer_{i}`` (TGB, ViT, Q-Former) -> ``layers.{i}``,
+* per-layer scopes ``layer_{i}`` (TGB, ViT, Q-Former, LLaMA) ->
+  ``layers.{i}``,
   T5's ``encoder_{i}`` / ``decoder_{i}`` -> ``encoder_blocks.{i}`` /
   ``decoder_blocks.{i}``;
 * everything else (biases, ``bos``/``eos``, ``cls_token``,
   ``position_embedding(s)``, ``query_tokens``, ``rel_embedding``) by name.
 
-Trees built with ``scan_layers`` (stacked layer axes) are not supported.
+The InstructBLIP-Vicuna tree needs no rule of its own: LLaMA's
+``embed_tokens/embedding``, the RMS norms' ``scale``, the bias-free
+projections' ``kernel`` and ``language_model/layer_{i}`` all fall under the
+rules above. Trees built with ``scan_layers`` (stacked layer axes) are not
+supported.
 """
 
 from __future__ import annotations

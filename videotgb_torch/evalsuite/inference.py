@@ -9,17 +9,19 @@ the --gt_file_question/--gt_file_answers question-answer json pair,
 quirk is kept.
 
 Samples are decoded by a host thread pool, one batch ahead of the device,
-and run through ``generate_blip2`` (flow -> TGB -> select -> ViT ->
-Q-Former -> T5 decode) in fixed-size batches. Flow sampling defaults to
-the reference's whole-timeline ~1 fps mode (duration-bucketed flow
-lengths); --flow_mode=fixed takes flow_frames+1 of the 32 candidates.
+and run in fixed-size batches through ``generate_blip2`` (flow -> TGB ->
+select -> ViT -> Q-Former -> T5 decode; --backbone blip2 and
+instructblip_t5) or ``generate_instructblip`` (the same through an
+instruction-aware Q-Former into Vicuna; --backbone instructblip). Flow
+sampling defaults to the reference's whole-timeline ~1 fps mode
+(duration-bucketed flow lengths); --flow_mode=fixed takes flow_frames+1 of
+the 32 candidates.
 
     python -m videotgb_torch.evalsuite.inference --model_path random:tiny \\
         --video_dir videos --gt_file_question q.json --gt_file_answers a.json \\
         --output_dir out --output_name preds [--device cpu]
 
-Only the BLIP2-Flan-T5 backbone with random weights is served here: a
-checkpoint directory, --lora, another backbone and --mesh raise
+Random weights only: a checkpoint directory, --lora and --mesh raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
@@ -59,8 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--preset", default="flagship",
                    help="VideoTGBConfig preset for a checkpoint model_path")
     p.add_argument("--backbone", default="blip2",
-                   choices=["blip2", "instructblip_t5", "instructblip"],
-                   help="only blip2 is ported; the others raise")
+                   choices=["blip2", "instructblip_t5", "instructblip"])
     p.add_argument("--mesh", default="",
                    help="mesh-sharded inference; not ported, raises")
     p.add_argument("--flow_size", type=int, default=None,
@@ -82,8 +83,8 @@ def parse_args(argv=None):
     p.add_argument("--model_max_length", type=int, default=2048)
     p.add_argument("--lora", type=int, default=0)
     p.add_argument("--bf16_params", type=int, default=1,
-                   help="bf16 parameters for ViT, Q-Former, T5 and TGB "
-                        "(default); 0 keeps f32")
+                   help="bf16 parameters for ViT, Q-Former, the LLM and "
+                        "TGB (default); 0 keeps f32")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--flow_frames", type=int, default=8,
                    help="(fixed mode) flow frames sampled from the "
@@ -150,13 +151,13 @@ def _warn_ignored_flags(args) -> None:
 
 
 def load_model(args, device=None):
-    """Build the BLIP2-Flan-T5 VideoTGB on ``device`` (None = the CUDA
-    device) with random weights from seed 0 for ``random:<preset>``, honouring
-    ``nframe``, ``flow_size`` and ``bf16_params``. Returns (model, cfg).
+    """Build the VideoTGB of ``backbone`` (blip2, instructblip_t5 or
+    instructblip) on ``device`` (None = the CUDA device) with random weights
+    from seed 0 for ``random:<preset>``, honouring ``nframe``, ``flow_size``
+    and ``bf16_params``. Returns (model, cfg).
 
     What the port does not have raises ``NotImplementedError``: a checkpoint
-    directory (ROADMAP.md queue 1 item 4), ``lora`` (item 5), another
-    backbone (item 6)."""
+    directory (ROADMAP.md queue 1 item 4) and ``lora`` (item 5)."""
     from videotgb_torch.models.videotgb import (
         VideoTGB,
         VideoTGBConfig,
@@ -165,10 +166,6 @@ def load_model(args, device=None):
 
     _warn_ignored_flags(args)
     backbone = getattr(args, "backbone", "blip2")
-    if backbone != "blip2":
-        raise NotImplementedError(
-            f"backbone {backbone!r} is not ported: InstructBLIP is "
-            "ROADMAP.md queue 1 item 6")
     if getattr(args, "lora", 0):
         raise NotImplementedError(
             "LoRA is not ported: ROADMAP.md queue 1 item 5")
@@ -176,7 +173,7 @@ def load_model(args, device=None):
         raise NotImplementedError(
             f"checkpoint restore ({args.model_path!r}) is not ported: "
             "ROADMAP.md queue 1 item 4")
-    cfg = getattr(VideoTGBConfig, args.model_path.split(":", 1)[1])()
+    cfg = getattr(VideoTGBConfig, args.model_path.split(":", 1)[1])(backbone)
     nframe = getattr(args, "nframe", None)
     if nframe and nframe != cfg.nframe:
         cfg = dataclasses.replace(cfg, nframe=nframe)
@@ -297,7 +294,10 @@ def run_inference(args) -> str:
     JSONL row per answer; returns the output path. Runs on ``args.device``
     (None = the CUDA device)."""
     from videotgb_torch.data.tokenizer import load_tokenizer
-    from videotgb_torch.models.videotgb import generate_blip2
+    from videotgb_torch.models.videotgb import (
+        generate_blip2,
+        generate_instructblip,
+    )
     from videotgb_torch.ops.decode import DecodeConfig
 
     if args.mesh:
@@ -307,8 +307,9 @@ def run_inference(args) -> str:
     model, cfg = load_model(args, device=args.device)
     tok = load_tokenizer(args.model_base)
     sampler_tok = load_tokenizer(args.sampler_base)
-    image = cfg.blip2.vit.image_size
+    image = cfg.vit.image_size
     fs = cfg.tgb.flow_size
+    decoder_only = cfg.backbone == "instructblip"
 
     with open(args.gt_file_question) as f:
         gt_questions = get_chunk(json.load(f), args.num_chunks,
@@ -319,10 +320,12 @@ def run_inference(args) -> str:
     os.makedirs(args.output_dir, exist_ok=True)
     out_path = os.path.join(args.output_dir, f"{args.output_name}.json")
 
+    lm = cfg.instructblip.llm if decoder_only else cfg.blip2.t5
+    generate = generate_instructblip if decoder_only else generate_blip2
     dcfg = DecodeConfig(
         max_new_tokens=args.max_new_tokens,
-        eos_token_id=cfg.blip2.t5.eos_token_id,
-        pad_token_id=cfg.blip2.t5.pad_token_id,
+        eos_token_id=lm.eos_token_id,
+        pad_token_id=lm.pad_token_id,
         do_sample=bool(args.do_sample),
         temperature=args.temperature,
     )
@@ -380,7 +383,7 @@ def run_inference(args) -> str:
                              [s["question"] for s in padded], TEXT_LEN,
                              model.device),
             }
-            tokens, _ = generate_blip2(
+            tokens, _ = generate(
                 model, batch, dcfg,
                 generator=step_generator(0, start, model.device),
                 stop_sequences=stop_sequences)

@@ -1,17 +1,21 @@
-"""VideoTGB, BLIP2-Flan-T5 backbone: RAFT -> TGB -> Gumbel span selection ->
-frame gather -> ViT -> Q-Former -> T5 (counterpart of the BLIP2 part of
-``videotgb_tpu/models/videotgb.py``). Submodule names follow the JAX
-package: ``temporal_encoder`` (TGB), ``of_extractor`` (RAFT), ``model``
-(BLIP2).
+"""VideoTGB: RAFT -> TGB -> Gumbel span selection -> frame gather -> ViT ->
+Q-Former -> LLM (counterpart of ``videotgb_tpu/models/videotgb.py``). The
+LLM is Flan-T5 (``backbone="blip2"``; the instruction-aware "instructblip_t5"
+variant included) or Vicuna-7B (``backbone="instructblip"``). Submodule
+names follow the JAX package: ``temporal_encoder`` (TGB), ``of_extractor``
+(RAFT), ``model`` (BLIP2 or InstructBLIP).
 
-Generation is driven by free functions; the T5 decode loop threads the KV
-caches through ``VideoTGB.t5_decode_step``:
+Generation is driven by free functions; the decode loops thread the KV
+caches through ``VideoTGB.t5_decode_step`` / ``VideoTGB.llama_step``:
 
   frames        (B, F=32, H, W, 3)    candidate frames (CLIP-normalized)
   flow          (B, L, Hf, Wf, 2)     TGB input (``flow_features``)
   cand_index    (B, nframe)           fixed-size gather (ops.select; kernel
                                       D, ops.select_pallas, on the card)
   visual tokens (B, 32, d)            mean-pooled over the selected frames
+
+The T5 backbones select in TGB "fusion" mode with the "minus1" rule, Vicuna
+in "multi_modal" mode with the "ratio" rule, as in the JAX package.
 
 Entry points run on the CUDA device unless the model was built with
 ``device="cpu"``. Selection noise comes from a ``torch.Generator`` (on the
@@ -31,6 +35,8 @@ from videotgb_torch.data.constants import CLIP_MEAN, CLIP_STD
 from videotgb_torch.device import resolve_device
 from videotgb_torch.models.blip2 import Blip2Config, Blip2Model
 from videotgb_torch.models.common import init_params
+from videotgb_torch.models.instructblip import InstructBlipConfig, InstructBlipModel
+from videotgb_torch.models.llama import LlamaConfig
 from videotgb_torch.models.qformer import QFormerConfig
 from videotgb_torch.models.raft import RAFT, RAFTConfig
 from videotgb_torch.models.t5 import T5Config
@@ -43,7 +49,9 @@ from videotgb_torch.ops.select_pallas import draw_seed, select_frames_cuda
 
 @dataclasses.dataclass(frozen=True)
 class VideoTGBConfig:
-    blip2: Blip2Config = Blip2Config()
+    backbone: str = "blip2"  # "blip2" | "instructblip"
+    blip2: Blip2Config | None = Blip2Config()
+    instructblip: InstructBlipConfig | None = None
     tgb: TGBConfig = TGBConfig()
     raft: RAFTConfig = RAFTConfig()
     nframe: int = 4
@@ -53,10 +61,19 @@ class VideoTGBConfig:
 
     @property
     def instruction_aware(self) -> bool:
-        return self.blip2.qformer_instruction
+        """True when the Q-Former reads instruction text (InstructBLIP-Vicuna
+        or the instructblip_t5 variant)."""
+        return (self.backbone == "instructblip"
+                or (self.blip2 is not None and self.blip2.qformer_instruction))
+
+    @property
+    def vit(self) -> ViTConfig:
+        """The backbone's ViT config."""
+        return (self.blip2 if self.blip2 is not None
+                else self.instructblip).vit
 
     @classmethod
-    def small(cls) -> "VideoTGBConfig":
+    def small(cls, backbone: str = "blip2") -> "VideoTGBConfig":
         """Flagship structure and token counts at reduced width/depth."""
         vit = ViTConfig(image_size=224, patch_size=14, hidden_size=256,
                         num_layers=4, num_heads=8, intermediate_size=512)
@@ -65,32 +82,68 @@ class VideoTGBConfig:
                            encoder_hidden_size=256)
         t5 = T5Config(d_model=256, d_kv=32, num_heads=8, d_ff=512,
                       num_encoder_layers=4, num_decoder_layers=4)
+        llm = LlamaConfig(hidden_size=256, num_layers=4, num_heads=8,
+                          intermediate_size=512)
         tgb = TGBConfig(hidden_size=256, num_layers=4, num_heads=8,
                         intermediate_size=512, fusion_layer=2,
                         encoder_width=256)
-        return cls(blip2=Blip2Config(vit=vit, qformer=qf, t5=t5), tgb=tgb,
-                   raft=RAFTConfig(iters=4), nframe=4, num_frames=32)
+        instr_t5 = backbone == "instructblip_t5"
+        if instr_t5:
+            backbone = "blip2"
+        return cls(
+            backbone=backbone,
+            blip2=Blip2Config(vit=vit, qformer=qf, t5=t5,
+                              qformer_instruction=instr_t5)
+            if backbone == "blip2" else None,
+            instructblip=InstructBlipConfig(vit=vit, qformer=qf, llm=llm)
+            if backbone == "instructblip" else None,
+            tgb=tgb, raft=RAFTConfig(iters=4), nframe=4, num_frames=32)
 
     @classmethod
-    def flagship(cls) -> "VideoTGBConfig":
-        """ViT-g + Q-Former + Flan-T5-xl + TGB (BERT-base) + RAFT."""
-        return cls()
+    def flagship(cls, backbone: str = "blip2") -> "VideoTGBConfig":
+        """ViT-g + Q-Former + Flan-T5-xl (or Vicuna-7B) + TGB (BERT-base) +
+        RAFT. "instructblip_t5" is the T5 composition with the
+        instruction-aware Q-Former."""
+        if backbone == "instructblip_t5":
+            return cls(blip2=Blip2Config(qformer_instruction=True))
+        return cls(
+            backbone=backbone,
+            blip2=Blip2Config() if backbone == "blip2" else None,
+            instructblip=InstructBlipConfig()
+            if backbone == "instructblip" else None)
 
     @classmethod
-    def tiny(cls) -> "VideoTGBConfig":
-        return cls(blip2=Blip2Config.tiny(), tgb=TGBConfig.tiny(),
-                   raft=RAFTConfig.tiny(), nframe=2, num_frames=4)
+    def tiny(cls, backbone: str = "blip2") -> "VideoTGBConfig":
+        if backbone == "instructblip_t5":
+            blip2, backbone = Blip2Config.tiny(qformer_instruction=True), \
+                "blip2"
+        else:
+            blip2 = Blip2Config.tiny() if backbone == "blip2" else None
+        return cls(
+            backbone=backbone, blip2=blip2,
+            instructblip=(InstructBlipConfig.tiny()
+                          if backbone == "instructblip" else None),
+            tgb=TGBConfig.tiny(), raft=RAFTConfig.tiny(), nframe=2,
+            num_frames=4)
 
 
 def bf16_param_config(cfg: VideoTGBConfig) -> VideoTGBConfig:
-    """bf16 parameters for ViT / Q-Former / T5 / TGB; RAFT stays f32."""
+    """bf16 parameters for ViT / Q-Former / LM (T5 or LLaMA) / TGB; RAFT
+    stays f32."""
     def rep(sub):
         return dataclasses.replace(sub, param_dtype=torch.bfloat16)
 
-    blip2 = dataclasses.replace(cfg.blip2, vit=rep(cfg.blip2.vit),
-                                qformer=rep(cfg.blip2.qformer),
-                                t5=rep(cfg.blip2.t5))
-    return dataclasses.replace(cfg, blip2=blip2, tgb=rep(cfg.tgb))
+    blip2, iblip = cfg.blip2, cfg.instructblip
+    if blip2 is not None:
+        blip2 = dataclasses.replace(blip2, vit=rep(blip2.vit),
+                                    qformer=rep(blip2.qformer),
+                                    t5=rep(blip2.t5))
+    if iblip is not None:
+        iblip = dataclasses.replace(iblip, vit=rep(iblip.vit),
+                                    qformer=rep(iblip.qformer),
+                                    llm=rep(iblip.llm))
+    return dataclasses.replace(cfg, blip2=blip2, instructblip=iblip,
+                               tgb=rep(cfg.tgb))
 
 
 class VideoTGB(nn.Module):
@@ -104,7 +157,12 @@ class VideoTGB(nn.Module):
         self.config = config
         self.temporal_encoder = TGBModel(config.tgb, device)
         self.of_extractor = RAFT(config.raft, device)
-        self.model = Blip2Model(config.blip2, device)
+        if config.backbone == "blip2":
+            self.model = Blip2Model(config.blip2, device)
+        elif config.backbone == "instructblip":
+            self.model = InstructBlipModel(config.instructblip, device)
+        else:
+            raise ValueError(f"unknown backbone {config.backbone!r}")
         init_params(self, seed)
         self.eval()
 
@@ -224,6 +282,38 @@ class VideoTGB(nn.Module):
         return self.model.language_model.init_caches(batch, max_len,
                                                      encoder_len)
 
+    def prepare_llama_inference(self, frames, flow, flow_mask, video_length,
+                                sampler_question_ids, sampler_question_mask,
+                                prompt_ids, prompt_mask, generator=None,
+                                noise=None, qformer_input_ids=None,
+                                qformer_attention_mask=None):
+        """The Vicuna inference prefix: TGB in "multi_modal" mode ->
+        exclusive-end selection with the "ratio" rule int(i/L*F) ->
+        instruction-aware Q-Former mean-pooled to Q tokens -> [visual |
+        prompt] embeddings. Returns (embeds (B, Q+T, d), mask, cand_index)."""
+        _, start_logits, end_logits = self.span_logits(
+            flow, flow_mask, sampler_question_ids, sampler_question_mask,
+            "multi_modal")
+        cand = self.select_frames(start_logits, end_logits, video_length,
+                                  generator, inclusive_end=False,
+                                  rescale="ratio", noise=noise)
+        visual = self.encode_selected(
+            frames, cand, qformer_input_ids=qformer_input_ids,
+            qformer_attention_mask=qformer_attention_mask)
+        embeds, mask = self.model.decoder_inputs(visual, prompt_ids,
+                                                 prompt_mask)
+        return embeds, mask, cand
+
+    def llama_step(self, tokens=None, inputs_embeds=None, positions=None,
+                   caches=None, cache_index=None, cache_positions_valid=None):
+        return self.model.language_model(
+            input_ids=tokens, inputs_embeds=inputs_embeds, positions=positions,
+            caches=caches, cache_index=cache_index,
+            cache_positions_valid=cache_positions_valid)
+
+    def init_llama_caches(self, batch, max_len):
+        return self.model.language_model.init_caches(batch, max_len)
+
 
 def _on(model, batch):
     return {k: (v.to(model.device) if torch.is_tensor(v) else v)
@@ -280,25 +370,25 @@ def t5_generate_from_encoder(model: VideoTGB, enc_hidden, enc_mask,
 # ------------------------------------------- two-phase (bandwidth-aware) mode
 @torch.no_grad()
 def select_phase_blip2(model: VideoTGB, flow_rgb_u8, batch, generator=None,
-                       noise=None):
-    """Phase 1: RAFT + TGB ("fusion" mode) + Gumbel selection from the
-    flow frames only, (B, L+1, Hf, Wf, 3) uint8. Returns cand_index
-    (B, nframe)."""
+                       noise=None, mode="fusion", rescale="minus1"):
+    """Phase 1: RAFT + TGB + Gumbel selection from the flow frames only,
+    (B, L+1, Hf, Wf, 3) uint8. ``mode`` / ``rescale`` are "fusion" /
+    "minus1" for the T5 backbones, "multi_modal" / "ratio" for Vicuna.
+    Returns cand_index (B, nframe)."""
     batch = _on(model, batch)
     flow = model.flow_features(flow_rgb_u8.to(model.device).float())
     _, sl, el = model.span_logits(flow, batch["flow_mask"],
                                   batch["sampler_question_ids"],
-                                  batch["sampler_question_mask"], "fusion")
+                                  batch["sampler_question_mask"], mode)
     return model.select_frames(sl, el, batch["video_length"], generator,
-                               inclusive_end=False, noise=noise)
+                               inclusive_end=False, rescale=rescale,
+                               noise=noise)
 
 
-@torch.no_grad()
-def answer_phase_blip2(model: VideoTGB, selected_frames_u8, batch,
-                       decode_config: DecodeConfig, generator=None):
-    """Phase 2: CLIP normalization on the device, ViT -> Q-Former
-    (mean-pooled) -> T5 encode + decode. Frames (B, nframe, H, W, 3) uint8."""
-    batch = _on(model, batch)
+def _encode_selected_u8(model: VideoTGB, selected_frames_u8, batch):
+    """CLIP normalization on the device, then ViT -> Q-Former (reading the
+    batch's ``qformer_input_ids`` where the config is instruction-aware) ->
+    projection, mean-pooled over each request's frames -> (B, Q, d)."""
     dev = model.device
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
@@ -312,11 +402,95 @@ def answer_phase_blip2(model: VideoTGB, selected_frames_u8, batch,
             qf_ids = qf_ids.repeat_interleave(nf, 0)
             qf_mask = (qf_mask.repeat_interleave(nf, 0)
                        if qf_mask is not None else None)
-    visual = model.model.encode_frames(
+    return model.model.encode_frames(
         frames.reshape(b * nf, *frames.shape[2:]), mean_pool_groups=b,
         qformer_input_ids=qf_ids, qformer_attention_mask=qf_mask)
+
+
+@torch.no_grad()
+def answer_phase_blip2(model: VideoTGB, selected_frames_u8, batch,
+                       decode_config: DecodeConfig, generator=None):
+    """Phase 2: CLIP normalization on the device, ViT -> Q-Former
+    (mean-pooled) -> T5 encode + decode. Frames (B, nframe, H, W, 3) uint8."""
+    batch = _on(model, batch)
+    visual = _encode_selected_u8(model, selected_frames_u8, batch)
     embeds, mask = model.model.encoder_inputs(visual, batch["question_ids"],
                                               batch["question_mask"])
     enc_hidden = model.model.language_model.encode(embeds, mask)
     return t5_generate_from_encoder(model, enc_hidden, mask, decode_config,
                                     generator)
+
+
+@torch.no_grad()
+def answer_phase_instructblip(model: VideoTGB, selected_frames_u8, batch,
+                              decode_config: DecodeConfig, generator=None,
+                              stop_sequences=()):
+    """Phase 2 for the Vicuna backbone: CLIP normalization on the device,
+    instruction-aware Q-Former mean-pooled to Q tokens, [visual | prompt]
+    embeddings, decoder-only generate. Frames (B, nframe, H, W, 3) uint8."""
+    batch = _on(model, batch)
+    visual = _encode_selected_u8(model, selected_frames_u8, batch)
+    embeds, mask = model.model.decoder_inputs(visual, batch["question_ids"],
+                                              batch["question_mask"])
+    return llama_generate_from_embeds(model, embeds, mask, decode_config,
+                                      generator, stop_sequences)
+
+
+@torch.no_grad()
+def generate_instructblip(model: VideoTGB, batch, decode_config: DecodeConfig,
+                          generator=None, stop_sequences=(), noise=None):
+    """Batched InstructBLIP-Vicuna QA generation in one call; ``batch`` as
+    for :func:`generate_blip2`, with ``qformer_input_ids``/``_mask`` for the
+    instruction-aware Q-Former. Returns (token_ids (B, T), cand_index)."""
+    batch = _on(model, batch)
+    embeds, mask, cand = model.prepare_llama_inference(
+        batch["frames"], batch["flow"], batch["flow_mask"],
+        batch["video_length"], batch["sampler_question_ids"],
+        batch["sampler_question_mask"], batch["question_ids"],
+        batch["question_mask"], generator=generator, noise=noise,
+        qformer_input_ids=batch.get("qformer_input_ids"),
+        qformer_attention_mask=batch.get("qformer_attention_mask"))
+    out = llama_generate_from_embeds(model, embeds, mask, decode_config,
+                                     generator, stop_sequences)
+    return out, cand
+
+
+@torch.no_grad()
+def llama_generate_from_embeds(model: VideoTGB, embeds, mask,
+                               decode_config: DecodeConfig, generator=None,
+                               stop_sequences=()):
+    """Greedy / sampling LLaMA decode from a right-padded [visual | prompt]
+    prefix (B, S, d) with its mask (B, S).
+
+    The prefill writes the prompt's K/V into buffers of S + max_new slots,
+    at per-row RoPE positions that count only the real tokens; each row's
+    first token comes from the logits at its last real token. The token of
+    step t-1 is written at slot S + t - 1 with RoPE position length + t - 1,
+    and the validity mask opens that slot. Beam search is not ported
+    (ROADMAP.md queue 1 item 5)."""
+    b, s = embeds.shape[:2]
+    max_new = decode_config.max_new_tokens
+    dev = embeds.device
+    mask_f = mask.float()
+    lengths = mask_f.sum(dim=1).long()
+    prompt_pos = (mask_f.cumsum(dim=1).long() - 1).clamp(min=0)
+    caches = model.init_llama_caches(b, s + max_new)
+    valid = torch.cat([mask_f, torch.zeros((b, max_new), device=dev)], dim=1)
+    logits, caches = model.llama_step(
+        inputs_embeds=embeds, positions=prompt_pos, caches=caches,
+        cache_index=0, cache_positions_valid=valid)
+    first_logits = logits[torch.arange(b, device=dev), lengths - 1]
+
+    def step_fn(tokens, caches, t):
+        if t == 0:
+            return first_logits, caches
+        valid[:, s + t - 1] = 1.0
+        logits, caches = model.llama_step(
+            tokens=tokens, positions=(lengths + t - 1)[:, None],
+            caches=caches, cache_index=s + t - 1,
+            cache_positions_valid=valid)
+        return logits[:, -1], caches
+
+    start = torch.zeros((b,), dtype=torch.long, device=dev)
+    return decode(step_fn, caches, start, decode_config, generator=generator,
+                  stop_sequences=stop_sequences)

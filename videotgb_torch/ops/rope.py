@@ -1,5 +1,10 @@
-"""RoFormer (interleaved) rotary position embeddings, used by the Temporal
-Grounding Bridge over the frame axis. Plain PyTorch; no kernel needed."""
+"""Rotary position embeddings, both flavours of the JAX package's
+``ops/rope.py``. Plain PyTorch; no kernel needed.
+
+* RoFormer (interleaved): the Temporal Grounding Bridge, over the frame
+  axis. Pairs are adjacent lanes (x0, x1), (x2, x3), ...
+* LLaMA (half-split): the Vicuna-7B decoder. Pairs are (x_i, x_{i+d/2}).
+"""
 
 from __future__ import annotations
 
@@ -31,3 +36,32 @@ def roformer_rope(x, sincos):
     pairs = x.reshape(*x.shape[:-1], half, 2)
     rotated = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).reshape(x.shape)
     return (x.float() * cos_pos + rotated.float() * sin_pos).to(x.dtype)
+
+
+def llama_rope_tables(positions, dim: int, base: float = 10000.0):
+    """cos and sin (B, 1, S, dim/2), f32, of the half-split rotation at
+    per-row absolute positions (B, S), with inv_freq_k = base^(-k/(dim/2)).
+    A LLaMA forward makes them once and every layer's q and k use them."""
+    half = dim // 2
+    inv_freq = base ** (-torch.arange(half, dtype=torch.float32,
+                                      device=positions.device) / half)
+    angles = positions[:, None, :, None].float() * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_llama_rope(x, cos, sin):
+    """Rotate x (B, H, S, D) by :func:`llama_rope_tables`: pairs (x_i,
+    x_{i+D/2}), computed in f32, returned in x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def llama_rope(x, positions, base: float = 10000.0):
+    """Half-split rotary embedding (LLaMA / Vicuna layout). x (B, H, S, D),
+    the attention's own layout (the JAX function takes (B, S, H, D));
+    positions (B, S) absolute positions, per row (a cached decode passes its
+    offset)."""
+    return apply_llama_rope(x, *llama_rope_tables(positions, x.shape[-1],
+                                                  base))

@@ -7,8 +7,13 @@ Concurrent requests stream into a queue. A select worker coalesces them
 into fixed-size batches, ships the small uint8 flow frames, runs RAFT + TGB
 + selection (kernels B and D on the card), fetches the (B, nframe) indices,
 gathers only the selected frames on the host and uploads them; an answer
-worker runs ViT -> Q-Former -> T5 decode (kernel A on the card) and
-resolves the per-request futures. The two workers are joined by a depth-1
+worker runs ViT -> Q-Former -> LLM decode (kernel A on the card) and
+resolves the per-request futures. The phase pair follows the backbone, as
+in the JAX engine: ``select_phase_blip2`` in TGB "fusion" mode with the
+"minus1" rule and ``answer_phase_blip2`` for the T5 backbones (blip2, and
+instructblip_t5, whose Q-Former reads the question), "multi_modal" with the
+"ratio" rule and ``answer_phase_instructblip`` for Vicuna (instructblip),
+with the LLM's own eos / pad ids. The two workers are joined by a depth-1
 queue, so select(N+1) can overlap answer(N).
 
 On the card each worker issues its work on a CUDA stream of its own (on
@@ -53,6 +58,7 @@ import torch
 from videotgb_torch.device import step_generator
 from videotgb_torch.models.videotgb import (
     answer_phase_blip2,
+    answer_phase_instructblip,
     select_phase_blip2,
 )
 
@@ -77,7 +83,8 @@ class _Request:
 
 
 class ServingEngine:
-    """Dynamically-batched two-phase VideoTGB serving (BLIP2-Flan-T5)."""
+    """Dynamically-batched two-phase VideoTGB serving (BLIP2-Flan-T5,
+    InstructBLIP-Flan-T5 or InstructBLIP-Vicuna)."""
 
     def __init__(
         self,
@@ -100,9 +107,9 @@ class ServingEngine:
         the TGB sampler (None = the byte tokenizer, for random weights).
         ``preset`` names the config of a checkpoint path, which the port
         does not restore yet; ``random:<preset>`` carries its own.
+        ``backbone``: "blip2", "instructblip_t5" or "instructblip".
         ``device``: None = the CUDA device (raises without one); "cpu" runs
-        the plain path. ``mesh`` and a backbone other than "blip2" raise
-        ``NotImplementedError``."""
+        the plain path. ``mesh`` raises ``NotImplementedError``."""
         from videotgb_torch.data.tokenizer import load_tokenizer
         from videotgb_torch.evalsuite.inference import load_model
         from videotgb_torch.ops.decode import DecodeConfig
@@ -126,10 +133,16 @@ class ServingEngine:
         self.max_delay_s = max_delay_ms / 1000.0
         self.text_len = text_len
         self.seed = seed
-        t5 = self.cfg.blip2.t5
+        self.decoder_only = self.cfg.backbone == "instructblip"
+        if self.decoder_only:
+            lm = self.cfg.instructblip.llm
+            self.select_kw = dict(mode="multi_modal", rescale="ratio")
+        else:
+            lm = self.cfg.blip2.t5
+            self.select_kw = dict(mode="fusion", rescale="minus1")
         self.decode_config = DecodeConfig(
-            max_new_tokens=max_new_tokens, eos_token_id=t5.eos_token_id,
-            pad_token_id=t5.pad_token_id)
+            max_new_tokens=max_new_tokens, eos_token_id=lm.eos_token_id,
+            pad_token_id=lm.pad_token_id)
         if dev.type == "cuda":
             self._select_stream = torch.cuda.Stream(dev)
             self._answer_stream = torch.cuda.Stream(dev)
@@ -197,7 +210,7 @@ class ServingEngine:
         from videotgb_torch.data.transforms import resize_video
         from videotgb_torch.data.video_io import read_video_cv2, sample_frames
 
-        image = self.cfg.blip2.vit.image_size
+        image = self.cfg.vit.image_size
         fs = self.cfg.tgb.flow_size
         raw, _ = read_video_cv2(video_path, num_frames=self.cfg.num_frames,
                                 size=(max(image, fs),) * 2)
@@ -303,7 +316,7 @@ class ServingEngine:
                     t1 = time.perf_counter()
                     self._phase("host_prep", (t1 - t0) * 1000)
                     cand = select_phase_blip2(self.model, flow_u8, bd,
-                                              generator=gen)
+                                              generator=gen, **self.select_kw)
                     sel_idx = cand.cpu().numpy()
                     t2 = time.perf_counter()
                     self._phase("select", (t2 - t1) * 1000)
@@ -324,7 +337,7 @@ class ServingEngine:
                 self._mid.put((group, bd, sel_idx, sel_dev, gen, ready))
 
     def _run_answer(self):
-        """Stage 2: T5 decode on the device -> detokenize -> resolve
+        """Stage 2: LLM decode on the device -> detokenize -> resolve
         futures."""
         with self._worker_context(self._answer_stream):
             while True:
@@ -338,9 +351,11 @@ class ServingEngine:
                         self._answer_stream.wait_event(ready)
                         for x in (sel_dev, *bd.values()):
                             x.record_stream(self._answer_stream)
-                    tokens = answer_phase_blip2(
-                        self.model, sel_dev, bd, self.decode_config,
-                        generator=gen).cpu().numpy()
+                    answer = (answer_phase_instructblip if self.decoder_only
+                              else answer_phase_blip2)
+                    tokens = answer(self.model, sel_dev, bd,
+                                    self.decode_config,
+                                    generator=gen).cpu().numpy()
                     t1 = time.perf_counter()
                     self._phase("answer", (t1 - t0) * 1000)
                     answers = self.tok.batch_decode(tokens,
@@ -450,11 +465,10 @@ def main(argv=None):
     p.add_argument("--sampler_base", default=None,
                    help="TGB sampler tokenizer dir")
     p.add_argument("--backbone", default="blip2",
-                   choices=["blip2", "instructblip_t5", "instructblip"],
-                   help="only blip2 is ported; the others raise")
+                   choices=["blip2", "instructblip_t5", "instructblip"])
     p.add_argument("--f32_params", action="store_true",
                    help="keep f32 parameters (default bf16 for ViT, "
-                        "Q-Former, T5 and TGB)")
+                        "Q-Former, the LLM and TGB)")
     p.add_argument("--mesh", default="",
                    help="mesh-sharded serving; not ported, raises")
     p.add_argument("--device", default=None,

@@ -18,13 +18,16 @@ from videotgb_torch.training.recipes import RECIPES
 
 def build_model(model_cfg: dict, device=None, seed: int = 0):
     """(VideoTGB with random weights from ``seed``, its config). ``preset``
-    is tiny / small / flagship; the backbone is blip2 (BLIP2-Flan-T5).
-    ``device=None`` means the CUDA device."""
+    is tiny / small / flagship; the backbone is blip2 (BLIP2-Flan-T5), the
+    one the ported recipes train. ``device=None`` means the CUDA device."""
     backbone = model_cfg.get("backbone", "blip2")
     if backbone != "blip2":
-        raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
+        raise NotImplementedError(
+            f"training the {backbone!r} backbone is not ported: the "
+            "InstructBLIP training forward is ROADMAP.md queue 1 item 4")
     if model_cfg.get("lora_rank"):
-        raise NotImplementedError("LoRA adapters are not ported yet")
+        raise NotImplementedError(
+            "LoRA adapters are not ported: ROADMAP.md queue 1 item 5")
     mcfg = getattr(VideoTGBConfig, model_cfg.get("preset", "flagship"))()
     return VideoTGB(mcfg, device=device, seed=seed), mcfg
 
