@@ -133,7 +133,27 @@ Phases, each fatal on failure (exit code 1):
    phase, ViT-g + Q-Former, the prefill and a decode step, and one decode
    step traced (device time by kernel family); then the serving
    engine with ``backbone="instructblip"`` (16 new tokens: a warm-up, 4
-   requests one at a time, a burst of 8), checked as in phase 13.
+   requests one at a time, a burst of 8), checked as in phase 13;
+15. the training and evaluation CLIs as a user calls them,
+   ``videotgb_torch.train.main`` and ``videotgb_torch.evaluate.main`` at
+   flagship width (f32 parameters, bf16 compute; random weights from the
+   seed, synthetic data): ``experiment=smoke_e2e_synthetic
+   model.preset=flagship`` at batch 8 (32 candidate frames at 224², 32-token
+   questions and answers) for 3 steps with an eval at step 3, each step
+   exactly 63 A + 24 C and each eval batch 102 A + 1 D, all A and C on the
+   tensor-core bodies; finite losses, frozen parameters bit-identical after
+   fit, a ``metrics.csv`` row per step, ``val/loss`` and ``val/score``, one
+   step under ``best/``; then a CLI resume from that checkpoint to
+   ``trainer.max_steps=4`` (exactly one step, the schedule's lr at step
+   index 3, the optimizer's step count 4), a library round trip (the live
+   state saved, one step, a fresh model restored from the save, the same
+   step bit-identical in loss, gradient norm, trainable parameters and
+   Adam moments), ``evaluate.main`` on the checkpoint (``test/loss``,
+   ``test/score``), and the TG CLI at batch 32 and 64 flow frames (2
+   steps, no kernel, ``val/iou_score``); each step's wall split into the
+   data wait and ``train_step``, eval walls, save and restore walls and
+   bytes, peak memory. It needs 2.2 x 18.1 GB of free disk (two flagship
+   checkpoints at once) under ``build/`` and fails without it.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -2714,6 +2734,480 @@ def serving_engine(card: str, backbone: str = "blip2",
     return launches
 
 
+# ------------------------------------------------- phase 15: the two CLIs
+CKPT_GB = 18.1  # a flagship E2E save: f32 parameters + the Adam moments
+E2E_CLI = ["experiment=smoke_e2e_synthetic", "model.preset=flagship",
+           "data.batch_size=8", "data.train_size=32", "data.val_size=8",
+           "data.max_flow_len=64", "data.flow_len_range=[8,64]",
+           "data.max_txt_len=32", "data.answer_len=32",
+           "trainer.max_steps=3", "trainer.eval_every=3",
+           "trainer.log_every=1", "model.eval_max_new=16",
+           "callbacks.model_checkpoint.save_last=false",
+           "extras.print_config=false"]
+TG_CLI = ["experiment=smoke_tg_synthetic", "model.preset=flagship",
+          "data.batch_size=32", "data.train_size=64", "data.val_size=32",
+          "data.max_flow_len=64", "data.flow_len_range=[8,64]",
+          "trainer.max_steps=2", "trainer.eval_every=2",
+          "callbacks.model_checkpoint.save_last=false",
+          "extras.print_config=false"]
+
+
+class CliProbe:
+    """Wrappers around the pieces the CLIs call, installed for phase 15
+    only: the train loader's ``next`` (the data wait), ``Trainer.train_step``
+    (synchronised wall, launches and bodies), ``evaluate_tg`` /
+    ``evaluate_generative`` (wall, batches, launches), checkpoint saves and
+    restores (walls, bytes), ``build_model`` (the model; with ``frozen``, a
+    host copy of the parameters that ``frozen`` says are frozen) and
+    ``Trainer.fit`` (its trainer and final state). The wrappers only read;
+    every kernel launch stays the CLI's."""
+
+    def __init__(self):
+        self.frozen = None
+        self.clear()
+        self._undo = []
+
+    def clear(self):
+        self.waits, self.val_waits, self.steps, self.evals = [], [], [], []
+        self.saves, self.restores, self.models, self.fits = [], [], [], []
+        self.snapshot = None
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._undo.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def install(self):
+        import torch
+
+        from videotgb_torch import train as T
+        from videotgb_torch.data.loader import PrefetchLoader
+        from videotgb_torch.ops import kernels
+        from videotgb_torch.training import checkpoint as CK
+        from videotgb_torch.training.trainer import Trainer
+
+        probe = self
+
+        def counts():
+            torch.cuda.synchronize()
+            return dict(kernels.LAUNCHES), dict(kernels.MMA_LAUNCHES)
+
+        def diff(after, before):
+            return {k: after[k] - before[k] for k in after}
+
+        def loader_iter(orig):
+            def timed(loader):
+                it = orig(loader)
+                try:
+                    while True:
+                        t = time.perf_counter()
+                        try:
+                            item = next(it)
+                        except StopIteration:
+                            return
+                        # the train loader shuffles, the val loader does not
+                        (probe.waits if loader.shuffle else
+                         probe.val_waits).append((t, time.perf_counter()))
+                        yield item
+                finally:
+                    it.close()
+            return timed
+
+        def train_step(orig):
+            def timed(trainer, state, batch):
+                before, mma = counts()
+                t = time.perf_counter()
+                state, metrics = orig(trainer, state, batch)
+                host = {k: float(v) for k, v in metrics.items()}
+                after, mma_after = counts()
+                end = time.perf_counter()
+                req, got = probe.waits[-1] if probe.waits else (t, t)
+                probe.steps.append({
+                    "step": state.step, "metrics": host,
+                    "step_ms": (end - t) * 1e3, "wait_ms": (got - req) * 1e3,
+                    "wall_ms": (end - req) * 1e3,
+                    "launches": diff(after, before),
+                    "mma": diff(mma_after, mma)})
+                return state, metrics
+            return timed
+
+        def evaluate(orig):
+            def timed(model, recipe, loader, *args, **kwargs):
+                before, mma = counts()
+                first = len(probe.val_waits)
+                t = time.perf_counter()
+                out = orig(model, recipe, loader, *args, **kwargs)
+                after, mma_after = counts()
+                probe.evals.append({
+                    "ms": (time.perf_counter() - t) * 1e3,
+                    "wait_ms": sum(b - a for a, b in probe.val_waits[first:])
+                    * 1e3,
+                    "batches": len(loader), "metrics": out,
+                    "launches": diff(after, before),
+                    "mma": diff(mma_after, mma)})
+                return out
+            return timed
+
+        def save(orig):
+            def timed(mgr, step, state, metrics=None):
+                written, real = [], torch.save
+
+                def counting(obj, path, *args, **kwargs):
+                    real(obj, path, *args, **kwargs)
+                    written.append(os.path.getsize(path))
+
+                torch.cuda.synchronize()
+                torch.save = counting
+                t = time.perf_counter()
+                try:
+                    orig(mgr, step, state, metrics)
+                finally:
+                    torch.save = real
+                probe.saves.append({"step": step, "bytes": sum(written),
+                                    "s": time.perf_counter() - t})
+            return timed
+
+        def restore(orig):
+            def timed(mgr, step=None, items=None):
+                t = time.perf_counter()
+                out = orig(mgr, step, items)
+                step = step if step is not None else mgr.latest_step()
+                d = mgr.step_dir(step)
+                probe.restores.append({
+                    "step": step, "items": sorted(out),
+                    "bytes": sum(os.path.getsize(os.path.join(d, n + ".pt"))
+                                 for n in out),
+                    "s": time.perf_counter() - t})
+                return out
+            return timed
+
+        def restore_into(orig):
+            def timed(restored, model, optimizer=None):
+                t = time.perf_counter()
+                out = orig(restored, model, optimizer)
+                torch.cuda.synchronize()
+                probe.restores[-1]["s"] += time.perf_counter() - t
+                return out
+            return timed
+
+        def build_model(orig):
+            def capture(model_cfg, device=None, seed=0):
+                model, mcfg = orig(model_cfg, device=device, seed=seed)
+                probe.models.append(model)
+                if probe.frozen is not None and probe.snapshot is None:
+                    t = time.perf_counter()
+                    probe.snapshot = {
+                        n: p.detach().cpu() for n, p in model.named_parameters()
+                        if probe.frozen(n)}
+                    log(f"  {len(probe.snapshot)} frozen parameters copied to "
+                        f"the host in {time.perf_counter() - t:.2f} s")
+                return model, mcfg
+            return capture
+
+        def fit(orig):
+            def capture(trainer, state, *args, **kwargs):
+                state = orig(trainer, state, *args, **kwargs)
+                probe.fits.append((trainer, state))
+                return state
+            return capture
+
+        self._patch(PrefetchLoader, "__iter__", loader_iter)
+        self._patch(Trainer, "train_step", train_step)
+        self._patch(Trainer, "fit", fit)
+        self._patch(T, "evaluate_tg", evaluate)
+        self._patch(T, "evaluate_generative", evaluate)
+        self._patch(T, "build_model", build_model)
+        self._patch(CK.CheckpointManager, "save", save)
+        self._patch(CK.CheckpointManager, "restore", restore)
+        self._patch(CK, "restore_into", restore_into)
+
+    def remove(self):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo.clear()
+
+
+def cli_run(name, probe, drive, step_want, eval_want, card) -> dict:
+    """One CLI call: every count set to 0 just before, read just after;
+    each step's and each eval batch's launches (and tensor-core bodies)
+    against ``step_want`` / ``eval_want``, the total against their sum.
+    Prints the walls; returns (the CLI's result, the launches)."""
+    import torch
+
+    from videotgb_torch.ops import kernels
+
+    probe.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    result = drive()
+    wall = time.perf_counter() - t
+    got = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    zero = dict.fromkeys(got, 0)
+    step_want = {**zero, **step_want}
+    eval_want = {**zero, **eval_want}
+    mma_names = ("flash_fwd", "flash_bwd", "flash_bshd")
+    for what, runs, want, per in (("step", probe.steps, step_want, 1),
+                                  ("eval", probe.evals, eval_want, None)):
+        for i, r in enumerate(runs):
+            n = per or r["batches"]
+            expect = {k: v * n for k, v in want.items()}
+            if r["launches"] != expect:
+                fail(f"{name} {what} {i + 1}: launches {r['launches']} != "
+                     f"{expect}")
+            mma = {k: r["mma"][k] for k in mma_names}
+            if mma != {k: expect[k] for k in mma_names}:
+                fail(f"{name} {what} {i + 1}: tensor-core launches {mma} != "
+                     f"{ {k: expect[k] for k in mma_names} }")
+    total = {k: len(probe.steps) * step_want[k]
+             + sum(r["batches"] for r in probe.evals) * eval_want[k]
+             for k in got}
+    def nz(d):
+        return {k: v for k, v in d.items() if v}
+
+    log(f"  {name} launches: {nz(got)} (expected {nz(total)}: "
+        f"{len(probe.steps)} steps x {nz(step_want)} + "
+        f"{sum(r['batches'] for r in probe.evals)} eval batches x "
+        f"{nz(eval_want)}; every other kernel 0)")
+    if got != total:
+        fail(f"{name} launch counts: {got} != {total}")
+    check_bodies(name, got)
+    for r in probe.steps:
+        m = r["metrics"]
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"{name} step {r['step']}: non-finite metrics {m}")
+        log(f"  {name} step {r['step']}: wall {r['wall_ms']:.2f} ms = data "
+            f"wait {r['wait_ms']:.2f} + upload and train_step; train_step "
+            f"{r['step_ms']:.2f} ms; loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.6f}, lr {m['lr']:.6g} on {card}")
+    for r in probe.evals:
+        log(f"  {name} eval: {r['ms']:.2f} ms over {r['batches']} batch(es) "
+            f"({r['wait_ms']:.2f} of them waiting for data), "
+            f"{(r['ms'] - r['wait_ms']) / max(r['batches'], 1):.2f} ms a batch "
+            f"without the wait; {r['metrics']} on {card}")
+    for r in probe.saves:
+        log(f"  {name} save of step {r['step']}: {r['bytes'] / 1e9:.3f} GB "
+            f"in {r['s']:.2f} s"
+            + (f" ({r['bytes'] / 1e9 / r['s']:.2f} GB/s)" if r["bytes"]
+               else " (nothing written: not above the newest kept step)"))
+    for r in probe.restores:
+        log(f"  {name} restore of step {r['step']} {r['items']}: "
+            f"{r['bytes'] / 1e9:.3f} GB in {r['s']:.2f} s (open + load into "
+            f"the live model)")
+    log(f"  {name}: {wall:.2f} s for the call; peak device memory "
+        f"{peak_gib:.2f} GiB on {card}")
+    return result, got
+
+
+def read_csv(path) -> list[dict]:
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def best_steps(ckpt_dir) -> list[str]:
+    return sorted(os.listdir(os.path.join(ckpt_dir, "best")))
+
+
+def cli_paths(card: str) -> dict:
+    """Phase 15: ``videotgb_torch.train.main`` and
+    ``videotgb_torch.evaluate.main`` as a user calls them, at flagship
+    width on the card; returns the launches of the counted CLI runs."""
+    import shutil
+
+    import torch
+
+    from videotgb_torch import evaluate as EV
+    from videotgb_torch import train as T
+    from videotgb_torch.config import compose
+    from videotgb_torch.data.loader import device_batch
+    from videotgb_torch.models.videotgb import VideoTGBConfig
+    from videotgb_torch.training.checkpoint import (
+        CheckpointConfig, CheckpointManager, restore_into, train_state_items)
+    from videotgb_torch.training.optim import cosine_warmup_schedule
+    from videotgb_torch.training.trainer import Trainer
+
+    root = os.path.join(HERE, "build", "phase15")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    need = 2.2 * CKPT_GB * 1e9
+    log(f"  free disk under {root}: {free / 1e9:.1f} GB (need "
+        f"{need / 1e9:.1f} GB: two {CKPT_GB} GB checkpoints and room)")
+    if free < need:
+        fail(f"phase 15 needs {need / 1e9:.1f} GB of free disk for two "
+             f"{CKPT_GB} GB flagship checkpoints at once; {free / 1e9:.1f} GB "
+             f"is free under {root}")
+    mcfg = VideoTGBConfig.flagship()
+    vit, enc = mcfg.blip2.vit.num_layers, mcfg.blip2.t5.num_encoder_layers
+    e2e_step = {"flash_fwd": vit + enc, "flash_bwd": enc}
+    # the eval loss (the step's forward) + generate_blip2's ViT-g and one
+    # selection; its mean-pooled 64-token T5 encoder goes plain
+    e2e_eval = {"flash_fwd": 2 * vit + enc, "select_frames": 1}
+    probe = CliProbe()
+    probe.install()
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    try:
+        # ---- E2E: train 3 steps, eval at step 3, save to best/
+        out = os.path.join(root, "e2e")
+        ckpt_dir = os.path.join(out, "checkpoints")
+        args = E2E_CLI + [f"paths.output_dir={out}"]
+        recipe = T.build_recipe(compose(T.CONFIG_DIR, "train", args).model)
+        probe.frozen = lambda n: not recipe.filter_fn(n)
+        final, got = cli_run("E2E train.main", probe,
+                             lambda: T.main(args), e2e_step, e2e_eval, card)
+        add(got)
+        probe.frozen = None
+        if len(probe.steps) != 3:
+            fail(f"E2E: {len(probe.steps)} steps, not 3")
+        trainer, state = probe.fits[-1]
+        changed = [n for n, p in probe.snapshot.items()
+                   if not torch.equal(
+                       dict(state.model.named_parameters())[n].detach().cpu(),
+                       p)]
+        if changed:
+            fail(f"E2E: frozen parameters changed: {changed[:5]}")
+        log(f"  E2E: all {len(probe.snapshot)} frozen parameters "
+            f"bit-identical after fit")
+        rows = read_csv(os.path.join(out, "csv", "metrics.csv"))
+        train_rows = [r for r in rows if r.get("loss")]
+        if [int(r["step"]) for r in train_rows] != [1, 2, 3]:
+            fail(f"E2E metrics.csv: train rows at steps "
+                 f"{[r['step'] for r in train_rows]}, not 1-3")
+        if not all(math.isfinite(float(r["loss"])) for r in train_rows):
+            fail("E2E metrics.csv: non-finite loss")
+        for key in ("val/loss", "val/score"):
+            if key not in final or not math.isfinite(final[key]):
+                fail(f"E2E: {key} missing or non-finite in {final}")
+        if best_steps(ckpt_dir) != ["3"]:
+            fail(f"E2E: best/ holds {best_steps(ckpt_dir)}, not one step 3")
+        del trainer, state
+        probe.clear()
+
+        # ---- resume: ckpt_path, max_steps 4 -> exactly one more step
+        args_r = args + [f"ckpt_path={ckpt_dir}", "trainer.max_steps=4"]
+        _, got = cli_run("E2E resume", probe, lambda: T.main(args_r),
+                         e2e_step, e2e_eval, card)
+        add(got)
+        new = read_csv(os.path.join(out, "csv", "metrics.csv"))[len(rows):]
+        if [int(r["step"]) for r in new] != [4] or len(probe.steps) != 1:
+            fail(f"E2E resume: metrics.csv gained rows at steps "
+                 f"{[r['step'] for r in new]}, not one row at step 4")
+        lr_want = cosine_warmup_schedule(5e-5, 4, 0.05)(3)
+        if float(new[0]["lr"]) != lr_want:
+            fail(f"E2E resume: lr {new[0]['lr']} at step 4, the schedule "
+                 f"gives {lr_want} at step index 3")
+        trainer, state = probe.fits[-1]
+        opt_steps = {float(s["step"]) for s in state.optimizer.state.values()}
+        if state.step != 4 or opt_steps != {4.0}:
+            fail(f"E2E resume: step {state.step}, optimizer step counts "
+                 f"{opt_steps}, not 4")
+        if len(probe.restores) != 1 or probe.restores[0]["items"] != [
+                "opt_state", "params", "step"]:
+            fail(f"E2E resume: restores {probe.restores}")
+        log(f"  E2E resume: one step (4), lr {lr_want:.6g} = the schedule "
+            f"at step index 3, optimizer step count 4; best/ holds "
+            f"{best_steps(ckpt_dir)}")
+        if len(best_steps(ckpt_dir)) != 1:
+            fail(f"E2E resume: best/ holds {best_steps(ckpt_dir)}")
+
+        # ---- library round trip at flagship: save the live state, step,
+        # rebuild, restore, the same step on the same batch
+        tcfg = dataclasses.replace(trainer.config, max_steps=8)
+        cfg = compose(T.CONFIG_DIR, "train", args)
+        _, val_loader, _ = T.build_data(cfg, mcfg)
+        dev = state.model.device
+        batch = device_batch(next(iter(val_loader)), dev)
+        lib = CheckpointManager(CheckpointConfig(
+            directory=os.path.join(root, "lib")))
+        probe.clear()
+        lib.save(state.step, train_state_items(state))
+        ta = Trainer(tcfg, recipe.loss_fn, recipe.filter_fn)
+        _, m_a = ta.train_step(state, batch)
+        names = trainer.trainable
+        params = dict(state.model.named_parameters())
+        want_p = {n: params[n].detach().cpu() for n in names}
+        want_m = {(n, k): state.optimizer.state[params[n]][k].detach().cpu()
+                  for n in names for k in ("exp_avg", "exp_avg_sq", "step")}
+        want = (m_a["loss"].cpu(), m_a["grad_norm"].cpu())
+        del trainer, state, ta, params, m_a
+        probe.models.clear()
+        probe.fits.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        model, _ = T.build_model(cfg.model, device=dev, seed=cfg.seed + 1)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        tb = Trainer(tcfg, recipe.loss_fn, recipe.filter_fn)
+        sb = tb.init_state(model)
+        sb.step = restore_into(lib.restore(), model, sb.optimizer)
+        _, m_b = tb.train_step(sb, batch)
+        params = dict(model.named_parameters())
+        bad = [n for n in names if not torch.equal(
+            params[n].detach().cpu(), want_p[n])]
+        bad += [f"{n}:{k}" for (n, k), v in want_m.items() if not torch.equal(
+            sb.optimizer.state[params[n]][k].detach().cpu(), v)]
+        if not (torch.equal(m_b["loss"].cpu(), want[0])
+                and torch.equal(m_b["grad_norm"].cpu(), want[1])):
+            bad.append(f"loss/grad_norm {float(m_b['loss'])}, "
+                       f"{float(m_b['grad_norm'])} != {float(want[0])}, "
+                       f"{float(want[1])}")
+        if bad:
+            fail(f"library round trip: not bit-identical after restore: "
+                 f"{bad[:6]} ({len(bad)} differ)")
+        log(f"  library round trip (save at step 4, one step, a fresh "
+            f"model built in {build_s:.2f} s from another seed, full restore, "
+            f"the same step on the same batch): loss {float(want[0]):.6f}, "
+            f"grad_norm {float(want[1]):.6f}, {len(names)} trainable "
+            f"parameters and their Adam moments bit-identical")
+        for r in probe.saves:
+            log(f"  library save: {r['bytes'] / 1e9:.3f} GB in {r['s']:.2f} s"
+                f" ({r['bytes'] / 1e9 / r['s']:.2f} GB/s)")
+        for r in probe.restores:
+            log(f"  library restore: {r['bytes'] / 1e9:.3f} GB in "
+                f"{r['s']:.2f} s")
+        del model, tb, sb, params, want_p, want_m, batch, m_b
+        shutil.rmtree(os.path.join(root, "lib"))
+
+        # ---- evaluate.main on the resumed run's checkpoint
+        metrics, got = cli_run(
+            "E2E evaluate.main", probe,
+            lambda: EV.main(args + [f"ckpt_path={ckpt_dir}"]), {}, e2e_eval,
+            card)
+        add(got)
+        for key in ("test/loss", "test/score"):
+            if key not in metrics or not math.isfinite(metrics[key]):
+                fail(f"evaluate: {key} missing or non-finite in {metrics}")
+        shutil.rmtree(out)
+
+        # ---- TG: 2 steps, eval at step 2; no kernel on this path
+        out = os.path.join(root, "tg")
+        final, got = cli_run(
+            "TG train.main", probe,
+            lambda: T.main(TG_CLI + [f"paths.output_dir={out}"]), {}, {}, card)
+        add(got)
+        if len(probe.steps) != 2 or "val/iou_score" not in final:
+            fail(f"TG: {len(probe.steps)} steps, final metrics {final}")
+        if len(best_steps(os.path.join(out, "checkpoints"))) != 1:
+            fail("TG: best/ does not hold one step")
+        shutil.rmtree(out)
+    finally:
+        probe.remove()
+        probe.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2798,10 +3292,18 @@ def main() -> None:
     vicuna_served = serving_engine(card, backbone="instructblip", arrivals=0)
     for kern in (flash, lookup, select):
         kern["launches"] += vicuna[kern["name"]] + vicuna_served[kern["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    log("phase 15: the training and evaluation CLIs at flagship width "
+        "(train.main, evaluate.main)")
+    clis = cli_paths(card)
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += clis.get(kern["name"], 0)
     done = time.perf_counter()
-    log(f"phases 1-14 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-15 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
-        f"{done - t14:.1f} s")
+        f"{t15 - t14:.1f} s, phase 15 in {done - t15:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

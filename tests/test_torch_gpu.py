@@ -1282,3 +1282,80 @@ def test_tiny_engine_on_the_card_equals_direct_calls(cuda, monkeypatch):
     direct = dict(kernels.LAUNCHES)
     assert direct["select_frames"] == batches  # kernel D in every batch
     assert engine_launches == direct
+
+
+@pytest.mark.gpu
+def test_tiny_e2e_cli_on_the_card_with_tgb_selection(cuda, tmp_path,
+                                                     monkeypatch):
+    """``train.main`` then ``evaluate.main`` on the card for the tiny E2E
+    recipe with the "tgb" selection: one launch of kernel D per step and
+    two per eval batch (the eval loss's selection and ``generate_blip2``'s);
+    every tiny attention (ViT-g 17 tokens, the T5 encoder's 2 x 4 visual +
+    16 question tokens) is under the 128^2 rule, so 0 A and 0 C. Then the
+    library round trip: the fitted state saved, one step, a fresh model
+    from another seed restored, the same step on the same batch bit for bit
+    (loss, gradient norm, trainable parameters, Adam moments)."""
+    from videotgb_torch import evaluate as EV
+    from videotgb_torch import train as T
+    from videotgb_torch.config import compose
+    from videotgb_torch.data.loader import device_batch
+    from videotgb_torch.training import checkpoint as CK
+
+    steps, fits = [], []
+    real_step, real_fit = Trainer.train_step, Trainer.fit
+
+    def counted_step(self, state, batch):
+        before = dict(kernels.LAUNCHES)
+        out = real_step(self, state, batch)
+        torch.cuda.synchronize()
+        steps.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    def kept_fit(self, state, *args, **kwargs):
+        state = real_fit(self, state, *args, **kwargs)
+        fits.append((self, state))
+        return state
+
+    monkeypatch.setattr(Trainer, "train_step", counted_step)
+    monkeypatch.setattr(Trainer, "fit", kept_fit)
+    out = str(tmp_path / "out")
+    args = ["experiment=smoke_e2e_synthetic", "model.selection=tgb",
+            f"paths.output_dir={out}", "extras.print_config=false"]
+    kernels.reset_launches()
+    final = T.main(args)
+    got = dict(kernels.LAUNCHES)
+    zero = dict.fromkeys(got, 0)
+    assert steps == [{**zero, "select_frames": 1}] * 2
+    # 2 steps + 2 evals (at step 2 and the final one) of one batch each
+    assert got == {**zero, "select_frames": 2 + 2 * 2}
+    assert np.isfinite(final["val/loss"]) and "val/score" in final
+
+    trainer, state = fits[-1]
+    cfg = compose(T.CONFIG_DIR, "train", args)
+    recipe = T.build_recipe(cfg.model)
+    _, val_loader, _ = T.build_data(cfg, T.build_model(cfg.model, "cpu")[1])
+    batch = device_batch(next(iter(val_loader)), cuda)
+    mgr = CK.CheckpointManager(CK.CheckpointConfig(str(tmp_path / "lib")))
+    mgr.save(state.step, CK.train_state_items(state))
+    _, m_a = trainer.train_step(state, batch)
+    names = trainer.trainable
+    params = dict(state.model.named_parameters())
+    want = {n: params[n].detach().clone() for n in names}
+    moments = {(n, k): state.optimizer.state[params[n]][k].clone()
+               for n in names for k in ("exp_avg", "exp_avg_sq", "step")}
+    model, _ = T.build_model(cfg.model, device=cuda, seed=cfg.seed + 1)
+    tb = Trainer(trainer.config, recipe.loss_fn, recipe.filter_fn)
+    sb = tb.init_state(model)
+    sb.step = CK.restore_into(mgr.restore(), model, sb.optimizer)
+    assert sb.step == state.step == 2
+    _, m_b = tb.train_step(sb, batch)
+    assert torch.equal(m_a["loss"], m_b["loss"])
+    assert torch.equal(m_a["grad_norm"], m_b["grad_norm"])
+    params = dict(model.named_parameters())
+    for n in names:
+        assert torch.equal(params[n], want[n]), n
+    for (n, k), v in moments.items():
+        assert torch.equal(sb.optimizer.state[params[n]][k], v), (n, k)
+
+    metrics = EV.main(args + [f"ckpt_path={out}/checkpoints"])
+    assert {"test/loss", "test/score"} <= set(metrics)

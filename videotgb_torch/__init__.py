@@ -26,8 +26,18 @@ answer worker, each on its own CUDA stream on the card) and
 their judge, over the host modules of ``data/`` (tokenizers, video I/O,
 transforms).
 
+The TG and E2E recipes train from the command line as in the JAX package:
+``python -m videotgb_torch.train experiment=...`` composes the repo's
+``configs/`` tree (``config/``, read without PyYAML), builds the synthetic
+or VideoInstruct data (``data/datasets.py``, ``data/loader.py``) and fits
+with evaluation, checkpoints, resume and early stopping
+(``training/trainer.py``, ``training/checkpoint.py``,
+``training/metrics.py``, ``utils/``); ``python -m videotgb_torch.evaluate
+ckpt_path=...`` scores a checkpoint.
+
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"``; there each kernel is replaced by its plain PyTorch version.
+``device="cpu"`` (``trainer.platform=cpu`` for the CLIs); there each kernel
+is replaced by its plain PyTorch version.
 Nothing CUDA-specific is built or imported when this package is imported.
 """
 

@@ -1,6 +1,8 @@
-"""The train step (counterpart of ``videotgb_tpu/training/trainer.py``):
-gradients of a recipe's loss, accumulated over micro-batches, then the
-clipped AdamW update of the trainable parameters.
+"""The training loop (counterpart of ``videotgb_tpu/training/trainer.py``):
+the train step (gradients of a recipe's loss, accumulated over
+micro-batches, then the clipped AdamW update of the trainable parameters)
+and ``fit`` (logging, evaluation, checkpoints and early stopping on the JAX
+trainer's cadence).
 
 Frozen parameters carry ``requires_grad=False``, which is what the JAX
 trainer's stop-gradient on frozen leaves does: autograd builds no backward
@@ -13,7 +15,8 @@ dropout masks and Gumbel noise from one generator seeded from
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import time
+from typing import Callable, Iterable
 
 import torch
 
@@ -22,6 +25,9 @@ from videotgb_torch.training.optim import (
     make_optimizer,
     optimizer_step,
 )
+from videotgb_torch.utils.logging import get_logger
+
+log = get_logger("videotgb_torch.trainer")
 
 
 @dataclasses.dataclass
@@ -32,7 +38,42 @@ class TrainerConfig:
     warmup_ratio: float = 0.05
     accumulate_grad_batches: int = 1
     max_grad_norm: float | None = 1.0
+    # K train steps per dispatch is the JAX trainer's lax.scan window; its
+    # counterpart here is a CUDA-graphed step (ROADMAP.md queue 1 item 2)
+    steps_per_dispatch: int = 1
+    log_every: int = 50
+    eval_every: int = 500
+    checkpoint_every: int = 500
+    monitor: str = "val/score"
+    monitor_mode: str = "max"
+    early_stop_patience: int | None = None
+    # callbacks-group extras (reference configs/callbacks/model_summary.yaml
+    # RichModelSummary max_depth, rich_progress_bar.yaml RichProgressBar)
+    model_summary_depth: int | None = None
+    progress_bar: bool = False
     seed: int = 42
+
+
+def param_summary(model: torch.nn.Module, trainable: Iterable[str],
+                  max_depth: int) -> list[str]:
+    """Depth-limited parameter table (the RichModelSummary analogue,
+    reference configs/callbacks/model_summary.yaml): parameter counts
+    grouped by the first ``max_depth`` components of their names, with the
+    counts of the ``trainable`` ones."""
+    trainable = set(trainable)
+    groups: dict[str, list[int]] = {}
+    for name, p in model.named_parameters():
+        g = groups.setdefault(".".join(name.split(".")[:max_depth]), [0, 0])
+        g[0] += p.numel()
+        if name in trainable:
+            g[1] += p.numel()
+    width = max(len(n) for n in groups) if groups else 0
+    lines = [f"  {'module'.ljust(width)}  params      trainable"]
+    for name in sorted(groups):
+        total, train = groups[name]
+        lines.append(f"  {name.ljust(width)}  {total / 1e6:8.2f}M  "
+                     f"{train / 1e6:8.2f}M")
+    return lines
 
 
 @dataclasses.dataclass
@@ -51,15 +92,32 @@ class Trainer:
                  filter_fn: Callable[[str], bool] | None = None):
         """``loss_fn(model, batch, generator) -> (loss, aux dict)``;
         ``filter_fn(name)`` says which parameters train (all without one)."""
+        if config.steps_per_dispatch > 1:
+            raise NotImplementedError(
+                "steps_per_dispatch > 1 (several steps per dispatch) is the "
+                "CUDA-graphed train step of ROADMAP.md queue 1 item 2, not "
+                "ported yet")
         self.config = config
         self.loss_fn = loss_fn
         self.filter_fn = filter_fn
+        self.writers = None  # optional utils.writers.MultiWriter
         self.schedule = cosine_warmup_schedule(config.lr, config.max_steps,
                                                config.warmup_ratio)
+        self._best = None
+        self._stale_evals = 0
 
     def init_state(self, model: torch.nn.Module) -> TrainState:
         optimizer, self.trainable = make_optimizer(
             model, self.config.weight_decay, self.filter_fn)
+        params = dict(model.named_parameters())
+        n_train = sum(params[n].numel() for n in self.trainable)
+        n_total = sum(p.numel() for p in params.values())
+        log.info("params: %.2fM trainable / %.2fM total",
+                 n_train / 1e6, n_total / 1e6)
+        if self.config.model_summary_depth:
+            for line in param_summary(model, self.trainable,
+                                      self.config.model_summary_depth):
+                log.info("%s", line)
         return TrainState(model, optimizer, 0)
 
     def generator(self, step: int, device) -> torch.Generator:
@@ -104,3 +162,84 @@ class Trainer:
         metrics.update({k: v / accum for k, v in aux_sums.items()
                         if k not in metrics})
         return TrainState(model, state.optimizer, state.step + 1), metrics
+
+    # ------------------------------------------------------------------ fit
+    def fit(
+        self,
+        state: TrainState,
+        train_iter: Iterable[dict],
+        eval_fn: Callable[[TrainState], dict] | None = None,
+        checkpoint_fn: Callable[[TrainState, dict | None], None] | None = None,
+        batch_transform: Callable[[TrainState, dict], dict] | None = None,
+    ) -> TrainState:
+        """Train until ``max_steps`` (or the iterator ends, or early stop).
+        ``batch_transform(state, batch)`` runs host-side per step with the
+        CURRENT parameters (the hook of the SF pseudo-label pass). The
+        cadence is the JAX trainer's: at each step log (every
+        ``log_every``), then evaluate (every ``eval_every``), save with the
+        eval metrics and test for an early stop; between evals, save
+        without metrics every ``checkpoint_every``."""
+        cfg = self.config
+        if state.step >= cfg.max_steps:
+            return state  # resumed at/after the horizon: nothing to do
+        t0 = time.perf_counter()
+        for batch in train_iter:
+            prev_step = state.step
+            if batch_transform is not None:
+                batch = batch_transform(state, batch)
+            state, metrics = self.train_step(state, batch)
+            step = state.step
+
+            def crossed(every):
+                # true when any step in (prev_step, step] is a multiple of
+                # ``every`` (the JAX trainer's test, which also serves its
+                # K-step windows)
+                return bool(every) and (step // every) > (prev_step // every)
+
+            if cfg.progress_bar:
+                # in-place per-step line (RichProgressBar analogue); the
+                # loss fetch syncs the step, so keep it off for benchmarks
+                print(f"\rstep {step}/{cfg.max_steps} "
+                      f"loss={float(metrics['loss']):.4f}",
+                      end="" if step < cfg.max_steps else "\n", flush=True)
+            if crossed(cfg.log_every):
+                host = {k: float(v) for k, v in metrics.items()}
+                rate = step / (time.perf_counter() - t0)
+                log.info("step %d %s (%.2f it/s)", step, host, rate)
+                if self.writers is not None:
+                    self.writers.log_metrics(host, step)
+            if eval_fn is not None and crossed(cfg.eval_every):
+                eval_metrics = eval_fn(state)
+                log.info("eval @%d: %s", step, eval_metrics)
+                if self.writers is not None:
+                    self.writers.log_metrics(eval_metrics, step)
+                if checkpoint_fn is not None:
+                    checkpoint_fn(state, eval_metrics)
+                if self._should_stop(eval_metrics):
+                    log.info("early stopping at step %d", step)
+                    break
+            elif (checkpoint_fn is not None and cfg.checkpoint_every
+                  and step % cfg.checkpoint_every == 0):
+                # periodic save between eval ticks (metrics=None: recorded as
+                # a resume point, never a "best" candidate)
+                checkpoint_fn(state, None)
+            if step >= cfg.max_steps:
+                break
+        return state
+
+    def _should_stop(self, eval_metrics: dict) -> bool:
+        cfg = self.config
+        if cfg.early_stop_patience is None or cfg.monitor not in eval_metrics:
+            return False
+        value = eval_metrics[cfg.monitor]
+        better = (
+            self._best is None
+            or (cfg.monitor_mode == "max" and value > self._best)
+            or (cfg.monitor_mode == "min" and value < self._best)
+        )
+        if better:
+            self._best = value
+            self._stale_evals = 0
+            return False
+        self._stale_evals += 1
+        return self._stale_evals >= cfg.early_stop_patience
