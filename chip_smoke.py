@@ -153,7 +153,29 @@ Phases, each fatal on failure (exit code 1):
    steps, no kernel, ``val/iou_score``); each step's wall split into the
    data wait and ``train_step``, eval walls, save and restore walls and
    bytes, peak memory. It needs 2.2 x 18.1 GB of free disk (two flagship
-   checkpoints at once) under ``build/`` and fails without it.
+   checkpoints at once) under ``build/`` and fails without it;
+16. the self-refinement (SF) recipe and the InstructBLIP training paths at
+   flagship width, f32 parameters, bf16 compute, batch 2, 32 candidate
+   frames at 224², 64 flow frames, 128-token questions, 32-token answers,
+   32 pseudo tokens. 16a: ``train.main`` with ``experiment=
+   smoke_sf_synthetic model.preset=flagship``, 2 steps, one eval, one save:
+   each step's pseudo-label pass and ``train_step`` timed and counted
+   against the launches ``expected_launches`` derives from the config and
+   the dispatch rule (kernel C with ds on every T5 encoder layer, two
+   passes), the scores in [0, 1] and the spans inside each row's flow
+   length, ViT-g and RAFT bit-identical, T5, TGB and Q-Former tensors
+   moved, finite ``loss``, ``lm_loss`` and ``mrc_loss``; the memory the
+   optimizer step adds; the save's time and bytes (it needs 1.1 x 40.9 GB
+   of free disk under ``build/``); the T5 relative-position bias's
+   gradient on kernel C against its plain version. 16b:
+   ``SFRecipe(online_flow=True)`` on InstructBLIP-Flan-T5
+   (``LSTP_SF_small``), 2 library steps with ``flow_frames`` (2, 65, 224,
+   224, 3) from a seed: RAFT's 20 lookups a step on top, the
+   instruction-aware Q-Former's kernel C calls in one pass. 16c: 2
+   ``E2ERecipe`` steps on InstructBLIP-Vicuna-7B, the LLaMA frozen (kernel
+   C at head dim 128 on two passes), the Q-Former moved. Then kernel C at
+   the two new shapes against its plain version, timed beside SDPA's
+   backward.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -2758,19 +2780,26 @@ class CliProbe:
     (synchronised wall, launches and bodies), ``evaluate_tg`` /
     ``evaluate_generative`` (wall, batches, launches), checkpoint saves and
     restores (walls, bytes), ``build_model`` (the model; with ``frozen``, a
-    host copy of the parameters that ``frozen`` says are frozen) and
-    ``Trainer.fit`` (its trainer and final state). The wrappers only read;
-    every kernel launch stays the CLI's."""
+    host copy of the parameters that ``frozen`` says are frozen, and with
+    ``moving`` one of those it names), ``Trainer.fit`` (its trainer and
+    final state); for phase 16 also the SF pseudo-label pass
+    (``train.sf_pseudo_scores``: wall, launches, scores and the span
+    targets they give), kernel C's wrapper (the shape of each call, whether
+    it wrote ds, its passes) and the optimizer step (the memory it adds).
+    The wrappers only read; every kernel launch stays the CLI's."""
 
     def __init__(self):
-        self.frozen = None
+        self.frozen = self.moving = None
         self.clear()
         self._undo = []
 
     def clear(self):
         self.waits, self.val_waits, self.steps, self.evals = [], [], [], []
         self.saves, self.restores, self.models, self.fits = [], [], [], []
-        self.snapshot = None
+        self.pseudo, self.bwd, self.opt = [], [], []
+        self.snapshot = self.moving_snapshot = None
+        self.peak = 0
+        self.keep_args = False
 
     def _patch(self, owner, name, make):
         orig = getattr(owner, name)
@@ -2782,8 +2811,12 @@ class CliProbe:
 
         from videotgb_torch import train as T
         from videotgb_torch.data.loader import PrefetchLoader
-        from videotgb_torch.ops import kernels
+        from videotgb_torch.ops import attention, kernels
+        from videotgb_torch.ops.attention import flash_bwd_passes
+        from videotgb_torch.ops.span import (largest_rectangle_span,
+                                             rescale_index)
         from videotgb_torch.training import checkpoint as CK
+        from videotgb_torch.training import trainer as TR
         from videotgb_torch.training.trainer import Trainer
 
         probe = self
@@ -2901,8 +2934,58 @@ class CliProbe:
                         if probe.frozen(n)}
                     log(f"  {len(probe.snapshot)} frozen parameters copied to "
                         f"the host in {time.perf_counter() - t:.2f} s")
+                if probe.moving is not None and probe.moving_snapshot is None:
+                    probe.moving_snapshot = {
+                        n: p.detach().cpu() for n, p in model.named_parameters()
+                        if probe.moving(n)}
                 return model, mcfg
             return capture
+
+        def pseudo(orig):
+            def timed(model, db, answers, tok, max_new_tokens=16):
+                before, mma = counts()
+                t = time.perf_counter()
+                scores = orig(model, db, answers, tok,
+                              max_new_tokens=max_new_tokens)
+                after, mma_after = counts()
+                starts, ends = largest_rectangle_span(scores)
+                lengths = db["video_length"].cpu()
+                probe.pseudo.append({
+                    "ms": (time.perf_counter() - t) * 1e3, "scores": scores,
+                    "starts": rescale_index(starts, scores.shape[1], lengths),
+                    "ends": rescale_index(ends, scores.shape[1], lengths),
+                    "lengths": lengths, "launches": diff(after, before),
+                    "mma": diff(mma_after, mma)})
+                return scores
+            return timed
+
+        def flash_bwd(orig):
+            def record(q, k, v, bias, g, scale, bias_needs_grad=True):
+                out = orig(q, k, v, bias, g, scale, bias_needs_grad)
+                probe.bwd.append({
+                    "shape": (*q.shape, k.shape[2]),
+                    "ds": bias is not None and bias_needs_grad,
+                    "passes": flash_bwd_passes(q.shape[2], k.shape[2],
+                                               q.shape[3])})
+                if probe.keep_args:
+                    probe.bwd[-1]["args"] = (q, k, v, bias, g, scale,
+                                             bias_needs_grad)
+                    probe.bwd[-1]["dbias"] = out[3]
+                return out
+            return record
+
+        def opt_step(orig):
+            def measured(optimizer, lr, max_grad_norm):
+                torch.cuda.synchronize()
+                probe.peak = max(probe.peak, torch.cuda.max_memory_allocated())
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = orig(optimizer, lr, max_grad_norm)
+                torch.cuda.synchronize()
+                top = torch.cuda.max_memory_allocated()
+                probe.opt.append({"held": held, "add": top - held})
+                return out
+            return measured
 
         def fit(orig):
             def capture(trainer, state, *args, **kwargs):
@@ -2920,6 +3003,9 @@ class CliProbe:
         self._patch(CK.CheckpointManager, "save", save)
         self._patch(CK.CheckpointManager, "restore", restore)
         self._patch(CK, "restore_into", restore_into)
+        self._patch(T, "sf_pseudo_scores", pseudo)
+        self._patch(attention, "flash_backward_cuda", flash_bwd)
+        self._patch(TR, "optimizer_step", opt_step)
 
     def remove(self):
         for owner, name, orig in reversed(self._undo):
@@ -2927,11 +3013,13 @@ class CliProbe:
         self._undo.clear()
 
 
-def cli_run(name, probe, drive, step_want, eval_want, card) -> dict:
+def cli_run(name, probe, drive, step_want, eval_want, card,
+            pseudo_want=None) -> dict:
     """One CLI call: every count set to 0 just before, read just after;
-    each step's and each eval batch's launches (and tensor-core bodies)
-    against ``step_want`` / ``eval_want``, the total against their sum.
-    Prints the walls; returns (the CLI's result, the launches)."""
+    each step's, each eval batch's and each SF pseudo pass's launches (and
+    tensor-core bodies) against ``step_want`` / ``eval_want`` /
+    ``pseudo_want``, the total against their sum. Prints the walls; returns
+    (the CLI's result, the launches)."""
     import torch
 
     from videotgb_torch.ops import kernels
@@ -2945,13 +3033,16 @@ def cli_run(name, probe, drive, step_want, eval_want, card) -> dict:
     result = drive()
     wall = time.perf_counter() - t
     got = dict(kernels.LAUNCHES)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gib = max(probe.peak, torch.cuda.max_memory_allocated()) / 2 ** 30
     zero = dict.fromkeys(got, 0)
     step_want = {**zero, **step_want}
     eval_want = {**zero, **eval_want}
+    pseudo_want = {**zero, **(pseudo_want or {})}
     mma_names = ("flash_fwd", "flash_bwd", "flash_bshd")
     for what, runs, want, per in (("step", probe.steps, step_want, 1),
-                                  ("eval", probe.evals, eval_want, None)):
+                                  ("eval", probe.evals, eval_want, None),
+                                  ("pseudo pass", probe.pseudo, pseudo_want,
+                                   1)):
         for i, r in enumerate(runs):
             n = per or r["batches"]
             expect = {k: v * n for k, v in want.items()}
@@ -2964,6 +3055,7 @@ def cli_run(name, probe, drive, step_want, eval_want, card) -> dict:
                      f"{ {k: expect[k] for k in mma_names} }")
     total = {k: len(probe.steps) * step_want[k]
              + sum(r["batches"] for r in probe.evals) * eval_want[k]
+             + len(probe.pseudo) * pseudo_want[k]
              for k in got}
     def nz(d):
         return {k: v for k, v in d.items() if v}
@@ -2971,7 +3063,9 @@ def cli_run(name, probe, drive, step_want, eval_want, card) -> dict:
     log(f"  {name} launches: {nz(got)} (expected {nz(total)}: "
         f"{len(probe.steps)} steps x {nz(step_want)} + "
         f"{sum(r['batches'] for r in probe.evals)} eval batches x "
-        f"{nz(eval_want)}; every other kernel 0)")
+        f"{nz(eval_want)}"
+        + (f" + {len(probe.pseudo)} pseudo passes x {nz(pseudo_want)}"
+           if probe.pseudo else "") + "; every other kernel 0)")
     if got != total:
         fail(f"{name} launch counts: {got} != {total}")
     check_bodies(name, got)
@@ -3208,6 +3302,532 @@ def cli_paths(card: str) -> dict:
     return launches
 
 
+# ---------------------------- phase 16: SF and the InstructBLIP training paths
+SF_CKPT_GB = 40.9  # a flagship SF save: f32 parameters + the Adam moments
+SF_SHAPES = ["data.batch_size=2", "data.max_flow_len=64",
+             "data.flow_len_range=[8,64]", "data.max_txt_len=128",
+             "data.answer_len=32", "extras.print_config=false"]
+SF_CLI = ["experiment=smoke_sf_synthetic", "model.preset=flagship",
+          "data.train_size=4", "data.val_size=2", "model.pseudo_max_new=32",
+          "model.eval_max_new=16", "trainer.max_steps=2",
+          "trainer.eval_every=10", "trainer.log_every=1",
+          "callbacks.model_checkpoint.save_last=false"] + SF_SHAPES
+
+
+def flash_on(s_q: int, s_kv: int) -> int:
+    """1 where the dispatch rule of ``models/common.py`` sends an attention
+    of Sq x Skv to the flash kernels (Sq * Skv > 128^2), else 0."""
+    return int(s_q * s_kv > 128 * 128)
+
+
+def expected_launches(mcfg, kind: str, text_len: int, answer_len: int,
+                      packed_len: int = 0) -> dict:
+    """Launches of one ``kind`` of run, derived from the config and the
+    dispatch rule: "pseudo" (the SF pass over B*F single frames), "sf" (an
+    SF step; everything but the ViT trains, so every flash attention after
+    it has a backward), "e2e" (a Vicuna E2E step; the LLaMA frozen but on
+    the gradient's way to the Q-Former), "eval" (an SF eval batch,
+    ``generate_blip2``). The ViT-g and the Q-Former (self-attention over
+    its queries and, instruction-aware, the instruction; cross-attention
+    into the image tokens) run in every kind; the T5 encoder over [visual |
+    question], its decoder's self- and cross-attention over the answer in
+    a step (one token a step when generating: never flash); the LLaMA over
+    [visual | packed prompt and answer]."""
+    vit = mcfg.vit
+    n_img = (vit.image_size // vit.patch_size) ** 2 + 1
+    qf = (mcfg.blip2 or mcfg.instructblip).qformer
+    q = qf.num_query_tokens
+    q_self = q + (text_len if mcfg.instruction_aware else 0)
+    qformer = (qf.num_layers * flash_on(q_self, q_self)
+               + len(range(0, qf.num_layers, qf.cross_attention_frequency))
+               * flash_on(q, n_img))
+    a = vit.num_layers * flash_on(n_img, n_img) + qformer
+    c = 0
+    if kind == "e2e":
+        llm = mcfg.instructblip.llm
+        s = mcfg.nframe * q + packed_len
+        a += llm.num_layers * flash_on(s, s)
+        c = qformer + llm.num_layers * flash_on(s, s)
+        return {"flash_fwd": a, "flash_bwd": c, "select_frames": 1}
+    t5 = mcfg.blip2.t5
+    frames = mcfg.nframe if kind == "sf" else 1
+    enc = frames * q + text_len
+    a += t5.num_encoder_layers * flash_on(enc, enc)
+    if kind == "sf":
+        dec = t5.num_decoder_layers * (flash_on(answer_len, answer_len)
+                                       + flash_on(answer_len, enc))
+        a += dec
+        c = qformer + t5.num_encoder_layers * flash_on(enc, enc) + dec
+    out = {"flash_fwd": a}
+    if kind in ("sf", "eval"):
+        out["select_frames"] = 1
+    if c:
+        out["flash_bwd"] = c
+    return out
+
+
+def check_bwd_calls(name, calls, s_q, want_calls, want_passes, want_ds):
+    """The kernel-C calls of ``s_q`` queries that a run recorded: their
+    number, passes each and whether they wrote ds."""
+    mine = [c for c in calls if c["shape"][2] == s_q]
+    shapes = sorted({c["shape"] for c in mine})
+    log(f"  {name}: {len(mine)} kernel C calls at Sq = {s_q}, shapes "
+        f"(B, H, Sq, D, Skv) {shapes}, passes "
+        f"{sorted({c['passes'] for c in mine})}, ds written by "
+        f"{sum(c['ds'] for c in mine)}")
+    if len(mine) != want_calls:
+        fail(f"{name}: {len(mine)} kernel C calls at Sq = {s_q}, not "
+             f"{want_calls}")
+    if any(c["passes"] != want_passes for c in mine):
+        fail(f"{name}: a kernel C call at Sq = {s_q} not on {want_passes} "
+             f"pass(es)")
+    if sum(c["ds"] for c in mine) != (want_calls if want_ds else 0):
+        fail(f"{name}: kernel C wrote ds in {sum(c['ds'] for c in mine)} of "
+             f"{want_calls} calls (want {'all' if want_ds else 'none'})")
+    return shapes
+
+
+def check_bwd_groups(name, calls, mcfg, steps, text_len, packed_len=0):
+    """Every kernel-C call of ``steps`` steps: the Q-Former's (instruction-
+    aware: Sq = queries + instruction; one pass, no ds), the T5 encoder's
+    (Sq = 4 x 32 + question; two passes, ds: its relative-position bias
+    trains) or the LLaMA's (Sq = 4 x 32 + the packed text; two passes at
+    head dim 128, no ds). Returns the shapes by group."""
+    qf = (mcfg.blip2 or mcfg.instructblip).qformer
+    q = qf.num_query_tokens
+    groups = {}
+    n = 0
+    if mcfg.instruction_aware:
+        s_q = q + text_len
+        groups["qformer"] = check_bwd_calls(
+            f"{name} (Q-Former)", calls, s_q,
+            steps * qf.num_layers * flash_on(s_q, s_q), 1, False)
+        n += steps * qf.num_layers * flash_on(s_q, s_q)
+    if mcfg.backbone == "blip2":
+        s_q = mcfg.nframe * q + text_len
+        layers = mcfg.blip2.t5.num_encoder_layers
+        groups["t5"] = check_bwd_calls(f"{name} (T5 encoder)", calls, s_q,
+                                       steps * layers, 2, True)
+    else:
+        s_q = mcfg.nframe * q + packed_len
+        layers = mcfg.instructblip.llm.num_layers
+        groups["llama"] = check_bwd_calls(f"{name} (LLaMA)", calls, s_q,
+                                          steps * layers, 2, False)
+    n += steps * layers
+    if len(calls) != n:
+        fail(f"{name}: {len(calls)} kernel C calls, {n} in the groups")
+    return groups
+
+
+def c_at(card, label, b, h, s_q, s_kv, d, bias, need_ds) -> dict:
+    """Kernel C at one of phase 16's shapes against its plain version (dq,
+    dk, dv and, with ds, the bias's gradient), then timed as device time
+    per call beside the plain version and SDPA's backward (its kernels
+    summed under the profiler; with ds the mask's gradient too), with the
+    bound of this call's bytes and operations."""
+    import torch
+    import torch.nn.functional as F
+
+    from videotgb_torch.ops.attention import (
+        flash_backward_cuda,
+        flash_backward_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2) for s in (s_q, s_kv, s_kv, s_q))
+    scale = d ** -0.5
+    got = flash_backward_cuda(q, k, v, bias, g, scale, need_ds)
+    want = flash_backward_reference(q, k, v, bias, g, scale, need_ds)
+    err = 0.0
+    for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if y is not None:
+            err = max(err, check_to_largest(
+                f"flash_bwd {label} {name}", x, y, 2e-2,
+                "ds and the gradients rounded to bf16 (2^-8 of an entry), "
+                "sums in another order"))
+    ms = graph_ms(lambda: flash_backward_cuda(q, k, v, bias, g, scale,
+                                              need_ds))
+    plain_ms = graph_ms(lambda: flash_backward_reference(
+        q, k, v, bias, g, scale, need_ds), iters=5)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    mask = bias.to(torch.bfloat16).requires_grad_(need_ds)
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         scale=scale)
+    wrt = (qs, ks, vs, mask) if need_ds else (qs, ks, vs)
+    lib_ms = profiled_ms(lambda: torch.autograd.grad(out, wrt, g,
+                                                     retain_graph=True))
+    lib_ms = lib_ms if math.isfinite(lib_ms) else None
+    elem = q.element_size()
+    nbytes = (4 * b * h * s_q * d + 3 * b * h * s_kv * d) * elem \
+        + bias.numel() * 4 + (b * h * s_q * s_kv * 4 if need_ds else 0)
+    flops = 10 * b * h * s_q * s_kv * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    lib_txt = "not timed" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"  flash_bwd {label} ({b},{h},{s_q},{s_kv},{d}), bias "
+        f"{tuple(bias.shape)}{' with ds' if need_ds else ''}: device time per "
+        f"call {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_txt}; "
+        f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP) on {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_bytes, t_ops), "max_abs_err": err}
+
+
+def snapshot_changed(model, snap) -> list:
+    import torch
+
+    params = dict(model.named_parameters())
+    return [n for n, p in snap.items()
+            if not torch.equal(params[n].detach().cpu(), p)]
+
+
+def library_sf_steps(name, card, model, recipe, trainer, db, answers, tok,
+                     max_new, pseudo_want, step_want, steps=2) -> dict:
+    """``steps`` SF steps as ``train.main`` takes them (the pseudo pass with
+    the live parameters, then ``Trainer.train_step``) on one batch; the
+    launches of each pass and step counted against the derived ones."""
+    import torch
+
+    from videotgb_torch import train as T
+    from videotgb_torch.ops import kernels
+
+    state = trainer.init_state(model)
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    for i in range(steps):
+        for what, want, run in (
+                ("pseudo pass", pseudo_want, lambda: T.sf_pseudo_scores(
+                    state.model, db, answers, tok, max_new_tokens=max_new)),
+                ("train_step", step_want, lambda: trainer.train_step(
+                    state, {**db, "scores": scores}))):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            got = dict(kernels.LAUNCHES)
+            nz = {k: v for k, v in got.items() if v}
+            log(f"  {name} step {i} {what}: {ms:.2f} ms, launches {nz}")
+            if got != {**zero, **want}:
+                fail(f"{name} step {i} {what}: launches {nz} != {want}")
+            check_bodies(f"{name} step {i} {what}", got)
+            for k, v in got.items():
+                total[k] += v
+            if what == "pseudo pass":
+                scores = out
+                if not bool(((scores >= 0) & (scores <= 1)).all()):
+                    fail(f"{name}: scores outside [0, 1]")
+            else:
+                state, metrics = out
+                m = {k: float(v) for k, v in metrics.items()}
+                log(f"  {name} step {i}: {m}")
+                if not all(math.isfinite(v) for v in m.values()):
+                    fail(f"{name} step {i}: non-finite metrics")
+    return total, state
+
+
+def sf_paths(card: str) -> dict:
+    """Phase 16: the SF CLI at flagship width (16a), SF with RAFT in the
+    step on InstructBLIP-Flan-T5 (16b) and an E2E step on
+    InstructBLIP-Vicuna-7B (16c); returns the launches of the counted
+    runs."""
+    import shutil
+
+    import torch
+
+    from videotgb_torch import train as T
+    from videotgb_torch.config import compose
+    from videotgb_torch.data.loader import device_batch
+    from videotgb_torch.models.videotgb import VideoTGBConfig
+    from videotgb_torch.ops import attention
+    from videotgb_torch.ops.attention import (
+        flash_backward_reference,
+        make_causal_bias,
+        make_padding_bias,
+    )
+    from videotgb_torch.training.trainer import Trainer, TrainerConfig
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    text_len, answer_len, max_new, b = 128, 32, 32, 2
+    root = os.path.join(HERE, "build", "phase16")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    need = 1.1 * SF_CKPT_GB * 1e9
+    log(f"  free disk under {root}: {free / 1e9:.1f} GB (need "
+        f"{need / 1e9:.1f} GB: one {SF_CKPT_GB} GB SF checkpoint and room)")
+    if free < need:
+        fail(f"phase 16 needs {need / 1e9:.1f} GB of free disk for one "
+             f"{SF_CKPT_GB} GB flagship SF checkpoint; {free / 1e9:.1f} GB "
+             f"is free under {root}")
+    probe = CliProbe()
+    probe.install()
+    t16 = time.perf_counter()
+    try:
+        # ---- 16a: train.main, SF on BLIP2-Flan-T5, 2 steps, 1 eval, 1 save
+        mcfg = VideoTGBConfig.flagship()
+        pseudo_want = expected_launches(mcfg, "pseudo", text_len, answer_len)
+        step_want = expected_launches(mcfg, "sf", text_len, answer_len)
+        eval_want = expected_launches(mcfg, "eval", text_len, answer_len)
+        log(f"  16a derived launches: pseudo pass {pseudo_want}, step "
+            f"{step_want}, eval batch {eval_want} (the reckoning before the "
+            f"run: pseudo 39 + 24 A; step 39 + 24 A, 24 C with ds, 1 D)")
+        out = os.path.join(root, "sf")
+        args = SF_CLI + [f"paths.output_dir={out}"]
+        recipe = T.build_recipe(compose(T.CONFIG_DIR, "train", args).model)
+        probe.frozen = lambda n: not recipe.filter_fn(n)
+        watch = ("model.language_model.enc_rel_bias",
+                 "model.language_model.encoder_blocks.0.",
+                 "temporal_encoder.mrc_head", "model.qformer.layers.0.")
+        probe.moving = lambda n: n.startswith(watch)
+        final, got = cli_run("SF train.main", probe, lambda: T.main(args),
+                             step_want, eval_want, card,
+                             pseudo_want=pseudo_want)
+        add(got)
+        probe.frozen = probe.moving = None
+        if len(probe.steps) != 2 or len(probe.pseudo) != 2:
+            fail(f"SF: {len(probe.steps)} steps and {len(probe.pseudo)} "
+                 "pseudo passes, not 2 and 2")
+        enc = mcfg.blip2.t5.num_encoder_layers
+        check_bwd_groups("SF steps", probe.bwd, mcfg, 2, text_len)
+        trainer, state = probe.fits[-1]
+        changed = snapshot_changed(state.model, probe.snapshot)
+        if changed:
+            fail(f"SF: frozen parameters changed: {changed[:5]}")
+        moved = snapshot_changed(state.model, probe.moving_snapshot)
+        still = sorted(set(probe.moving_snapshot) - set(moved))
+        if still:
+            fail(f"SF: trainable parameters did not move: {still[:5]}")
+        log(f"  SF: all {len(probe.snapshot)} frozen parameters (ViT-g, "
+            f"RAFT) bit-identical after fit; all {len(moved)} watched T5, "
+            f"TGB and Q-Former tensors moved")
+        for i, (st, r) in enumerate(zip(probe.steps, probe.pseudo)):
+            m = st["metrics"]
+            for key in ("loss", "lm_loss", "mrc_loss"):
+                if key not in m or not math.isfinite(m[key]):
+                    fail(f"SF step {i + 1}: {key} missing or non-finite {m}")
+            sc = r["scores"]
+            if not bool(((sc >= 0) & (sc <= 1)).all()):
+                fail(f"SF pseudo pass {i + 1}: scores outside [0, 1]")
+            last = r["lengths"] - 1
+            if not bool(((r["starts"] >= 0) & (r["starts"] <= r["ends"])
+                         & (r["ends"] <= last)).all()):
+                fail(f"SF pseudo pass {i + 1}: spans {r['starts'].tolist()} "
+                     f"- {r['ends'].tolist()} outside the flow lengths "
+                     f"{r['lengths'].tolist()}")
+            log(f"  SF step {i + 1}: pseudo pass {r['ms']:.2f} ms + "
+                f"train_step {st['step_ms']:.2f} ms; loss {m['loss']:.6f} = "
+                f"lm {m['lm_loss']:.6f} + mrc {m['mrc_loss']:.6f}; scores in "
+                f"[{float(sc.min()):.4f}, {float(sc.max()):.4f}], spans "
+                f"{list(zip(r['starts'].tolist(), r['ends'].tolist()))} in "
+                f"flow lengths {r['lengths'].tolist()} on {card}")
+        for r in probe.opt:
+            log(f"  SF optimizer step: {r['held'] / 2 ** 30:.2f} GiB held "
+                f"before it (parameters, gradients, moments, the step's "
+                f"leftovers), clip_grad_norm_ and the fused AdamW add "
+                f"{r['add'] / 2 ** 30:.2f} GiB at their peak on {card}")
+        if set(final) != {"val/score"}:
+            fail(f"SF: final metrics {final}, want val/score alone")
+        if len(probe.saves) != 1 or not probe.saves[0]["bytes"]:
+            fail(f"SF: saves {probe.saves}, want one")
+
+        # kernel C's ds through autograd: one backward on kernel C keeps
+        # every call's inputs; each call's ds against C's plain version on
+        # the same inputs, then their sum over the 24 layers carried into
+        # the T5 relative-position embedding's gradient both ways
+        batch = device_batch(next(iter(T.build_data(compose(
+            T.CONFIG_DIR, "train", args), mcfg)[1])), state.model.device)
+        batch["scores"] = torch.rand((b, mcfg.num_frames),
+                                     generator=torch.Generator().manual_seed(1))
+        state.model.zero_grad(set_to_none=True)
+        probe.bwd.clear()
+        probe.keep_args = True
+        try:
+            loss, _ = recipe.loss_fn(
+                state.model, batch,
+                torch.Generator(device="cuda").manual_seed(5),
+                deterministic=True)
+            loss.backward()
+        finally:
+            probe.keep_args = False
+        state.model.zero_grad(set_to_none=True)
+        calls = [c for c in probe.bwd if c["ds"]]
+        if len(calls) != enc:
+            fail(f"SF: {len(calls)} kernel C calls wrote ds, not {enc}")
+        sums, worst = [0, 0], 0.0
+        for c in calls:
+            plain = flash_backward_reference(*c["args"])[3]
+            worst = max(worst, float((c["dbias"] - plain).abs().max())
+                        / float(plain.abs().max()))
+            sums[0] = sums[0] + c["dbias"].sum(0, keepdim=True)
+            sums[1] = sums[1] + plain.sum(0, keepdim=True)
+        log(f"  SF kernel C ds per call against its plain version on the "
+            f"same inputs: largest max_abs_err / max |plain| "
+            f"{worst:.3e} over the {enc} calls")
+        if worst > 2e-2:
+            fail(f"SF: kernel C's ds disagrees with its plain version "
+                 f"({worst:.3e} of the largest entry)")
+        check_to_largest(f"SF ds summed over the {enc} encoder layers",
+                         sums[0], sums[1], 2e-2,
+                         "ds through bf16 products, summed in another order")
+        t5m = state.model.model.language_model
+        s_enc = calls[0]["shape"][2]
+        pos = torch.arange(s_enc, device=state.model.device)
+        emb = [p for p in t5m.enc_rel_bias.parameters()]
+        rel = t5m.enc_rel_bias(pos, pos)
+        grads = [torch.autograd.grad(rel, emb, x.to(rel.dtype),
+                                     retain_graph=True) for x in sums]
+        for n, (x, y) in enumerate(zip(*grads)):
+            check_to_largest(
+                f"SF T5 relative-position embedding {n} gradient from "
+                f"kernel C's ds vs its plain version's", x, y, 2e-2,
+                "the 24 layers' ds rounded through bf16 products, summed "
+                "in another order")
+        for c in calls:
+            c.pop("args")
+            c.pop("dbias")
+        del calls, rel, sums
+        del trainer, state, batch, grads, loss
+        probe.models.clear()
+        probe.fits.clear()
+        shutil.rmtree(out)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 16b: SF with online flow on InstructBLIP-Flan-T5, 2 steps
+        t = time.perf_counter()
+        cfg = compose(T.CONFIG_DIR, "train", [
+            "model=LSTP_SF_small", "trainer.max_steps=2"] + SF_SHAPES)
+        model, mcfg = T.build_model(cfg.model, device="cuda", seed=cfg.seed)
+        recipe = T.build_recipe(cfg.model)
+        if not recipe.online_flow or not mcfg.instruction_aware:
+            fail(f"16b: {recipe}, instruction-aware {mcfg.instruction_aware}")
+        _, val_loader, tok = T.build_data(cfg, mcfg)
+        host = next(iter(val_loader))
+        db = device_batch(host, model.device)
+        l_flow = cfg.data.max_flow_len
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        fs = mcfg.tgb.flow_size
+        db["flow_frames"] = torch.randint(
+            0, 256, (b, l_flow + 1, fs, fs, 3), generator=gen,
+            device="cuda").float()
+        db["flow_mask"] = torch.ones_like(db["flow_mask"])
+        db["video_length"] = torch.full_like(db["video_length"], l_flow)
+        pseudo_b = expected_launches(mcfg, "pseudo", text_len, answer_len)
+        step_b = {**expected_launches(mcfg, "sf", text_len, answer_len),
+                  "corr_lookup": mcfg.raft.iters}
+        log(f"  16b derived launches: pseudo pass {pseudo_b}, step {step_b}")
+        trainer = Trainer(TrainerConfig(max_steps=2), recipe.loss_fn,
+                          recipe.filter_fn)
+        probe.bwd.clear()
+        torch.cuda.reset_peak_memory_stats()
+        got, state = library_sf_steps(
+            "SF online flow", card, model, recipe, trainer, db,
+            host["_text_answer"], tok, max_new, pseudo_b, step_b)
+        add(got)
+        check_bwd_groups("SF online flow steps", probe.bwd, mcfg, 2,
+                         text_len)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  16b: {got['corr_lookup']} lookups over 2 steps; peak device "
+            f"memory {peak:.2f} GiB; {time.perf_counter() - t:.1f} s with the "
+            f"build on {card}")
+        del model, trainer, state, db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 16c: E2E on InstructBLIP-Vicuna-7B, 2 steps (step 0 has lr 0)
+        t = time.perf_counter()
+        cfg = compose(T.CONFIG_DIR, "train", [
+            "model=LSTP_instructblip_e2e", "trainer.max_steps=2"] + SF_SHAPES)
+        model, mcfg = T.build_model(cfg.model, device="cuda", seed=cfg.seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        recipe = T.build_recipe(cfg.model)
+        _, val_loader, tok = T.build_data(cfg, mcfg)
+        db = device_batch(next(iter(val_loader)), model.device)
+        packed = db["instruction_ids"].shape[1]
+        step_c = expected_launches(mcfg, "e2e", text_len, answer_len, packed)
+        log(f"  16c derived launches per step: {step_c}")
+        params = dict(model.named_parameters())
+        llama = [n for n in params if n.startswith("model.language_model.")]
+        watch = [n for n in params
+                 if n.startswith(("model.qformer.layers.0.",
+                                  "model.query_tokens"))]
+        frozen_watch = llama[:4] + llama[-2:]
+        before = {n: params[n].detach().cpu() for n in watch + frozen_watch}
+        trainer = Trainer(TrainerConfig(max_steps=2), recipe.loss_fn,
+                          recipe.filter_fn)
+        state = trainer.init_state(model)
+        probe.bwd.clear()
+        torch.cuda.reset_peak_memory_stats()
+        from videotgb_torch.ops import kernels
+
+        for i in range(2):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            state, metrics = trainer.train_step(state, db)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            got = dict(kernels.LAUNCHES)
+            nz = {k: v for k, v in got.items() if v}
+            m = {k: float(v) for k, v in metrics.items()}
+            log(f"  Vicuna E2E step {i}: {ms:.2f} ms, launches {nz}, {m}")
+            if got != {**dict.fromkeys(got, 0), **step_c}:
+                fail(f"Vicuna E2E step {i}: launches {nz} != {step_c}")
+            check_bodies(f"Vicuna E2E step {i}", got)
+            if not all(math.isfinite(v) for v in m.values()):
+                fail(f"Vicuna E2E step {i}: non-finite metrics")
+            add(got)
+        (shapes,) = check_bwd_groups("Vicuna E2E steps", probe.bwd, mcfg,
+                                     2, text_len, packed)["llama"]
+        after = {n: p.detach().cpu() for n, p in model.named_parameters()
+                 if n in before}
+        if any(params[n].grad is not None or params[n].requires_grad
+               for n in llama):
+            fail("Vicuna E2E: a LLaMA parameter takes a gradient")
+        if any(not torch.equal(after[n], before[n]) for n in frozen_watch):
+            fail("Vicuna E2E: a LLaMA parameter changed")
+        if all(torch.equal(after[n], before[n]) for n in watch):
+            fail("Vicuna E2E: the Q-Former did not move")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  16c: the {len(llama)} LLaMA tensors frozen (no gradient; "
+            f"{len(frozen_watch)} watched bit-identical), the Q-Former moved; "
+            f"model built in {build_s:.2f} s; peak device memory {peak:.2f} "
+            f"GiB; {time.perf_counter() - t:.1f} s on {card}")
+        del model, trainer, state, db, params, after, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        probe.remove()
+        probe.clear()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # ---- kernel C at the two shapes this phase gave it, beside SDPA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    s = 4 * 32 + text_len
+    t5_bias = torch.randn((b, 32, s, s), generator=gen, device=dev)
+    rows = {"ds": c_at(card, "T5-xl encoder with ds", b, 32, s, s, 64,
+                       t5_bias, True)}
+    bb, hh, sq, dd, skv = shapes
+    mask = torch.ones((bb, skv), device=dev)
+    mask[1, skv - 20:] = 0
+    causal = make_causal_bias(sq, skv, device=dev) + make_padding_bias(mask)
+    rows["hd128"] = c_at(card, "LLaMA head dim 128, two passes", bb, hh, sq,
+                         skv, dd, causal, False)
+    log(f"  phase 16 ran in {time.perf_counter() - t16:.1f} s")
+    return launches, rows
+
+
 def main() -> None:
     try:
         import torch
@@ -3300,10 +3920,22 @@ def main() -> None:
     clis = cli_paths(card)
     for kern in (flash, flash_bwd, lookup, select):
         kern["launches"] += clis.get(kern["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    log("phase 16: SF through train.main, SF with RAFT in the step on "
+        "InstructBLIP-Flan-T5, an E2E step on InstructBLIP-Vicuna-7B")
+    sf_launches, c_rows = sf_paths(card)
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += sf_launches.get(kern["name"], 0)
+    log(f"  kernel C beside its main-shape row: with ds at the SF T5 shape "
+        f"{c_rows['ds']}; head dim 128 at the Vicuna E2E shape "
+        f"{c_rows['hd128']}")
     done = time.perf_counter()
-    log(f"phases 1-15 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-16 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
-        f"{t15 - t14:.1f} s, phase 15 in {done - t15:.1f} s")
+        f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
+        f"{done - t16:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

@@ -63,7 +63,11 @@ from videotgb_torch.tools.lnprobe import (
     ln_reference,
 )
 from videotgb_torch.tools.lookupprobe import blocked_lookup
-from videotgb_torch.training.recipes import E2ERecipe
+from videotgb_torch.training.recipes import (
+    E2ERecipe,
+    SFRecipe,
+    pseudo_label_generate,
+)
 from videotgb_torch.training.trainer import Trainer, TrainerConfig
 
 BIAS_LAYOUTS = ["none", "shared", "per_batch", "padding", "per_row", "learned"]
@@ -417,16 +421,20 @@ def test_lookup_c_entries_refuse_what_the_tile_body_does_not_take(cuda):
     torch.cuda.synchronize()
 
 
-def _tiny_f32():
+def _tiny_f32(backbone="blip2"):
     f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
-    cfg = V.VideoTGBConfig.tiny()
-    bc = cfg.blip2
+    cfg = V.VideoTGBConfig.tiny(backbone)
+
+    def rep(sub):
+        return dataclasses.replace(sub, **f32)
+
+    bc, ic = cfg.blip2, cfg.instructblip
     return dataclasses.replace(
-        cfg, tgb=dataclasses.replace(cfg.tgb, **f32),
-        blip2=dataclasses.replace(
-            bc, vit=dataclasses.replace(bc.vit, **f32),
-            qformer=dataclasses.replace(bc.qformer, **f32),
-            t5=dataclasses.replace(bc.t5, **f32)))
+        cfg, tgb=rep(cfg.tgb),
+        blip2=None if bc is None else dataclasses.replace(
+            bc, vit=rep(bc.vit), qformer=rep(bc.qformer), t5=rep(bc.t5)),
+        instructblip=None if ic is None else dataclasses.replace(
+            ic, vit=rep(ic.vit), qformer=rep(ic.qformer), llm=rep(ic.llm)))
 
 
 @pytest.mark.gpu
@@ -575,6 +583,129 @@ def test_tiny_e2e_tgb_selection_on_the_card_launches_kernel_d(cuda):
     cand = drawn["cand"]
     assert cand.dtype == torch.int64 and tuple(cand.shape) == (b, cfg.nframe)
     assert int(cand.min()) >= 0 and int(cand.max()) < cfg.num_frames
+
+
+def _train_batch(cfg, b, l, gen):
+    """A tiny training batch for every recipe and backbone: frames, flow
+    and its RGB frames, the T5 and the packed Vicuna text, the Q-Former
+    instruction, per-frame scores."""
+    img, fs = cfg.vit.image_size, cfg.tgb.flow_size
+    ids = torch.randint(4, 300, (b, 6), generator=gen)
+    labels = ids.clone()
+    labels[:, :3] = -100
+    scores = torch.zeros((b, cfg.num_frames))
+    scores[0, 1:3] = 0.5
+    scores[1:, 2:] = 0.25
+    return {"frames": torch.randn((b, cfg.num_frames, img, img, 3),
+                                  generator=gen),
+            "flow": torch.randn((b, l, fs, fs, 2), generator=gen),
+            "flow_frames": torch.randint(0, 256, (b, l + 1, fs, fs, 3),
+                                         generator=gen).float(),
+            "flow_mask": torch.ones((b, l + 2)),
+            "video_length": torch.tensor([l, l - 2]),
+            "sampler_question_ids": torch.randint(4, 300, (b, 5),
+                                                  generator=gen),
+            "sampler_question_mask": torch.ones((b, 5)),
+            "qformer_input_ids": torch.randint(4, 300, (b, 5), generator=gen),
+            "qformer_attention_mask": torch.ones((b, 5)),
+            "question_ids": ids, "question_mask": torch.ones((b, 6)),
+            "answer_ids": torch.randint(2, 300, (b, 4), generator=gen),
+            "instruction_ids": ids, "instruction_mask": torch.ones((b, 6)),
+            "labels": labels, "scores": scores}
+
+
+def _step_on_both(cfg, recipe, seed):
+    """One recipe step's loss and gradients on the card and on the CPU from
+    the same weights, batch and handed selection noise (dropout off);
+    returns (card loss, aux, grads, launches; CPU loss, aux, grads)."""
+    cpu = V.VideoTGB(cfg, device="cpu", seed=seed)
+    gpu = V.VideoTGB(cfg, device=torch.device("cuda"), seed=seed)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(seed)
+    b, l = 2, 6
+    batch = _train_batch(cfg, b, l, g)
+    noise = torch.randn((cfg.top_k, 2, b, l), generator=g)
+    out = []
+    for model in (gpu, cpu):
+        for n, p in model.named_parameters():
+            p.requires_grad_(recipe.filter_fn(n))
+        dev = model.device
+        kernels.reset_launches()
+        loss, aux = recipe.loss_fn(
+            model, {k: v.to(dev) for k, v in batch.items()},
+            deterministic=True, noise=noise.to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        out.append((loss.detach().cpu(), aux, grads, dict(kernels.LAUNCHES)))
+    return out
+
+
+def _check_step(card, host):
+    """The same frames, the loss within 1e-4 (summation order), and each
+    trainable gradient within 1e-3 of its largest entry: f32 sums in
+    another order, compounded through the backward, and RAFT's
+    convolutions in TF32 on the card. A tensor whose CPU gradient is zero
+    up to f32 rounding (its largest entry below 1e-6 of the model's largest
+    gradient: the attention key biases, biases into a LayerNorm) is held to
+    staying there, within 1e-6 of the model's largest gradient."""
+    (loss, aux, grads, _), (want, want_aux, want_grads, _) = card, host
+    assert torch.equal(aux["cand"].cpu(), want_aux["cand"])
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-4)
+    assert grads.keys() == want_grads.keys() and grads
+    top = max(float(g.abs().max()) for g in want_grads.values())
+    for n, g in grads.items():
+        w = want_grads[n]
+        if float(w.abs().max()) < 1e-6 * top:
+            assert float((g - w).abs().max()) <= 1e-6 * top, n
+        else:
+            _close_to_largest(g, w, 1e-3, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone,online", [
+    ("blip2", False), ("instructblip_t5", True), ("instructblip", False)])
+def test_tiny_sf_step_on_the_card_matches_the_cpu(cuda, backbone, online):
+    """The SF recipe's step on the card: the same span targets, frames,
+    loss (1e-4 relative: summation order) and trainable gradients as on
+    the CPU; kernel D once, and with ``online_flow`` kernel B once per RAFT
+    refine. Then the pseudo-label pass: tokens of the card and the CPU
+    agree on at least 3 of 4 (argmax near-ties in f32)."""
+    cfg = _tiny_f32(backbone)
+    card, host = _step_on_both(cfg, SFRecipe(online_flow=online), 7)
+    _check_step(card, host)
+    for k in ("start_targets", "end_targets"):
+        assert torch.equal(card[1][k].cpu(), host[1][k])
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0), "select_frames": 1,
+            "corr_lookup": cfg.raft.iters if online else 0}
+    assert card[3] == want
+    models = [V.VideoTGB(cfg, device=d, seed=8) for d in (cuda, "cpu")]
+    models[0].load_state_dict(models[1].state_dict())
+    g = torch.Generator().manual_seed(8)
+    batch = _train_batch(cfg, 2, 6, g)
+    toks = [pseudo_label_generate(
+        m, *(batch[k].to(m.device) for k in (
+            "frames", "question_ids", "question_mask")), max_new_tokens=4,
+        qformer_input_ids=batch["qformer_input_ids"].to(m.device),
+        qformer_attention_mask=batch["qformer_attention_mask"].to(m.device)
+    ).cpu() for m in models]
+    assert toks[0].shape == (2 * cfg.num_frames, 4)
+    assert float((toks[0] == toks[1]).float().mean()) >= 0.75
+
+
+@pytest.mark.gpu
+def test_tiny_vicuna_e2e_step_on_the_card_matches_the_cpu(cuda):
+    """The E2E recipe on InstructBLIP-Vicuna ("multi_modal", "tgb"
+    selection): the LLaMA frozen, the same frames, loss and gradients of
+    the TGB and the Q-Former on the card as on the CPU; kernel D once."""
+    cfg = _tiny_f32("instructblip")
+    card, host = _step_on_both(cfg, E2ERecipe(mode="multi_modal"), 9)
+    _check_step(card, host)
+    assert not any(n.startswith("model.language_model") for n in card[2])
+    assert card[3] == {**dict.fromkeys(kernels.LAUNCHES, 0),
+                       "select_frames": 1}
 
 
 BWD_LAYOUTS = BIAS_LAYOUTS + ["per_query"]

@@ -601,6 +601,39 @@ def test_train_then_evaluate_cli(tmp_path, monkeypatch, experiment, keys):
                                    rtol=1e-6)
 
 
+@pytest.mark.parametrize("overrides,keys", [
+    (["experiment=smoke_sf_synthetic"], ("val/score",)),
+    (["experiment=smoke_sf_vicuna_synthetic"], ("val/score",)),
+    (["experiment=smoke_e2e_it5_synthetic"], ("val/loss", "val/score")),
+    (["model=LSTP_instructblip_e2e", "model.preset=tiny",
+      "trainer.max_steps=2", "trainer.log_every=1"],
+     ("val/loss", "val/score")),
+])
+def test_sf_and_instructblip_train_cli(tmp_path, overrides, keys):
+    """The SF recipe (a pseudo-label pass before each step) and the
+    InstructBLIP backbones through ``train.main`` at tiny size on the CPU:
+    the JAX CLI's metric keys, SF without ``val/loss`` (a validation batch
+    has no pseudo scores), the joint loss's parts logged per step; an SF
+    checkpoint evaluates to ``test/score`` alone."""
+    out = str(tmp_path / "out")
+    final = TT.main(overrides + [f"paths.output_dir={out}"] + CPU)
+    assert set(final) == set(keys)
+    assert all(np.isfinite(v) for v in final.values())
+    rows = [r for r in _rows(out) if r["loss"]]
+    assert [r["step"] for r in rows] == ["1", "2"]
+    sf = "sf" in overrides[0]
+    if sf:
+        for r in rows:
+            np.testing.assert_allclose(
+                float(r["loss"]), float(r["lm_loss"]) + float(r["mrc_loss"]),
+                rtol=1e-6)
+    if overrides[0] == "experiment=smoke_sf_synthetic":
+        metrics = TE.main(overrides + [f"paths.output_dir={out}",
+                                       f"ckpt_path={out}/checkpoints"] + CPU)
+        assert set(metrics) == {"test/score"}
+        np.testing.assert_allclose(metrics["test/score"], final["val/score"])
+
+
 def test_cli_resume_takes_the_remaining_steps_on_the_schedule(tmp_path):
     out = str(tmp_path / "out")
     args = ["experiment=smoke_e2e_synthetic", f"paths.output_dir={out}",
@@ -644,12 +677,13 @@ def test_without_trainer_cpu_the_cli_wants_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (["experiment=smoke_sf_synthetic"], "queue 1 item 5"),
+    (["experiment=smoke_sf_synthetic", "+model.lora_rank=8"],
+     "queue 1 item 5"),
     (["model=LSTP_blip2_IV", "model.preset=tiny"], "queue 1 item 4"),
     (["model=LSTP_blip2_IVT", "model.preset=tiny"], "queue 1 item 5"),
     (["experiment=smoke_e2e_synthetic", "+model.lora_rank=8"],
      "queue 1 item 5"),
-    (["experiment=smoke_e2e_it5_synthetic"], "queue 1 item 4"),
+    (["model=LSTP_instructblip_IV", "model.preset=tiny"], "queue 1 item 4"),
     (["experiment=smoke_tg_synthetic", "trainer.tp=2"], "queue 1 item 7"),
     (["experiment=smoke_tg_synthetic", "trainer=ddp_sim"], "queue 1 item 7"),
     (["experiment=smoke_tg_synthetic", "+trainer.steps_per_dispatch=2"],

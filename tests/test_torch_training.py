@@ -331,8 +331,10 @@ def test_build_model_and_recipe_from_model_config_keys():
     assert e2e == TR.E2ERecipe(mode="multi_modal", selection="uniform")
     assert TT.build_recipe({"recipe": "tg", "tgb_mode": "fusion"}) == \
         TR.TGRecipe(mode="fusion")
+    assert TT.build_recipe({"recipe": "sf", "online_flow": True}) == \
+        TR.SFRecipe(online_flow=True)
     with pytest.raises(NotImplementedError):
-        TT.build_recipe({"recipe": "sf"})
+        TT.build_recipe({"recipe": "iv"})
     model, cfg = TT.build_model({"preset": "tiny"}, device="cpu", seed=1)
     gen = torch.Generator().manual_seed(0)
     img = cfg.blip2.vit.image_size

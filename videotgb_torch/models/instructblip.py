@@ -6,9 +6,9 @@ projected visual tokens go in front of the prompt's embeddings. The reserved
 
   encode_frames   frames (N, H, W, 3) -> projected visual tokens (N, Q, d)
   decoder_inputs  visual tokens + prompt embeds -> (embeds, mask) for LLaMA
-
-The training loss pass (the JAX ``__call__`` with
-``pack_text_input_output``) is not ported yet.
+  forward         the training loss pass: the visual prefix before the
+                  packed prompt + answer (``data.datasets.
+                  pack_text_input_output``), causal CE on the answer
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from videotgb_torch.models.blip2 import cross_entropy_ignore
 from videotgb_torch.models.common import Dense, _fill_normal, _param
 from videotgb_torch.models.llama import LlamaConfig, LlamaModel
 from videotgb_torch.models.qformer import QFormerConfig, QFormerModel
@@ -75,16 +76,45 @@ class InstructBlipModel(nn.Module):
                                           *query_out.shape[1:]).mean(dim=1)
         return self.language_projection(query_out)
 
-    def decoder_inputs(self, visual_tokens, prompt_ids, prompt_mask):
+    def decoder_inputs(self, visual_tokens, prompt_ids, prompt_mask,
+                       visual_valid=None):
         """[visual | prompt] embeddings (B, Q + T, d) and their mask; the
-        prompt is right-padded, the visual prefix always attended."""
+        prompt is right-padded, the visual prefix attended unless
+        ``visual_valid`` (B,) is 0 for a row (text-only: the shape stays)."""
         text = self.language_model.embed(prompt_ids)
         embeds = torch.cat([visual_tokens.to(text.dtype), text], dim=1)
         vis_mask = torch.ones(visual_tokens.shape[:2], dtype=prompt_mask.dtype,
                               device=prompt_mask.device)
+        if visual_valid is not None:
+            vis_mask = vis_mask * visual_valid[:, None].to(vis_mask.dtype)
         return embeds, torch.cat([vis_mask, prompt_mask], dim=1)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the InstructBLIP-Vicuna training forward is not ported: "
-            "ROADMAP.md queue 1 item 4")
+    def forward(self, pixel_values, instruction_ids, instruction_mask, labels,
+                qformer_input_ids=None, qformer_attention_mask=None,
+                mean_pool=False, visual_valid=None):
+        """Training loss pass over frames (B, F, H, W, 3) and the packed
+        prompt + answer (B, T) with its labels (-100 on the prompt and the
+        pads) -> (scalar CE loss, logits (B, V + T, vocab) f32 over the
+        visual prefix of V tokens and the text). ``mean_pool=False`` gives
+        the E2E/SF prefix of F*Q tokens, True the Q tokens mean-pooled over
+        the frames. ``visual_valid`` (B,) 0 marks a text-only row, whose
+        prefix is masked out of attention. The loss is next-token CE on the
+        text suffix only."""
+        b, f = pixel_values.shape[:2]
+        q_ids = q_mask = None
+        if qformer_input_ids is not None:
+            q_ids = qformer_input_ids.repeat_interleave(f, 0)
+            if qformer_attention_mask is not None:
+                q_mask = qformer_attention_mask.repeat_interleave(f, 0)
+        visual = self.encode_frames(
+            pixel_values.reshape(b * f, *pixel_values.shape[2:]), q_ids,
+            q_mask, mean_pool_groups=b if mean_pool else None)
+        if not mean_pool:
+            visual = visual.reshape(b, f * visual.shape[1], -1)
+        embeds, mask = self.decoder_inputs(visual, instruction_ids,
+                                           instruction_mask, visual_valid)
+        logits, _ = self.language_model(inputs_embeds=embeds,
+                                        attention_mask=mask)
+        text_logits = logits[:, -instruction_ids.shape[1]:]
+        loss = cross_entropy_ignore(text_logits[:, :-1], labels[:, 1:])
+        return loss, logits

@@ -10,12 +10,17 @@ checkpoints and early stopping, and optionally tests the best checkpoint::
     python -m videotgb_torch.train experiment=smoke_tg_synthetic trainer=cpu
     python -m videotgb_torch.train experiment=smoke_e2e_synthetic \\
         model.preset=flagship            # on the CUDA card
+    python -m videotgb_torch.train experiment=smoke_sf_vicuna_synthetic \\
+        trainer=cpu
 
 The run goes to the CUDA card unless ``trainer.platform=cpu`` (``trainer=cpu``
-sets it); without a card that raises. The ported recipes are the
-BLIP2-Flan-T5 TG and E2E stages; SF, IV, IVT, LoRA, the InstructBLIP
-backbones and parallel layouts raise ``NotImplementedError`` naming their
-ROADMAP.md item. ``ckpt_path=<dir>`` resumes the full training state
+sets it); without a card that raises. The ported recipes are TG, SF
+(self-refinement: a pseudo-label pass with the current parameters before
+each step, ``sf_pseudo_scores``) and E2E, on the BLIP2-Flan-T5,
+InstructBLIP-Flan-T5 (``backbone: instructblip_t5``) and
+InstructBLIP-Vicuna (``backbone: instructblip``) backbones; IV, IVT, LoRA
+and parallel layouts raise ``NotImplementedError`` naming their ROADMAP.md
+item. ``ckpt_path=<dir>`` resumes the full training state
 (parameters, optimizer moments, step) or warm-starts from parameters only.
 
 Unlike the JAX CLI, the port takes no batch from the train loader to
@@ -54,7 +59,6 @@ CONFIG_DIR = os.path.join(
 
 # recipes of the JAX package that the port does not have yet
 _NOT_PORTED = {
-    "sf": "the SF recipe is ROADMAP.md queue 1 item 5",
     "iv": "the IV recipe is ROADMAP.md queue 1 item 4",
     "ivt": "the IVT recipe (with LoRA) is ROADMAP.md queue 1 item 5",
 }
@@ -62,17 +66,18 @@ _NOT_PORTED = {
 
 def build_model(model_cfg: dict, device=None, seed: int = 0):
     """(VideoTGB with random weights from ``seed``, its config). ``preset``
-    is tiny / small / flagship; the backbone is blip2 (BLIP2-Flan-T5), the
-    one the ported recipes train. ``device=None`` means the CUDA device."""
-    backbone = model_cfg.get("backbone", "blip2")
-    if backbone != "blip2":
-        raise NotImplementedError(
-            f"training the {backbone!r} backbone is not ported: the "
-            "InstructBLIP training forward is ROADMAP.md queue 1 item 4")
+    is tiny / small / flagship; ``backbone`` is blip2 (BLIP2-Flan-T5, the
+    default), instructblip_t5 (the T5 composition with the
+    instruction-aware Q-Former) or instructblip (Vicuna). ``device=None``
+    means the CUDA device."""
     if model_cfg.get("lora_rank"):
         raise NotImplementedError(
             "LoRA adapters are not ported: ROADMAP.md queue 1 item 5")
-    mcfg = getattr(VideoTGBConfig, model_cfg.get("preset", "flagship"))()
+    backbone = model_cfg.get("backbone", "blip2")
+    if backbone not in ("blip2", "instructblip_t5", "instructblip"):
+        raise ValueError(f"unknown backbone {backbone!r}")
+    mcfg = getattr(VideoTGBConfig, model_cfg.get("preset", "flagship"))(
+        backbone)
     return VideoTGB(mcfg, device=device, seed=seed), mcfg
 
 
@@ -86,6 +91,8 @@ def build_recipe(model_cfg: dict):
     kwargs = {}
     if model_cfg.get("tgb_mode"):
         kwargs["mode"] = model_cfg["tgb_mode"]
+    if name == "sf" and model_cfg.get("online_flow"):
+        kwargs["online_flow"] = True
     if name == "e2e" and model_cfg.get("selection"):
         kwargs["selection"] = model_cfg["selection"]
     return RECIPES[name](**kwargs)
@@ -244,20 +251,31 @@ def evaluate_tg(model, recipe, loader) -> dict[str, float]:
 @torch.no_grad()
 def evaluate_generative(model, recipe, loader, tok,
                         max_new_tokens: int = 16) -> dict[str, float]:
-    """E2E validation: the eval loss (dropout off), then greedy
-    ``generate_blip2`` answers scored with BLEU-1 — the reference's val/score
-    monitor (LSTP_SF_blip2_module.py:107-119,560-584). Every batch draws its
+    """SF/E2E validation: the eval loss (dropout off), then greedy answers
+    (``generate_blip2`` on the T5 backbones, ``generate_instructblip`` on
+    Vicuna) scored with BLEU-1 — the reference's val/score monitor
+    (LSTP_SF_blip2_module.py:107-119,560-584). An SF batch without pseudo
+    scores has no loss (the reference's eval never computes mrc_loss), and
+    ``val/loss`` is absent when no batch had one. Every batch draws its
     selection noise from a generator seeded 0, as the JAX eval takes
     ``jax.random.key(0)``."""
     from videotgb_torch.data.loader import device_batch
-    from videotgb_torch.models.videotgb import generate_blip2
+    from videotgb_torch.models.videotgb import (generate_blip2,
+                                                generate_instructblip)
     from videotgb_torch.ops.decode import DecodeConfig
     from videotgb_torch.training import metrics as M
+    from videotgb_torch.training.recipes import SFRecipe
 
-    t5cfg = model.config.blip2.t5
-    dcfg = DecodeConfig(max_new_tokens=max_new_tokens,
-                        eos_token_id=t5cfg.eos_token_id,
-                        pad_token_id=t5cfg.pad_token_id)
+    if model.config.backbone == "blip2":
+        t5cfg = model.config.blip2.t5
+        eos, pad, generate = (t5cfg.eos_token_id, t5cfg.pad_token_id,
+                              generate_blip2)
+    else:
+        llm = model.config.instructblip.llm
+        eos, pad, generate = (llm.eos_token_id, llm.pad_token_id,
+                              generate_instructblip)
+    dcfg = DecodeConfig(max_new_tokens=max_new_tokens, eos_token_id=eos,
+                        pad_token_id=pad)
     dev = model.device
 
     def generator():
@@ -269,10 +287,12 @@ def evaluate_generative(model, recipe, loader, tok,
     targets: list[str] = []
     for batch in loader:
         db = device_batch(batch, dev)
-        loss, _ = recipe.loss_fn(model, db, generator(), deterministic=True)
-        loss_state = M.mean_update(loss_state, loss)
-        loss_batches += 1
-        tokens, _ = generate_blip2(model, db, dcfg, generator())
+        if not isinstance(recipe, SFRecipe) or "scores" in db:
+            loss, _ = recipe.loss_fn(model, db, generator(),
+                                     deterministic=True)
+            loss_state = M.mean_update(loss_state, loss)
+            loss_batches += 1
+        tokens, _ = generate(model, db, dcfg, generator())
         preds.extend(tok.batch_decode(tokens.cpu().numpy(),
                                       skip_special_tokens=True))
         targets.extend(a.replace(" </s>", "") for a in batch["_text_answer"])
@@ -371,14 +391,27 @@ def _train(cfg: Config) -> dict[str, float]:
     def checkpoint_fn(state, metrics):
         ckpt.save(state.step, train_state_items(state), metrics)
 
+    is_sf = cfg.model.get("recipe", "tg") == "sf"
+
     def batches():
         step = 0
         while step < tcfg.max_steps:
             for batch in train_loader:
-                yield device_batch(batch, device)
+                db = device_batch(batch, device)
+                if is_sf:  # the pseudo pass scores against the gold text
+                    db["_text_answer"] = batch["_text_answer"]
+                yield db
                 step += 1
                 if step >= tcfg.max_steps:
                     return
+
+    def sf_scores(cur_state, db):
+        db = dict(db)
+        answers = db.pop("_text_answer")
+        db["scores"] = sf_pseudo_scores(
+            cur_state.model, db, answers, tok,
+            max_new_tokens=cfg.model.get("pseudo_max_new", 16))
+        return db
 
     # debug=profiler overlay (reference configs/debug/profiler.yaml:
     # trainer.profiler="simple"): trace the whole max_steps-bounded fit
@@ -395,7 +428,8 @@ def _train(cfg: Config) -> dict[str, float]:
     try:
         with prof_ctx:
             state = trainer.fit(state, batches(), eval_fn=eval_fn,
-                                checkpoint_fn=checkpoint_fn)
+                                checkpoint_fn=checkpoint_fn,
+                                batch_transform=sf_scores if is_sf else None)
         final = eval_fn(state)
         checkpoint_fn(state, final)
         ckpt.wait()
@@ -416,6 +450,30 @@ def _train(cfg: Config) -> dict[str, float]:
     finally:
         trainer.writers.finish()
     return final
+
+
+def sf_pseudo_scores(model, db, text_answers, tok,
+                     max_new_tokens: int = 16) -> torch.Tensor:
+    """The SF scoring pass: per-frame greedy answers with the model's
+    current parameters (``pseudo_label_generate``, on the model's device)
+    -> decoded on the host -> rouge_n recall against each row's gold
+    answer -> scores (B, F) f32 on the host (reference:
+    LSTP_SF_blip2_module.py:151-192)."""
+    from videotgb_torch.training.metrics import rouge_n
+    from videotgb_torch.training.recipes import pseudo_label_generate
+
+    frames = db["frames"]
+    b, f = frames.shape[:2]
+    ids = pseudo_label_generate(
+        model, frames, db["question_ids"], db["question_mask"],
+        max_new_tokens=max_new_tokens,
+        qformer_input_ids=db.get("qformer_input_ids"),
+        qformer_attention_mask=db.get("qformer_attention_mask"))
+    predictions = tok.batch_decode(ids.cpu().numpy(),
+                                   skip_special_tokens=True)
+    targets = [text_answers[i // f] for i in range(b * f)]
+    scores = torch.tensor(rouge_n(targets, predictions), dtype=torch.float32)
+    return scores.reshape(b, f)
 
 
 def main(argv: list[str] | None = None) -> dict[str, float]:
