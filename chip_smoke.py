@@ -175,7 +175,35 @@ Phases, each fatal on failure (exit code 1):
    ``E2ERecipe`` steps on InstructBLIP-Vicuna-7B, the LLaMA frozen (kernel
    C at head dim 128 on two passes), the Q-Former moved. Then kernel C at
    the two new shapes against its plain version, timed beside SDPA's
-   backward.
+   backward;
+17. stage 3 at flagship width (f32 parameters, bf16 compute) on a dataset
+   the phase writes from a seed with cv2 under ``build/phase17/`` (3 JPEGs,
+   2 mp4 videos of 48 frames at 320x240, 8 train rows of images, videos
+   cropped to pseudo-label spans and text, 2 val rows, 2 text-only
+   nlp_tune.json rows; every row read back without the dataset's resample,
+   and a failed row read during the runs is fatal); 128-token prompts,
+   32-token answers. 17a: ``train.main`` with ``experiment=
+   LSTP_blip2flant5xl_ivtinstruct`` (rank-8 adapters on the T5; batch 1, 4
+   micro-batches a step), 2 steps, one eval, one save: each step's and eval
+   batch's launches against those ``expected_stage3`` derives (kernel C
+   without ds on one pass at (1, 32, 160, 160, 64)), the frozen parameters
+   bit-identical, the adapters' B, the Q-Former, its projection and query
+   tokens moved, a text-only row's loss independent of its frame slab.
+   17b: the checkpoint through ``evalsuite.inference.load_model`` (``lora``
+   1, bf16 residency) against the trained model held in memory at the same
+   residency: the same parameters, then ``select_phase_blip2`` +
+   ``answer_phase_blip2`` for 4 requests with the same generator, 20 B + 1
+   D + 39 A each, identical frames and tokens; ``evaluate.main`` on the
+   checkpoint gives the run's val/score. 17c: ``train.main`` with
+   ``experiment=LSTP_instructblipvicuna7b_ivinstruct`` (batch 2, no
+   accumulation, 2 steps, one eval, one save; ``llama-vendored`` where
+   ``transformers`` imports, else ``data.tokenizer=byte``, said on a line
+   of its own): launches as derived (kernel C at head dim 128 on two
+   passes), the frozen parameters bit-identical, the Q-Former moved,
+   ``generate_iv``'s LLaMA branch in the eval. Each run's step walls split
+   into data wait and ``train_step``, eval walls, save and restore walls
+   and bytes, peak memory. Then kernel C at the phase's two shapes against
+   its plain version, timed beside SDPA's backward.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -2785,20 +2813,25 @@ class CliProbe:
     final state); for phase 16 also the SF pseudo-label pass
     (``train.sf_pseudo_scores``: wall, launches, scores and the span
     targets they give), kernel C's wrapper (the shape of each call, whether
-    it wrote ds, its passes) and the optimizer step (the memory it adds).
+    it wrote ds, its passes) and the optimizer step (the memory it adds);
+    for phase 17 the stage-3 dataset's row reads (a row that fails, which
+    the dataset would replace by another). A step's data wait sums the
+    waits of its loader batches (``accumulate_grad_batches`` of them).
     The wrappers only read; every kernel launch stays the CLI's."""
 
     def __init__(self):
         self.frozen = self.moving = None
+        self.snapshot_device = None  # None: frozen snapshots on the host
         self.clear()
         self._undo = []
 
     def clear(self):
         self.waits, self.val_waits, self.steps, self.evals = [], [], [], []
         self.saves, self.restores, self.models, self.fits = [], [], [], []
-        self.pseudo, self.bwd, self.opt = [], [], []
+        self.pseudo, self.bwd, self.opt, self.row_faults = [], [], [], []
         self.snapshot = self.moving_snapshot = None
         self.peak = 0
+        self.waits_seen = 0
         self.keep_args = False
 
     def _patch(self, owner, name, make):
@@ -2810,6 +2843,7 @@ class CliProbe:
         import torch
 
         from videotgb_torch import train as T
+        from videotgb_torch.data.datasets import IVInstructDataset
         from videotgb_torch.data.loader import PrefetchLoader
         from videotgb_torch.ops import attention, kernels
         from videotgb_torch.ops.attention import flash_bwd_passes
@@ -2854,11 +2888,17 @@ class CliProbe:
                 host = {k: float(v) for k, v in metrics.items()}
                 after, mma_after = counts()
                 end = time.perf_counter()
-                req, got = probe.waits[-1] if probe.waits else (t, t)
+                # the loader batches of this step (several when it
+                # accumulates micro-batches)
+                mine = probe.waits[probe.waits_seen:] or [(t, t)]
+                probe.waits_seen = len(probe.waits)
+                widths = batch.get("widths")
                 probe.steps.append({
                     "step": state.step, "metrics": host,
-                    "step_ms": (end - t) * 1e3, "wait_ms": (got - req) * 1e3,
-                    "wall_ms": (end - req) * 1e3,
+                    "step_ms": (end - t) * 1e3,
+                    "wait_ms": sum(g - r for r, g in mine) * 1e3,
+                    "wall_ms": (end - mine[0][0]) * 1e3,
+                    "widths": None if widths is None else widths.tolist(),
                     "launches": diff(after, before),
                     "mma": diff(mma_after, mma)})
                 return state, metrics
@@ -2929,14 +2969,17 @@ class CliProbe:
                 probe.models.append(model)
                 if probe.frozen is not None and probe.snapshot is None:
                     t = time.perf_counter()
+                    dev = probe.snapshot_device or "cpu"
                     probe.snapshot = {
-                        n: p.detach().cpu() for n, p in model.named_parameters()
+                        n: p.detach().to(dev, copy=True)
+                        for n, p in model.named_parameters()
                         if probe.frozen(n)}
                     log(f"  {len(probe.snapshot)} frozen parameters copied to "
-                        f"the host in {time.perf_counter() - t:.2f} s")
+                        f"{dev} in {time.perf_counter() - t:.2f} s")
                 if probe.moving is not None and probe.moving_snapshot is None:
                     probe.moving_snapshot = {
-                        n: p.detach().cpu() for n, p in model.named_parameters()
+                        n: p.detach().to("cpu", copy=True)
+                        for n, p in model.named_parameters()
                         if probe.moving(n)}
                 return model, mcfg
             return capture
@@ -2987,6 +3030,15 @@ class CliProbe:
                 return out
             return measured
 
+        def row_get(orig):
+            def recorded(dataset, index):
+                try:
+                    return orig(dataset, index)
+                except Exception as e:
+                    probe.row_faults.append((index, repr(e)))
+                    raise
+            return recorded
+
         def fit(orig):
             def capture(trainer, state, *args, **kwargs):
                 state = orig(trainer, state, *args, **kwargs)
@@ -3006,6 +3058,7 @@ class CliProbe:
         self._patch(T, "sf_pseudo_scores", pseudo)
         self._patch(attention, "flash_backward_cuda", flash_bwd)
         self._patch(TR, "optimizer_step", opt_step)
+        self._patch(IVInstructDataset, "_get", row_get)
 
     def remove(self):
         for owner, name, orig in reversed(self._undo):
@@ -3387,32 +3440,44 @@ def check_bwd_calls(name, calls, s_q, want_calls, want_passes, want_ds):
     return shapes
 
 
-def check_bwd_groups(name, calls, mcfg, steps, text_len, packed_len=0):
-    """Every kernel-C call of ``steps`` steps: the Q-Former's (instruction-
-    aware: Sq = queries + instruction; one pass, no ds), the T5 encoder's
-    (Sq = 4 x 32 + question; two passes, ds: its relative-position bias
-    trains) or the LLaMA's (Sq = 4 x 32 + the packed text; two passes at
-    head dim 128, no ds). Returns the shapes by group."""
+def check_bwd_groups(name, calls, mcfg, steps, text_len, packed_len=0,
+                     visual=None, t5_ds=True):
+    """Every kernel-C call of ``steps`` backward passes: the Q-Former's
+    (instruction-aware: Sq = queries + instruction; no ds), the T5
+    encoder's (Sq = ``visual`` tokens, 4 x 32 by default, + question; ds
+    where its relative-position bias trains, ``t5_ds``) or the LLaMA's (Sq
+    = ``visual`` + the packed text, head dim 128, no ds), each on the
+    passes ``flash_bwd_passes`` gives its shape. Returns the shapes by
+    group."""
+    from videotgb_torch.ops.attention import flash_bwd_passes
+
     qf = (mcfg.blip2 or mcfg.instructblip).qformer
     q = qf.num_query_tokens
+    visual = mcfg.nframe * q if visual is None else visual
     groups = {}
     n = 0
     if mcfg.instruction_aware:
         s_q = q + text_len
         groups["qformer"] = check_bwd_calls(
             f"{name} (Q-Former)", calls, s_q,
-            steps * qf.num_layers * flash_on(s_q, s_q), 1, False)
+            steps * qf.num_layers * flash_on(s_q, s_q),
+            flash_bwd_passes(s_q, s_q, qf.hidden_size // qf.num_heads),
+            False)
         n += steps * qf.num_layers * flash_on(s_q, s_q)
     if mcfg.backbone == "blip2":
-        s_q = mcfg.nframe * q + text_len
-        layers = mcfg.blip2.t5.num_encoder_layers
-        groups["t5"] = check_bwd_calls(f"{name} (T5 encoder)", calls, s_q,
-                                       steps * layers, 2, True)
+        t5 = mcfg.blip2.t5
+        s_q = visual + text_len
+        layers = t5.num_encoder_layers
+        groups["t5"] = check_bwd_calls(
+            f"{name} (T5 encoder)", calls, s_q, steps * layers,
+            flash_bwd_passes(s_q, s_q, t5.d_kv), t5_ds)
     else:
-        s_q = mcfg.nframe * q + packed_len
-        layers = mcfg.instructblip.llm.num_layers
-        groups["llama"] = check_bwd_calls(f"{name} (LLaMA)", calls, s_q,
-                                          steps * layers, 2, False)
+        llm = mcfg.instructblip.llm
+        s_q = visual + packed_len
+        layers = llm.num_layers
+        groups["llama"] = check_bwd_calls(
+            f"{name} (LLaMA)", calls, s_q, steps * layers,
+            flash_bwd_passes(s_q, s_q, llm.head_dim), False)
     n += steps * layers
     if len(calls) != n:
         fail(f"{name}: {len(calls)} kernel C calls, {n} in the groups")
@@ -3476,11 +3541,13 @@ def c_at(card, label, b, h, s_q, s_kv, d, bias, need_ds) -> dict:
 
 
 def snapshot_changed(model, snap) -> list:
+    """Names of the snapshot's tensors that differ from the model's, each
+    compared on the snapshot's device."""
     import torch
 
     params = dict(model.named_parameters())
     return [n for n, p in snap.items()
-            if not torch.equal(params[n].detach().cpu(), p)]
+            if not torch.equal(params[n].detach().to(p.device), p)]
 
 
 def library_sf_steps(name, card, model, recipe, trainer, db, answers, tok,
@@ -3828,6 +3895,468 @@ def sf_paths(card: str) -> dict:
     return launches, rows
 
 
+# ----------------------- phase 17: stage 3 (IV, IVT) and its checkpoint served
+S3_TEXT, S3_ANSWER, S3_NEW = 128, 32, 16
+S3_CKPT_GB = 32.3  # the largest save of the phase: Vicuna-7B's f32 params
+S3_CLI = ["model.preset=flagship", "data.num_workers=4",
+          f"data.max_txt_len={S3_TEXT}", f"data.answer_len={S3_ANSWER}",
+          f"model.eval_max_new={S3_NEW}", "trainer.max_steps=2",
+          "trainer.eval_every=10", "trainer.log_every=1",
+          "extras.print_config=false"]
+
+
+def write_stage3_data(root: str) -> dict:
+    """The stage-3 ``text_dir`` of phase 17, written from a seed with cv2:
+    3 JPEGs and 2 mp4 videos (mp4v, 320 x 240, 48 frames); train.json (8
+    rows: 3 image, 4 video, 1 text-only), val.json (1 image, 1 video),
+    pseudo_label.json (spans inside (0, 1)) and nlp_tune.json (2 text-only
+    rows, IVT's). Fails if cv2 cannot write the mp4 or read it back."""
+    import numpy as np
+
+    try:
+        import cv2
+    except ImportError as e:
+        fail(f"phase 17 writes its images and videos with cv2, which does "
+             f"not import here ({e})")
+    td = os.path.join(root, "data", "ivinstruct")
+    os.makedirs(td)
+    rng = np.random.default_rng(17)
+    w, h, n = 320, 240, 48
+    for i in range(3):
+        if not cv2.imwrite(os.path.join(td, f"img{i}.jpg"), rng.integers(
+                0, 255, (h, w, 3), np.uint8)):
+            fail("phase 17: cv2 cannot write a JPEG here")
+    for i in range(2):
+        path = os.path.join(td, f"vid{i}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24.0,
+                                 (w, h))
+        if not writer.isOpened():
+            fail(f"phase 17: cv2 {cv2.__version__} cannot write an mp4 "
+                 f"(mp4v) here; the video rows need one")
+        base = rng.integers(0, 255, (h, w, 3), np.uint8)
+        for f in range(n):  # a moving pattern: the frames differ
+            writer.write(np.roll(base, 7 * f, axis=1))
+        writer.release()
+        cap = cv2.VideoCapture(path)
+        count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        ok, frame = cap.read()
+        cap.release()
+        if not ok or frame.shape != (h, w, 3) or count < n:
+            fail(f"phase 17: cv2 {cv2.__version__} cannot read back the mp4 "
+                 f"it wrote (opened {ok}, {count} frames of {n})")
+
+    def row(rid, q, a, **media):
+        return {"id": rid, **media, "conversations": [
+            {"from": "human", "value": q}, {"from": "gpt", "value": a}]}
+
+    train = [
+        row("i0", "<image>\nwhat is shown?", "a field of noise", image="img0.jpg"),
+        row("v0", "<video>\nwhat moves?", "the pattern slides right",
+            video="vid0.mp4"),
+        row("i1", "<image>\ndescribe the colours.", "many small dots",
+            image="img1.jpg"),
+        row("v1", "<video>\nwhat happens first?", "stripes shift",
+            video="vid1.mp4"),
+        row("t0", "name a primary colour.", "red"),
+        row("v2", "<video>\nhow fast is it?", "a few pixels a frame",
+            video="vid0.mp4"),
+        row("i2", "<image>\nis it a photo?", "no it is random",
+            image="img2.jpg"),
+        row("v3", "<video>\nwhen does it stop?", "it does not stop",
+            video="vid1.mp4", pseudo_label=[0.1, 0.6]),
+    ]
+    val = [row("i9", "<image>\nwhat is this?", "noise", image="img2.jpg"),
+           row("v9", "<video>\nwhat changes?", "the offset",
+               video="vid1.mp4")]
+    nlp = [row("n0", "what is two plus two?", "four"),
+           row("n1", "say hello.", "hello")]
+    spans = {"v0": [0.25, 0.75], "v1": [0.5, 1.0], "v2": [0.0, 0.4],
+             "v9": [0.2, 0.9]}
+    for name, obj in (("train", train), ("val", val), ("nlp_tune", nlp),
+                      ("pseudo_label", spans)):
+        with open(os.path.join(td, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+    return {"text_dir": td, "train": train, "val": val, "nlp": nlp,
+            "spans": spans}
+
+
+def check_stage3_rows(data, nframe, image_size) -> None:
+    """Every row of the phase's data read by the port's dataset without
+    its resampling: image rows width 1, video rows width ``nframe`` with
+    frames cropped to their span (distinct frames), text rows width 0."""
+    import numpy as np
+
+    from videotgb_torch.data.datasets import IVInstructDataset
+
+    td = data["text_dir"]
+    for split in ("train", "val"):
+        ds = IVInstructDataset(
+            os.path.join(td, f"{split}.json"), td, td, nframe=nframe,
+            image_size=image_size, include_text_only=True,
+            text_only_path=os.path.join(td, "nlp_tune.json"),
+            pseudo_label_path=os.path.join(td, "pseudo_label.json"))
+        widths = []
+        for i in range(len(ds)):
+            try:
+                got = ds._get(i)
+            except Exception as e:  # noqa: BLE001
+                what = (ds.data[i].get("video") or ds.data[i].get("image")
+                        or "text")
+                fail(f"phase 17: {split} row {i} ({what}) does not load: "
+                     f"{e!r}")
+            d = ds.data[i]
+            want = nframe if "video" in d else 1 if "image" in d else 0
+            if got["width"] != want:
+                fail(f"phase 17: {split} row {i} has width {got['width']}, "
+                     f"not {want}")
+            if want and not np.isfinite(got["frames"]).all():
+                fail(f"phase 17: {split} row {i}: non-finite frames")
+            if "video" in d and len({f.tobytes() for f in got["frames"]}) < 2:
+                fail(f"phase 17: {split} row {i}: the sampled video frames "
+                     "are all alike")
+            widths.append(got["width"])
+        log(f"  stage-3 {split} rows read without resampling: widths "
+            f"{widths} ({len(ds)} rows, with nlp_tune.json's)")
+
+
+def expected_stage3(mcfg, text_len, answer_len, max_new) -> tuple:
+    """(a micro-batch's launches, an eval batch's) of IV / IVT, derived
+    from the config and the dispatch rule: the ViT-g over the pre-selected
+    frames and the Q-Former (instruction-aware: its self-attention over the
+    queries and the instruction) mean-pooled to Q visual tokens, then the
+    T5 encoder over [Q | question] and its decoder over the answer, or the
+    LLaMA over [Q | packed prompt and answer]. The backward (kernel C) runs
+    through every flash attention after the ViT, whose parameters are
+    frozen and whose input needs no gradient. An eval batch is the loss
+    pass and ``generate_iv`` (the encoder or the LLaMA prefill over [Q |
+    question]; single-token decode steps go plain)."""
+    vit = mcfg.vit
+    n_img = (vit.image_size // vit.patch_size) ** 2 + 1
+    qf = (mcfg.blip2 or mcfg.instructblip).qformer
+    q = qf.num_query_tokens
+    q_self = q + (text_len if mcfg.instruction_aware else 0)
+    qformer = (qf.num_layers * flash_on(q_self, q_self)
+               + len(range(0, qf.num_layers, qf.cross_attention_frequency))
+               * flash_on(q, n_img))
+    frames = vit.num_layers * flash_on(n_img, n_img) + qformer
+    if mcfg.backbone == "blip2":
+        t5 = mcfg.blip2.t5
+        enc = q + text_len
+        encoder = t5.num_encoder_layers * flash_on(enc, enc)
+        dec = t5.num_decoder_layers * (flash_on(answer_len, answer_len)
+                                       + flash_on(answer_len, enc))
+        step_a, step_c = frames + encoder + dec, qformer + encoder + dec
+        generate = frames + encoder
+    else:
+        llm = mcfg.instructblip.llm
+        s = q + text_len + answer_len
+        step_a = frames + llm.num_layers * flash_on(s, s)
+        step_c = qformer + llm.num_layers * flash_on(s, s)
+        generate = frames + llm.num_layers * flash_on(q + text_len,
+                                                      q + text_len + max_new)
+    step = {"flash_fwd": step_a}
+    if step_c:
+        step["flash_bwd"] = step_c
+    return step, {"flash_fwd": step_a + generate}
+
+
+def stage3_paths(card: str) -> tuple:
+    """Phase 17: IVT on BLIP2-Flan-T5-xl through ``train.main`` (17a), its
+    checkpoint served through ``load_model`` and scored by
+    ``evaluate.main`` (17b), IV on InstructBLIP-Vicuna-7B through
+    ``train.main`` (17c); then kernel C at the phase's two shapes. Returns
+    (the launches of the counted runs, C's rows)."""
+    import shutil
+    from types import SimpleNamespace
+
+    import torch
+
+    from videotgb_torch import evaluate as EV
+    from videotgb_torch import train as T
+    from videotgb_torch.config import compose
+    from videotgb_torch.data.datasets import IVInstructDataset, collate_iv
+    from videotgb_torch.data.loader import device_batch
+    from videotgb_torch.data.tokenizer import load_tokenizer
+    from videotgb_torch.evalsuite.inference import load_model
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.ops.attention import make_causal_bias, make_padding_bias
+    from videotgb_torch.ops.decode import DecodeConfig
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t17 = time.perf_counter()
+    root = os.path.join(HERE, "build", "phase17")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    need = 1.1 * S3_CKPT_GB * 1e9
+    log(f"  free disk under {root}: {free / 1e9:.1f} GB (need "
+        f"{need / 1e9:.1f} GB: one {S3_CKPT_GB} GB checkpoint at a time)")
+    if free < need:
+        fail(f"phase 17 needs {need / 1e9:.1f} GB of free disk; "
+             f"{free / 1e9:.1f} GB is free under {root}")
+    import cv2
+
+    t = time.perf_counter()
+    data = write_stage3_data(root)
+    mcfg = V.with_lora(V.VideoTGBConfig.flagship(), 8)
+    check_stage3_rows(data, mcfg.nframe, mcfg.vit.image_size)
+    log(f"  stage-3 data (cv2 {cv2.__version__}): {len(data['train'])} train, "
+        f"{len(data['val'])} val and {len(data['nlp'])} nlp_tune rows, 3 "
+        f"JPEGs, 2 mp4 videos of 48 frames at 320x240, spans "
+        f"{data['spans']}, written and read in {time.perf_counter() - t:.2f} "
+        f"s")
+    probe = CliProbe()
+    probe.install()
+    try:
+        # ---- 17a: IVT on BLIP2-Flan-T5-xl: batch 1 x 4 micro-batches a step
+        micro, eval_want = expected_stage3(mcfg, S3_TEXT, S3_ANSWER, S3_NEW)
+        accum = 4
+        step_want = {k: accum * v for k, v in micro.items()}
+        log(f"  17a derived launches: a micro-batch {micro} (the reckoning "
+            f"before the run: 39 + 24 A, 24 C), {accum} a step; an eval "
+            f"batch {eval_want} (126 A)")
+        out = os.path.join(root, "ivt")
+        args = (["experiment=LSTP_blip2flant5xl_ivtinstruct",
+                 "data.batch_size=1", f"trainer.accumulate_grad_batches={accum}",
+                 f"paths.root_dir={root}", f"paths.output_dir={out}"] + S3_CLI)
+        cfg = compose(T.CONFIG_DIR, "train", args)
+        recipe = T.build_recipe(cfg.model)
+        probe.frozen = lambda n: not recipe.filter_fn(n)
+        probe.snapshot_device = "cuda"
+        probe.moving = lambda n: recipe.filter_fn(n) and (
+            n.endswith("lora_b") or n.startswith((
+                "model.qformer.layers.0.", "model.language_projection",
+                "model.query_tokens")))
+        final, got = cli_run("IVT train.main", probe, lambda: T.main(args),
+                             step_want, eval_want, card)
+        add(got)
+        probe.frozen = probe.moving = None
+        if len(probe.steps) != 2 or len(probe.saves) != 1 \
+                or not probe.saves[0]["bytes"]:
+            fail(f"IVT: {len(probe.steps)} steps, saves {probe.saves}; want "
+                 "2 steps and one save")
+        if probe.row_faults:
+            fail(f"IVT: rows failed to load and were replaced: "
+                 f"{probe.row_faults}")
+        check_bwd_groups("IVT micro-batches", probe.bwd, mcfg, 2 * accum,
+                         S3_TEXT, visual=mcfg.blip2.qformer.num_query_tokens,
+                         t5_ds=False)
+        trainer, state = probe.fits[-1]
+        trained = state.model
+        changed = snapshot_changed(trained, probe.snapshot)
+        if changed:
+            fail(f"IVT: frozen parameters changed: {changed[:5]}")
+        moved = snapshot_changed(trained, probe.moving_snapshot)
+        still = sorted(set(probe.moving_snapshot) - set(moved))
+        if still:
+            fail(f"IVT: trainable tensors did not move: {still[:5]}")
+        n_lora = sum(n.endswith("lora_b") for n in moved)
+        log(f"  IVT: all {len(probe.snapshot)} frozen tensors (ViT-g, T5, "
+            f"TGB, RAFT, the adapters' A aside) bit-identical after fit; all "
+            f"{len(moved)} watched tensors moved, {n_lora} of them the "
+            f"adapters' B (their A take no gradient while B is 0, so they "
+            f"move from step 3 on)")
+        for r in probe.steps:
+            log(f"  IVT step {r['step']}: micro-batch widths {r['widths']}")
+        probe.snapshot = probe.moving_snapshot = None
+        torch.cuda.empty_cache()
+
+        # a text-only row's loss does not depend on its frame slab
+        tok = load_tokenizer(cfg.data.get("tokenizer"))
+        td = data["text_dir"]
+        ds = IVInstructDataset(os.path.join(td, "train.json"), td, td,
+                               nframe=mcfg.nframe,
+                               image_size=mcfg.vit.image_size)
+        rows = [ds._get(1), ds._get(4)]  # a video row, a text-only row
+        host = collate_iv(rows, tok, mcfg.nframe, mcfg.vit.image_size,
+                          S3_TEXT, S3_ANSWER)
+        db = device_batch(host, trained.device)
+        with torch.no_grad():
+            l1, _ = recipe.loss_fn(trained, db)
+            db["frames"][1] = 99.0
+            l2, _ = recipe.loss_fn(trained, db)
+        l1, l2 = float(l1), float(l2)
+        log(f"  IVT text-only row: loss {l1!r} with a zero slab, {l2!r} with "
+            f"99.0 in it (widths {host['widths'].tolist()}; "
+            f"{'bit-identical' if l1 == l2 else 'differ'}) on {card}")
+        if not math.isclose(l1, l2, rel_tol=1e-5):
+            fail(f"IVT: a text-only row's loss depends on its frames: {l1} "
+                 f"vs {l2}")
+        val_score = final["val/score"]
+
+        # ---- 17b: the checkpoint through load_model, against the trained
+        # model held in memory (the same bf16 residency), then evaluate.main
+        ref = V.VideoTGB(V.bf16_param_config(mcfg), device="cuda", seed=0)
+        ref.load_state_dict(trained.state_dict())
+        del trainer, state, trained, db
+        probe.fits.clear()
+        probe.models.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(out, "checkpoints")
+        n_restores = len(probe.restores)
+        t = time.perf_counter()
+        model, cfg_b = load_model(SimpleNamespace(
+            model_path=ckpt, preset="flagship", backbone="blip2", lora=1,
+            bf16_params=True), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        if cfg_b != ref.config:
+            fail(f"17b: load_model's config {cfg_b} != the trained one")
+        r = probe.restores[n_restores]
+        mine, theirs = model.state_dict(), ref.state_dict()
+        if mine.keys() != theirs.keys() or any(
+                not torch.equal(mine[k], theirs[k]) for k in mine):
+            fail("17b: the restored parameters differ from the trained "
+                 "model's at bf16")
+        log(f"  17b load_model(--lora 1, bf16): {load_s:.2f} s, of it the "
+            f"restore of {r['bytes'] / 1e9:.3f} GB in {r['s']:.2f} s; all "
+            f"{len(mine)} tensors bit-identical to the trained model's cast "
+            f"to bf16 on {card}")
+        b, n_flow, text_len = 4, 5, 24
+        img, fs = mcfg.vit.image_size, mcfg.tgb.flow_size
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(17)
+        frames_u8 = torch.randint(0, 256, (b, mcfg.num_frames, img, img, 3),
+                                  generator=gen, device=dev,
+                                  dtype=torch.uint8)
+        flow_u8 = torch.randint(0, 256, (b, n_flow, fs, fs, 3),
+                                generator=gen, device=dev, dtype=torch.uint8)
+        batch = _batch(mcfg, b, n_flow - 1, text_len, gen, dev)
+        dcfg = DecodeConfig(max_new_tokens=16,
+                            eos_token_id=mcfg.blip2.t5.eos_token_id,
+                            pad_token_id=mcfg.blip2.t5.pad_token_id)
+        serve_want = {**dict.fromkeys(kernels.LAUNCHES, 0),
+                      "corr_lookup": mcfg.raft.iters, "select_frames": 1,
+                      "flash_fwd": mcfg.vit.num_layers}
+        served = []
+        for name, m in (("restored", model), ("in memory", ref)):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            sel_gen = torch.Generator(device=dev).manual_seed(7)
+            cand = V.select_phase_blip2(m, flow_u8, batch, generator=sel_gen)
+            sel = frames_u8[torch.arange(b, device=dev)[:, None], cand]
+            tokens = V.answer_phase_blip2(m, sel, batch, dcfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            got = dict(kernels.LAUNCHES)
+            log(f"  17b {name} model: select + answer for {b} requests "
+                f"{ms:.2f} ms, launches "
+                f"{ {k: v for k, v in got.items() if v} }, frames "
+                f"{cand.tolist()}")
+            if got != serve_want:
+                fail(f"17b {name}: launches {got} != {serve_want}")
+            check_bodies(f"17b {name}", got)
+            if name == "restored":
+                add(got)
+            served.append((cand, tokens))
+        if not (torch.equal(served[0][0], served[1][0])
+                and torch.equal(served[0][1], served[1][1])):
+            fail("17b: the restored model's frames or tokens differ from the "
+                 "trained model's")
+        log(f"  17b: frame indices and all {served[0][1].numel()} tokens "
+            f"identical between the restored and the in-memory model")
+        del model, ref, served, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        eval_args = args + [f"ckpt_path={ckpt}"]
+        metrics, got = cli_run("IVT evaluate.main", probe,
+                               lambda: EV.main(eval_args), {}, eval_want,
+                               card)
+        add(got)
+        log(f"  17b evaluate.main: {metrics}; the run's final eval "
+            f"{final}")
+        if metrics.get("test/score") != val_score:
+            fail(f"17b: evaluate.main's test/score {metrics.get('test/score')}"
+                 f" != the run's val/score {val_score}")
+        if not math.isclose(metrics["test/loss"], final["val/loss"],
+                            rel_tol=1e-5):
+            fail(f"17b: test/loss {metrics['test/loss']} != val/loss "
+                 f"{final['val/loss']}")
+        shutil.rmtree(out)
+
+        # ---- 17c: IV on InstructBLIP-Vicuna-7B, batch 2, 2 steps, an eval
+        try:
+            import transformers  # noqa: F401
+
+            tok_name, has_tf = "llama-vendored", True
+        except ImportError:
+            tok_name, has_tf = "byte", False
+        log(f"  17c: transformers imports here: {has_tf}")
+        if not has_tf:
+            log("  17c: llama-vendored needs transformers; this run passes "
+                "data.tokenizer=byte")
+        vcfg = V.VideoTGBConfig.flagship("instructblip")
+        packed = S3_TEXT + S3_ANSWER
+        step_c, eval_c = expected_stage3(vcfg, S3_TEXT, S3_ANSWER, S3_NEW)
+        log(f"  17c derived launches: a step {step_c} (the reckoning before "
+            f"the run: 83 A, 44 C), an eval batch {eval_c}")
+        out = os.path.join(root, "iv_vicuna")
+        vargs = (["experiment=LSTP_instructblipvicuna7b_ivinstruct",
+                  "data.batch_size=2", "trainer.accumulate_grad_batches=1",
+                  "callbacks=none", f"data.tokenizer={tok_name}",
+                  f"paths.root_dir={root}", f"paths.output_dir={out}"]
+                 + S3_CLI)
+        vrecipe = T.build_recipe(compose(T.CONFIG_DIR, "train", vargs).model)
+        probe.frozen = lambda n: not vrecipe.filter_fn(n)
+        probe.snapshot_device = "cpu"  # 8B frozen parameters: the host
+        probe.moving = lambda n: n.startswith(("model.qformer.layers.0.",
+                                               "model.query_tokens"))
+        vfinal, got = cli_run("Vicuna IV train.main", probe,
+                              lambda: T.main(vargs), step_c, eval_c, card)
+        add(got)
+        probe.frozen = probe.moving = None
+        if len(probe.steps) != 2 or probe.row_faults:
+            fail(f"Vicuna IV: {len(probe.steps)} steps, row faults "
+                 f"{probe.row_faults}")
+        check_bwd_groups("Vicuna IV steps", probe.bwd, vcfg, 2, S3_TEXT,
+                         packed, visual=vcfg.instructblip.qformer
+                         .num_query_tokens)
+        _, vstate = probe.fits[-1]
+        changed = snapshot_changed(vstate.model, probe.snapshot)
+        if changed:
+            fail(f"Vicuna IV: frozen parameters changed: {changed[:5]}")
+        moved = snapshot_changed(vstate.model, probe.moving_snapshot)
+        if sorted(set(probe.moving_snapshot) - set(moved)):
+            fail("Vicuna IV: the Q-Former did not move")
+        log(f"  Vicuna IV: all {len(probe.snapshot)} frozen tensors "
+            f"bit-identical after fit, the {len(moved)} watched Q-Former "
+            f"tensors moved; final {vfinal}; "
+            f"generate_iv took the LLaMA branch on {card}")
+        for r in probe.steps:
+            log(f"  Vicuna IV step {r['step']}: batch widths {r['widths']}")
+        del vstate
+    finally:
+        probe.remove()
+        probe.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- kernel C at the phase's two shapes, beside SDPA's backward
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    s = 32 + S3_TEXT
+    t5_bias = torch.randn((1, 32, s, s), generator=gen, device=dev)
+    rows = {"t5": c_at(card, "T5-xl encoder at stage 3", 1, 32, s, s, 64,
+                       t5_bias, False)}
+    s = 32 + S3_TEXT + S3_ANSWER
+    mask = torch.ones((2, s), device=dev)
+    mask[1, s - 40:] = 0
+    causal = make_causal_bias(s, s, device=dev) + make_padding_bias(mask)
+    rows["llama"] = c_at(card, "LLaMA at stage 3", 2, 32, s, s, 128, causal,
+                         False)
+    log(f"  phase 17 ran in {time.perf_counter() - t17:.1f} s")
+    return launches, rows
+
+
 def main() -> None:
     try:
         import torch
@@ -3931,11 +4460,23 @@ def main() -> None:
     log(f"  kernel C beside its main-shape row: with ds at the SF T5 shape "
         f"{c_rows['ds']}; head dim 128 at the Vicuna E2E shape "
         f"{c_rows['hd128']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    log("phase 17: stage 3, IVT on BLIP2-Flan-T5-xl through train.main, its "
+        "checkpoint served by load_model and scored by evaluate.main, IV on "
+        "InstructBLIP-Vicuna-7B through train.main")
+    s3_launches, s3_rows = stage3_paths(card)
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += s3_launches.get(kern["name"], 0)
+    log(f"  kernel C at stage 3: the T5 encoder's (1, 32, 160, 160, 64) "
+        f"{s3_rows['t5']}; the LLaMA's (2, 32, 192, 192, 128) "
+        f"{s3_rows['llama']}")
     done = time.perf_counter()
-    log(f"phases 1-16 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-17 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
         f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
-        f"{done - t16:.1f} s")
+        f"{t17 - t16:.1f} s, phase 17 in {done - t17:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

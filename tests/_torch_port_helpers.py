@@ -92,6 +92,8 @@ def random_tree(shapes, seed=0):
             value = 1.0 + 0.1 * np.abs(normal)
         elif leaf in ("bias", "mean"):
             value = 0.1 * normal
+        elif leaf in ("lora_a", "lora_b"):  # a delta of O(1) next to W x
+            value = 0.1 * normal
         else:  # embeddings, bos/eos, cls/position/query tokens, rel bias
             value = 0.5 * normal
         out[path] = np.asarray(value, np.float32)
@@ -117,13 +119,29 @@ def jax_params(jmodel, jcfg, seed=0):
     return {"params": jax.tree.map(jnp.asarray, tree)}
 
 
+def jax_with_lora(cfg, rank):
+    """The JAX config with LoRA adapters of ``rank`` on its LLM, as the JAX
+    CLI's ``build_model`` and ``load_model(--lora)`` make it."""
+    if cfg.backbone == "blip2":
+        t5 = dataclasses.replace(cfg.blip2.t5, lora_rank=rank)
+        return dataclasses.replace(
+            cfg, blip2=dataclasses.replace(cfg.blip2, t5=t5))
+    llm = dataclasses.replace(cfg.instructblip.llm, lora_rank=rank)
+    return dataclasses.replace(
+        cfg, instructblip=dataclasses.replace(cfg.instructblip, llm=llm))
+
+
 class Pair:
     """The tiny JAX VideoTGB with its params, and the port's VideoTGB on the
-    CPU with the same weights."""
+    CPU with the same weights (with LoRA adapters of ``lora_rank`` on the
+    LLM when it is not 0)."""
 
-    def __init__(self, seed=0, backbone="blip2"):
+    def __init__(self, seed=0, backbone="blip2", lora_rank=0):
         self.jcfg = jax_tiny_f32(backbone)
         self.tcfg = torch_tiny_f32(backbone)
+        if lora_rank:
+            self.jcfg = jax_with_lora(self.jcfg, lora_rank)
+            self.tcfg = TV.with_lora(self.tcfg, lora_rank)
         self.jmodel = JV.VideoTGB(self.jcfg)
         self.inputs = make_inputs(self.jcfg, seed)
         self.params = jax_params(self.jmodel, self.jcfg, seed)
@@ -198,3 +216,96 @@ def gumbel_like(key, start_logits, top_k):
     shape = (top_k, 2, *start_logits.shape)
     return torch.from_numpy(np.array(
         jax.random.gumbel(key, shape, jnp.float32)))
+
+
+# each JAX program of a parity test runs once: XLA's cheapest CPU
+# optimisation level compiles it in about a third less time
+CHEAP_COMPILE = {"xla_backend_optimization_level": 0,
+                 "xla_llvm_disable_expensive_passes": True}
+
+
+def run_once(fn, *args):
+    """jit ``fn``, compile it with ``CHEAP_COMPILE`` and call it."""
+    return jax.jit(fn).lower(*args).compile(CHEAP_COMPILE)(*args)
+
+
+def grads_against_jax(pair, jloss, tloss, filters, batch):
+    """``jloss(params, batch) -> (loss, aux)`` under ``jax.value_and_grad``
+    with the JAX trainer's freeze (stop_gradient on frozen leaves) against
+    ``tloss(model, batch) -> (loss, aux)`` backpropagated in a fresh port
+    model: the loss and the gradient of every trainable parameter at 2e-4,
+    no gradient on a frozen one. ``filters`` is the (JAX, port) pair of
+    freeze filters. Returns (the port's trainable names, JAX aux, port
+    aux)."""
+    from videotgb_torch.convert import flax_to_state_dict
+    from videotgb_torch.training import optim as TO
+    from videotgb_tpu.training import optim as JO
+
+    params = pair.params["params"]
+    mask = JO.trainable_mask(params, filters[0])
+
+    def frozen(p, b):
+        p = jax.tree.map(lambda m, x: x if m else jax.lax.stop_gradient(x),
+                         mask, p)
+        return jloss(p, b)
+
+    (loss_j, aux_j), grads_j = run_once(
+        jax.value_and_grad(frozen, has_aux=True), params,
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    grads_j = flax_to_state_dict(jax.device_get(grads_j))
+    model = load_flax_params(TV.VideoTGB(pair.tcfg, device="cpu"), pair.tree)
+    _, names = TO.make_optimizer(model, filter_fn=filters[1])
+    loss, aux = tloss(model, {k: t(v) for k, v in batch.items()})
+    loss.backward()
+    close(loss, loss_j)
+    moved = 0
+    for name, p in model.named_parameters():
+        if name not in names:
+            assert p.grad is None, name
+            continue
+        grad = p.grad if p.grad is not None else torch.zeros_like(p)
+        np.testing.assert_allclose(grad.numpy(), grads_j[name].numpy(),
+                                   err_msg=name, **TOL)
+        moved += int(p.grad is not None)
+    assert moved > 0
+    return names, aux_j, aux
+
+
+def write_stage3_media(root, size=(64, 48), frames=20):
+    """A stage-3 ``text_dir`` under ``root`` (a ``pathlib.Path``), made from
+    a seed: a JPEG, an mp4 (mp4v) of ``frames`` frames, {train,val}.json
+    with image, video (one cropped by pseudo_label.json, one by its own
+    ``pseudo_label``) and text-only rows, pseudo_label.json and
+    nlp_tune.json (one text-only row). Returns the train rows."""
+    import json
+
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    w, h = size
+    cv2.imwrite(str(root / "pic.jpg"),
+                rng.integers(0, 255, (h, w, 3), np.uint8))
+    writer = cv2.VideoWriter(str(root / "clip.mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (w, h))
+    for _ in range(frames):
+        writer.write(rng.integers(0, 255, (h, w, 3), np.uint8))
+    writer.release()
+
+    def conv(q, a):
+        return [{"from": "human", "value": q}, {"from": "gpt", "value": a}]
+
+    rows = [
+        {"id": "i0", "image": "pic.jpg",
+         "conversations": conv("<image>\nwhat is this?", "a picture")},
+        {"id": "v0", "video": "clip.mp4",
+         "conversations": conv("<video>\nwhat happens?", "things move")},
+        {"id": "v1", "video": "clip.mp4", "pseudo_label": [0.5, 0.9],
+         "conversations": conv("<video>\nand later?", "they stop") * 2},
+        {"id": "t0", "conversations": conv("just text", "sure")},
+    ]
+    (root / "train.json").write_text(json.dumps(rows))
+    (root / "val.json").write_text(json.dumps(rows[:2]))
+    (root / "pseudo_label.json").write_text(json.dumps({"v0": [0.25, 0.75]}))
+    (root / "nlp_tune.json").write_text(json.dumps([rows[3]]))
+    return rows

@@ -165,7 +165,9 @@ def test_run_inference_shards_chunks_and_wants_cuda(qa_assets, tmp_path,
         TI.load_model(args)
 
 
-def test_load_model_honours_flags_and_refuses_what_is_not_ported():
+def test_load_model_honours_flags_and_refuses_what_is_not_ported(tmp_path):
+    from videotgb_torch.training import checkpoint as TCK
+
     base = dict(model_path="random:tiny", backbone="blip2", lora=0,
                 bf16_params=False, nframe=None, flow_size=None)
     _, cfg = TI.load_model(SimpleNamespace(**base), device="cpu")
@@ -174,23 +176,90 @@ def test_load_model_honours_flags_and_refuses_what_is_not_ported():
         SimpleNamespace(**dict(base, nframe=3, flow_size=48)), device="cpu")
     assert cfg.nframe == 3 and cfg.tgb.flow_size == 48
     assert model.config is cfg
-    for backbone in ("instructblip", "instructblip_t5"):
+    for backbone in ("instructblip", "instructblip_t5", "blip2"):
         model, cfg = TI.load_model(
             SimpleNamespace(**dict(base, backbone=backbone)), device="cpu")
         assert cfg == TV.VideoTGBConfig.tiny(backbone)
-        assert cfg.instruction_aware
-        for change, match in ((dict(model_path="/ckpt"), "queue 1 item 4"),
-                              (dict(lora=1), "queue 1 item 5")):
-            with pytest.raises(NotImplementedError, match=match):
-                TI.load_model(SimpleNamespace(
-                    **dict(base, backbone=backbone, **change)), device="cpu")
-    for change, match in ((dict(model_path="/ckpt"), "queue 1 item 4"),
-                          (dict(lora=1), "queue 1 item 5")):
-        with pytest.raises(NotImplementedError, match=match):
-            TI.load_model(SimpleNamespace(**dict(base, **change)),
-                          device="cpu")
+        assert cfg.instruction_aware == (backbone != "blip2")
+        # --lora 1: rank-8 adapters on the LLM (it raised before LoRA)
+        _, cfg = TI.load_model(SimpleNamespace(
+            **dict(base, backbone=backbone, lora=1)), device="cpu")
+        assert cfg == TV.with_lora(TV.VideoTGBConfig.tiny(backbone), 8)
+        # a checkpoint directory (it raised before the restore): the
+        # model of ``preset`` with the saved parameters
+        root = tmp_path / backbone
+        TCK.CheckpointManager(TCK.CheckpointConfig(directory=str(root))).save(
+            3, {"params": model.state_dict(), "step": 3})
+        restored, cfg = TI.load_model(SimpleNamespace(**dict(
+            base, backbone=backbone, model_path=str(root), preset="tiny")),
+            device="cpu")
+        assert cfg == TV.VideoTGBConfig.tiny(backbone)
+        want = model.state_dict()
+        assert all(torch.equal(v, want[k])
+                   for k, v in restored.state_dict().items())
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         TI.run_inference(SimpleNamespace(mesh="dp=2"))
+
+
+def test_load_model_serves_an_ivt_checkpoint(qa_assets, tmp_path,
+                                             monkeypatch):
+    """A tiny IVT run of ``train.main`` saves its adapters; ``load_model``
+    with ``lora`` restores them onto the preset's model, which selects
+    and answers exactly as the saving model; the keys must match both
+    ways; the QA CLI answers from the checkpoint with ``--lora 1``."""
+    from _torch_port_helpers import make_inputs, write_stage3_media
+    from videotgb_torch import train as TTR
+    from videotgb_torch.ops.decode import DecodeConfig
+    from videotgb_torch.training import checkpoint as TCK
+
+    write_stage3_media(tmp_path / "data" / "ivinstruct")
+    trained = []
+    build = TTR.build_model
+    monkeypatch.setattr(TTR, "build_model", lambda *a, **k: (
+        trained.append(build(*a, **k)) or trained[-1]))
+    ckpt = str(tmp_path / "out" / "checkpoints")
+    TTR.main(["experiment=LSTP_blip2flant5xl_ivtinstruct", "model.preset=tiny",
+              "data.tokenizer=byte", "data.num_workers=0",
+              "trainer.max_steps=2", "trainer.eval_every=10", "trainer=cpu",
+              "extras.print_config=false", f"paths.root_dir={tmp_path}",
+              f"paths.output_dir={tmp_path / 'out'}"])
+    saver = trained[0][0]
+    args = dict(model_path=ckpt, preset="tiny", backbone="blip2", lora=1,
+                bf16_params=False)
+    model, cfg = TI.load_model(SimpleNamespace(**args), device="cpu")
+    assert cfg == trained[0][1]
+
+    x = make_inputs(cfg, seed=3)
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in x.items()}
+    batch["question_ids"] = batch["question_ids"].long()
+    dcfg = DecodeConfig(max_new_tokens=4, eos_token_id=1, pad_token_id=0)
+
+    def serve(m):
+        cand = TV.select_phase_blip2(m, batch["flow_u8"], batch,
+                                     generator=torch.Generator().manual_seed(1))
+        sel = batch["frames_u8"][torch.arange(2)[:, None], cand]
+        return cand, TV.answer_phase_blip2(m, sel, batch, dcfg)
+
+    for got, want in zip(serve(model), serve(saver)):
+        assert torch.equal(got, want)
+    with pytest.raises(RuntimeError, match="Unexpected key.*q_lora"):
+        TI.load_model(SimpleNamespace(**dict(args, lora=0)), device="cpu")
+    plain = tmp_path / "plain"
+    TCK.CheckpointManager(TCK.CheckpointConfig(directory=str(plain))).save(
+        1, {"params": TI.load_model(SimpleNamespace(**dict(
+            args, model_path="random:tiny", lora=0)), device="cpu")[0]
+            .state_dict()})
+    with pytest.raises(RuntimeError, match="Missing key.*q_lora"):
+        TI.load_model(SimpleNamespace(**dict(args, model_path=str(plain))),
+                      device="cpu")
+
+    cli = TI.parse_args(_argv(
+        qa_assets, tmp_path / "qa", "--model_path", ckpt, "--preset", "tiny",
+        "--lora", "1", "--bf16_params", "0", "--batch_size", "2",
+        "--max_new_tokens", "2", "--flow_mode", "fixed", "--flow_frames", "3",
+        "--device", "cpu"))
+    with open(TI.run_inference(cli)) as f:
+        assert [json.loads(line)["id"] for line in f] == ["q1", "q2", "q3"]
 
 
 def test_ignored_reference_flags_warn(qa_assets, tmp_path):

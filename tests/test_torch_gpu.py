@@ -65,6 +65,8 @@ from videotgb_torch.tools.lnprobe import (
 from videotgb_torch.tools.lookupprobe import blocked_lookup
 from videotgb_torch.training.recipes import (
     E2ERecipe,
+    IVRecipe,
+    IVTRecipe,
     SFRecipe,
     pseudo_label_generate,
 )
@@ -1490,3 +1492,98 @@ def test_tiny_e2e_cli_on_the_card_with_tgb_selection(cuda, tmp_path,
 
     metrics = EV.main(args + [f"ckpt_path={out}/checkpoints"])
     assert {"test/loss", "test/score"} <= set(metrics)
+
+
+def _random_lora_b(model, gen):
+    """Nonzero B factors (built, they are 0 and A takes no gradient)."""
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("lora_b"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_with_lora_on_the_card_matches_the_cpu(cuda, dtype):
+    """Self-attention with q and v adapters at 160 tokens (over the 128^2
+    rule: kernels A and C once each on the card): the output and the
+    adapters' gradients on the card against the CPU's plain route."""
+    from videotgb_torch.models.common import MultiHeadAttention
+
+    mods = [MultiHeadAttention(64, 4, 16, lora_rank=8, dtype=dtype, device=d)
+            for d in ("cpu", cuda)]
+    gen = torch.Generator().manual_seed(3)
+    init_params(mods[0], 3)
+    _random_lora_b(mods[0], gen)
+    mods[1].load_state_dict(mods[0].state_dict())
+    x = torch.randn((2, 160, 64), generator=gen)
+    g = torch.randn((2, 160, 64), generator=gen)
+    outs = []
+    for m in mods:
+        dev = next(m.parameters()).device
+        for n, p in m.named_parameters():
+            p.requires_grad_("_lora." in n)
+        kernels.reset_launches()
+        out, _ = m(x.to(dev))
+        out.backward(g.to(dev, out.dtype))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["flash_fwd"] == 1
+            assert kernels.LAUNCHES["flash_bwd"] == 1
+        outs.append((out.detach().cpu(), {n: p.grad.cpu() for n, p in
+                                           m.named_parameters()
+                                           if p.grad is not None}))
+    (got, got_grads), (want, want_grads) = outs[1], outs[0]
+    assert sorted(got_grads) == sorted(want_grads) and len(want_grads) == 4
+    tol = TOL[dtype] if dtype == torch.bfloat16 else 1e-4
+    _close_to_largest(got, want, tol, "out")
+    for n, w in want_grads.items():
+        _close_to_largest(got_grads[n], w, tol, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone,lora,recipe", [
+    ("blip2", 8, IVTRecipe()), ("instructblip_t5", 0, IVRecipe()),
+    ("instructblip", 8, IVTRecipe())])
+def test_tiny_stage3_step_on_the_card_matches_the_cpu(cuda, backbone, lora,
+                                                      recipe):
+    """The IV / IVT loss and the trainable gradients (the Q-Former, its
+    projection and query tokens, the adapters) of a batch with a text-only
+    row, on the card and on the CPU from the same weights; no kernel at the
+    tiny shapes."""
+    cfg = _tiny_f32(backbone)
+    if lora:
+        cfg = V.with_lora(cfg, lora)
+    gen = torch.Generator().manual_seed(11)
+    cpu = V.VideoTGB(cfg, device="cpu", seed=11)
+    _random_lora_b(cpu, gen)
+    gpu = V.VideoTGB(cfg, device=cuda, seed=11)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = _train_batch(cfg, 2, 6, gen)
+    batch["frames"] = batch["frames"][:, :cfg.nframe].clone()
+    batch["frames"][1] = 0.0
+    batch["widths"] = torch.tensor([cfg.nframe, 0])
+    out = []
+    for model in (gpu, cpu):
+        for n, p in model.named_parameters():
+            p.requires_grad_(recipe.filter_fn(n))
+        dev = model.device
+        kernels.reset_launches()
+        loss, _ = recipe.loss_fn(model, {k: v.to(dev)
+                                         for k, v in batch.items()})
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        out.append((loss.detach().cpu(), grads, dict(kernels.LAUNCHES)))
+    (loss, grads, launches), (want, want_grads, _) = out
+    assert launches == dict.fromkeys(launches, 0)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-4)
+    assert grads.keys() == want_grads.keys()
+    assert any("_lora." in n for n in grads) == bool(lora)
+    top = max(float(g.abs().max()) for g in want_grads.values())
+    for n, g in grads.items():
+        w = want_grads[n]
+        if float(w.abs().max()) < 1e-6 * top:
+            assert float((g - w).abs().max()) <= 1e-6 * top, n
+        else:
+            _close_to_largest(g, w, 1e-3, n)

@@ -302,12 +302,16 @@ def test_what_the_vicuna_port_lacks_raises():
     cfg = TV.VideoTGBConfig.tiny("instructblip")
     llm = cfg.instructblip.llm
     for change, match in ((dict(scan_layers=True), "items 7 and 8"),
-                          (dict(remat=True), "items 7 and 8"),
-                          (dict(lora_rank=8), "queue 1 item 5")):
+                          (dict(remat=True), "items 7 and 8")):
         bad = dataclasses.replace(cfg, instructblip=dataclasses.replace(
             cfg.instructblip, llm=dataclasses.replace(llm, **change)))
         with pytest.raises(NotImplementedError, match=match):
             TV.VideoTGB(bad, device="cpu")
+    # LoRA is ported: rank-8 adapters on every LLaMA attention's q and v
+    lora = TV.VideoTGB(TV.with_lora(cfg, 8), device="cpu")
+    names = [n for n, _ in lora.model.language_model.named_parameters()
+             if "_lora." in n]
+    assert len(names) == 2 * 2 * llm.num_layers
 
 
 def test_flagship_instructblip_wants_cuda(monkeypatch):

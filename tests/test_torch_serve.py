@@ -353,12 +353,30 @@ def test_bf16_residency_by_default_and_f32_opt_out():
     (dict(mesh="dp=2,tp=2", backbone="instructblip"), "queue 1 item 7"),
     (dict(mesh="dp=2,tp=2", backbone="instructblip_t5"), "queue 1 item 7"),
 ])
-def test_what_the_port_lacks_raises(kw, match):
+def test_what_the_port_lacks_raises(kw, match, tmp_path):
+    """The mesh engine raises; a checkpoint directory of
+    ``videotgb_torch.train`` (which raised until its restore was ported) is
+    served with its parameters, the model of ``preset``."""
+    from videotgb_torch.training import checkpoint as TCK
+
     with pytest.raises(NotImplementedError, match=match):
         TS.ServingEngine("random:tiny", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TS.ServingEngine("/some/checkpoint", device="cpu",
-                         backbone=kw.get("backbone", "blip2"))
+    backbone = kw.get("backbone", "blip2")
+    saved = TV.VideoTGB(TV.VideoTGBConfig.tiny(backbone), device="cpu",
+                        seed=4).state_dict()
+    TCK.CheckpointManager(TCK.CheckpointConfig(directory=str(tmp_path))).save(
+        1, {"params": saved, "step": 1}, {"val/score": 0.5})
+    eng = TS.ServingEngine(str(tmp_path), preset="tiny", backbone=backbone,
+                           device="cpu", batch_size=1, flow_frames=3,
+                           max_new_tokens=2, bf16_params=False)
+    try:
+        got = eng.model.state_dict()
+        assert got.keys() == saved.keys()
+        assert all(torch.equal(got[k], v) for k, v in saved.items())
+        frames, flow = _inputs(eng, seed=5)
+        assert eng.submit(frames, flow, "what?").result(timeout=600)
+    finally:
+        eng.close()
 
 
 def test_engine_wants_cuda_without_a_device(monkeypatch):

@@ -22,26 +22,22 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import B, L_FLOW, TOL, Pair, close, few_torch_threads, t  # noqa: F401
+from _torch_port_helpers import (  # noqa: F401
+    B, L_FLOW, TOL, Pair, close, few_torch_threads, grads_against_jax,
+    run_once, t)
 from videotgb_torch import train as TT
 from videotgb_torch.convert import flax_to_state_dict
 from videotgb_torch.data.datasets import pack_text_input_output
 from videotgb_torch.data.tokenizer import load_tokenizer as t_tokenizer
 from videotgb_torch.ops import span as TS
-from videotgb_torch.training import optim as TO
 from videotgb_torch.training import recipes as TR
 from videotgb_tpu import train as JT
 from videotgb_tpu.data.tokenizer import load_tokenizer as j_tokenizer
 from videotgb_tpu.ops import span as JS
-from videotgb_tpu.training import optim as JO
 from videotgb_tpu.training import recipes as JR
 
 F = 32
 PSEUDO_NEW = 4
-# each JAX program here runs once: XLA's cheapest CPU optimisation level
-# compiles it in about a third less time
-CHEAP_COMPILE = {"xla_backend_optimization_level": 0,
-                 "xla_llvm_disable_expensive_passes": True}
 ANSWERS = ["playing a guitar on stage </s>", "the car is bright red </s>"]
 
 
@@ -141,55 +137,9 @@ def sf_batch(pair, seed):
     }
 
 
-def run_once(fn, *args):
-    """jit ``fn``, compile it with ``CHEAP_COMPILE`` and call it."""
-    return jax.jit(fn).lower(*args).compile(CHEAP_COMPILE)(*args)
-
-
 def gumbel(pair):
     rng = np.random.default_rng(13)
     return rng.gumbel(size=(pair.jcfg.top_k, 2, B, L_FLOW)).astype(np.float32)
-
-
-def grads_against_jax(pair, jloss, tloss, filters, batch):
-    """``jloss(params, batch) -> (loss, aux)`` under ``jax.value_and_grad``
-    with the JAX trainer's freeze (stop_gradient on frozen leaves) against
-    ``tloss(model, batch) -> (loss, aux)`` backpropagated in a fresh port
-    model: the loss and the gradient of every trainable parameter at 2e-4,
-    no gradient on a frozen one. ``filters`` is the (JAX, port) pair of
-    freeze filters. Returns (the port's trainable names, JAX aux, port
-    aux)."""
-    from videotgb_torch.convert import load_flax_params
-    from videotgb_torch.models import videotgb as TV
-
-    params = pair.params["params"]
-    mask = JO.trainable_mask(params, filters[0])
-
-    def frozen(p, b):
-        p = jax.tree.map(lambda m, x: x if m else jax.lax.stop_gradient(x),
-                         mask, p)
-        return jloss(p, b)
-
-    (loss_j, aux_j), grads_j = run_once(
-        jax.value_and_grad(frozen, has_aux=True), params,
-        {k: jnp.asarray(v) for k, v in batch.items()})
-    grads_j = flax_to_state_dict(jax.device_get(grads_j))
-    model = load_flax_params(TV.VideoTGB(pair.tcfg, device="cpu"), pair.tree)
-    _, names = TO.make_optimizer(model, filter_fn=filters[1])
-    loss, aux = tloss(model, {k: t(v) for k, v in batch.items()})
-    loss.backward()
-    close(loss, loss_j)
-    moved = 0
-    for name, p in model.named_parameters():
-        if name not in names:
-            assert p.grad is None, name
-            continue
-        grad = p.grad if p.grad is not None else torch.zeros_like(p)
-        np.testing.assert_allclose(grad.numpy(), grads_j[name].numpy(),
-                                   err_msg=name, **TOL)
-        moved += int(p.grad is not None)
-    assert moved > 0
-    return names, aux_j, aux
 
 
 # ------------------------------------------------------ the SF loss, grads

@@ -634,6 +634,59 @@ def test_sf_and_instructblip_train_cli(tmp_path, overrides, keys):
         np.testing.assert_allclose(metrics["test/score"], final["val/score"])
 
 
+# stage 3 (IV, IVT) and LoRA through the CLI: the JAX CLI's runs of
+# tests/test_entries.py:297-325 on a text_dir written with cv2
+STAGE3_CLI = {
+    "blip2_iv": ["experiment=LSTP_blip2flant5xl_ivinstruct"],
+    # batch 1, 4 loader batches a step (the experiment's accumulation)
+    "blip2_ivt": ["experiment=LSTP_blip2flant5xl_ivtinstruct"],
+    "vicuna_iv": ["experiment=LSTP_instructblipvicuna7b_ivinstruct",
+                  "data.batch_size=2", "trainer.accumulate_grad_batches=1"],
+    "vicuna_ivt": ["experiment=LSTP_instructblipvicuna7b_ivtinstruct"],
+    "e2e_lora": ["experiment=smoke_e2e_synthetic", "+model.lora_rank=8"],
+}
+
+
+@pytest.mark.parametrize("case", list(STAGE3_CLI))
+def test_stage3_and_lora_train_cli(tmp_path, case):
+    """``train.main`` of the four stage-3 experiments at tiny size on the
+    CPU (image, video and text-only rows; IVT's text-only rows from
+    nlp_tune.json), and E2E with frozen rank-8 adapters: finite metrics,
+    a checkpoint of step 2 whose adapters moved under IVT only; the Vicuna
+    IV checkpoint scored by the eval overlay to the run's val/score."""
+    from _torch_port_helpers import write_stage3_media
+
+    write_stage3_media(tmp_path / "data" / "ivinstruct")
+    out = str(tmp_path / "out")
+    args = STAGE3_CLI[case] + [
+        f"paths.root_dir={tmp_path}", f"paths.output_dir={out}",
+        "data.num_workers=0", "data.tokenizer=byte", "trainer.max_steps=2",
+        "trainer.eval_every=10"] + CPU
+    if case != "e2e_lora":
+        args.append("model.preset=tiny")
+    final = TT.main(args)
+    assert {"val/loss", "val/score"} <= set(final)
+    assert all(np.isfinite(v) for v in final.values())
+    saved = TCK.CheckpointManager(TCK.CheckpointConfig(
+        directory=f"{out}/checkpoints")).restore(items=["params", "step"])
+    assert saved["step"] == 2
+    params = saved["params"]
+    lora_b = [v for k, v in params.items() if k.endswith("lora_b")]
+    assert bool(lora_b) == (case.endswith("ivt") or case == "e2e_lora")
+    # step 0 has lr 0; step 1 moves IVT's adapters, E2E's stay frozen at 0
+    assert all(bool(v.any()) == case.endswith("ivt") for v in lora_b)
+    if case == "vicuna_iv":
+        metrics = TE.main([
+            "experiment=eval_LSTP_instructblipvicuna7b_ivinstruct",
+            "model.preset=tiny", "data.tokenizer=byte", "data.batch_size=2",
+            "data.num_workers=0", f"paths.root_dir={tmp_path}",
+            f"paths.output_dir={out}", f"ckpt_path={out}/checkpoints"] + CPU)
+        assert set(metrics) == {"test/loss", "test/score"}
+        assert metrics["test/score"] == final["val/score"]
+        np.testing.assert_allclose(metrics["test/loss"], final["val/loss"],
+                                   rtol=1e-6)
+
+
 def test_cli_resume_takes_the_remaining_steps_on_the_schedule(tmp_path):
     out = str(tmp_path / "out")
     args = ["experiment=smoke_e2e_synthetic", f"paths.output_dir={out}",
@@ -677,17 +730,13 @@ def test_without_trainer_cpu_the_cli_wants_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (["experiment=smoke_sf_synthetic", "+model.lora_rank=8"],
-     "queue 1 item 5"),
-    (["model=LSTP_blip2_IV", "model.preset=tiny"], "queue 1 item 4"),
-    (["model=LSTP_blip2_IVT", "model.preset=tiny"], "queue 1 item 5"),
-    (["experiment=smoke_e2e_synthetic", "+model.lora_rank=8"],
-     "queue 1 item 5"),
-    (["model=LSTP_instructblip_IV", "model.preset=tiny"], "queue 1 item 4"),
-    (["experiment=smoke_tg_synthetic", "trainer.tp=2"], "queue 1 item 7"),
-    (["experiment=smoke_tg_synthetic", "trainer=ddp_sim"], "queue 1 item 7"),
-    (["experiment=smoke_tg_synthetic", "+trainer.steps_per_dispatch=2"],
-     "queue 1 item 2"),
+    pytest.param(["experiment=smoke_tg_synthetic", "trainer.tp=2"],
+                 "queue 1 item 7", id="overrides5-queue 1 item 7"),
+    pytest.param(["experiment=smoke_tg_synthetic", "trainer=ddp_sim"],
+                 "queue 1 item 7", id="overrides6-queue 1 item 7"),
+    pytest.param(["experiment=smoke_tg_synthetic",
+                  "+trainer.steps_per_dispatch=2"],
+                 "queue 1 item 2", id="overrides7-queue 1 item 2"),
 ])
 def test_unported_recipes_layouts_and_options_raise(tmp_path, overrides,
                                                     match):
@@ -696,6 +745,16 @@ def test_unported_recipes_layouts_and_options_raise(tmp_path, overrides,
         f"paths.output_dir={tmp_path}", "extras.print_config=false"])
     assert cfg.trainer.platform == "cpu"
     with pytest.raises(NotImplementedError, match=match):
+        TT.train(cfg)
+
+
+def test_sf_refuses_accumulated_micro_batches(tmp_path):
+    """The SF pseudo-label pass scores one loader batch a step, so SF with
+    ``accumulate_grad_batches`` > 1 raises before the model is built."""
+    cfg = compose(TT.CONFIG_DIR, "train", [
+        "experiment=smoke_sf_synthetic", "trainer.accumulate_grad_batches=2",
+        f"paths.output_dir={tmp_path}"] + CPU)
+    with pytest.raises(ValueError, match="accumulate_grad_batches"):
         TT.train(cfg)
 
 

@@ -324,8 +324,9 @@ def test_tgb_dropout_is_off_when_deterministic(pair):
 
 # ------------------------------------------------------------- entry point
 def test_build_model_and_recipe_from_model_config_keys():
-    """The keys of configs/model/LSTP_blip2_e2e.yaml and LSTP_TG_blip2.yaml,
-    a train step of the tiny preset on the CPU."""
+    """The keys of configs/model/LSTP_blip2_e2e.yaml, LSTP_TG_blip2.yaml,
+    the SF and stage-3 (IV, IVT with ``lora_rank``) model configs, and a
+    train step of the tiny preset on the CPU."""
     e2e = TT.build_recipe({"recipe": "e2e", "tgb_mode": "multi_modal",
                            "selection": "uniform"})
     assert e2e == TR.E2ERecipe(mode="multi_modal", selection="uniform")
@@ -333,8 +334,12 @@ def test_build_model_and_recipe_from_model_config_keys():
         TR.TGRecipe(mode="fusion")
     assert TT.build_recipe({"recipe": "sf", "online_flow": True}) == \
         TR.SFRecipe(online_flow=True)
-    with pytest.raises(NotImplementedError):
-        TT.build_recipe({"recipe": "iv"})
+    assert TT.build_recipe({"recipe": "iv", "tgb_mode": "fusion"}) == \
+        TR.IVRecipe()
+    assert TT.build_recipe({"recipe": "ivt"}) == TR.IVTRecipe()
+    _, lora = TT.build_model({"preset": "tiny", "backbone": "instructblip",
+                              "lora_rank": 8}, device="cpu")
+    assert lora.instructblip.llm.lora_rank == 8
     model, cfg = TT.build_model({"preset": "tiny"}, device="cpu", seed=1)
     gen = torch.Generator().manual_seed(0)
     img = cfg.blip2.vit.image_size

@@ -3,8 +3,9 @@
 A port of the video-QA serving paths of ``videotgb_tpu`` (RAFT optical
 flow -> Temporal Grounding Bridge span selection -> ViT-g -> Q-Former ->
 Flan-T5 or, through the instruction-aware Q-Former, Vicuna-7B generation)
-and of its BLIP2-Flan-T5 TG and E2E training recipes
-(``training/``, ``train.py``). The hot spots that the JAX package ran as
+and of its training recipes on the three backbones (``training/``,
+``train.py``): TG, SF, E2E and stage 3's IV and IVT (LoRA adapters on the
+LLM, ``models/lora.py``). The hot spots that the JAX package ran as
 Pallas TPU kernels run here as CUDA C++ kernels written for ``sm_90a``
 (``csrc/``), built with ``nvcc`` on first use:
 
@@ -26,14 +27,16 @@ answer worker, each on its own CUDA stream on the card) and
 their judge, over the host modules of ``data/`` (tokenizers, video I/O,
 transforms).
 
-The TG and E2E recipes train from the command line as in the JAX package:
+The recipes train from the command line as in the JAX package:
 ``python -m videotgb_torch.train experiment=...`` composes the repo's
-``configs/`` tree (``config/``, read without PyYAML), builds the synthetic
-or VideoInstruct data (``data/datasets.py``, ``data/loader.py``) and fits
+``configs/`` tree (``config/``, read without PyYAML), builds the synthetic,
+VideoInstruct or stage-3 image/video/text data (``data/datasets.py``,
+``data/conversation.py``, ``data/loader.py``) and fits
 with evaluation, checkpoints, resume and early stopping
 (``training/trainer.py``, ``training/checkpoint.py``,
 ``training/metrics.py``, ``utils/``); ``python -m videotgb_torch.evaluate
-ckpt_path=...`` scores a checkpoint.
+ckpt_path=...`` scores a checkpoint, and ``evalsuite.inference.load_model``
+(with ``--lora 1`` for an IVT one) serves it.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``trainer.platform=cpu`` for the CLIs); there each kernel

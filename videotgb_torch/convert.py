@@ -16,7 +16,9 @@ module names, so the mapping is:
   T5's ``encoder_{i}`` / ``decoder_{i}`` -> ``encoder_blocks.{i}`` /
   ``decoder_blocks.{i}``;
 * everything else (biases, ``bos``/``eos``, ``cls_token``,
-  ``position_embedding(s)``, ``query_tokens``, ``rel_embedding``) by name.
+  ``position_embedding(s)``, ``query_tokens``, ``rel_embedding``) by name;
+  so do the LoRA adapters, ``<q|v>_lora/lora_a`` (in, r) and ``lora_b``
+  (r, out), which the port keeps in the JAX layout.
 
 The InstructBLIP-Vicuna tree needs no rule of its own: LLaMA's
 ``embed_tokens/embedding``, the RMS norms' ``scale``, the bias-free

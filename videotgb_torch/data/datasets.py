@@ -1,6 +1,6 @@
-"""Datasets and the static-shape collate of the VideoInstruct mix (the
-port's copy of the video half of ``videotgb_tpu/data/datasets.py``, the same
-arrays and keys).
+"""Datasets and the static-shape collates of the instruction mixes (the
+port's copy of ``videotgb_tpu/data/datasets.py``, the same arrays and keys):
+the VideoInstruct video mix and the stage-3 image/video/text mix.
 
 Ports the reference's dataset layer (reference: src/data/components/
 videoinstruct_dataset.py) with one deliberate change kept from the JAX
@@ -17,22 +17,25 @@ Batch key mapping (reference collate keys -> ours):
   starts/ends                  -> unchanged (flow-domain span targets)
 
 A :class:`SyntheticVideoQA` twin generates schema-identical batches for
-tests and smoke training (no dataset ships with the repo). The image/video
-instruction mix (``IVInstructDataset``, ``collate_iv``) comes with the IV
-recipe.
+tests and smoke training (no dataset ships with the repo).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 from typing import Any
 
 import numpy as np
 
+from videotgb_torch.data.conversation import conv_templates
 from videotgb_torch.data.flow_viz import normalize_flow
 from videotgb_torch.data.transforms import clip_transform
 from videotgb_torch.data.video_io import read_video_cv2, sample_frames
+from videotgb_torch.utils.logging import get_logger
+
+log = get_logger("videotgb_torch.data")
 
 IGNORE_INDEX = -100
 
@@ -259,3 +262,158 @@ def collate_videoinstruct(
         "_text_answer": answers,
         "_idxs": [s["idx"] for s in samples],
     }
+
+
+class IVInstructDataset:
+    """LLaVA image + Video-ChatGPT video mix for stage 3
+    (ivinstruct_dataset.py:74-130): conversations render through the
+    vicuna_v1 template; videos are cropped to the pseudo-label span then
+    uniformly sampled to nframe; a row that fails to load is replaced by a
+    random one, drawn from a ``random.Random(seed)`` the dataset owns."""
+
+    def __init__(
+        self,
+        text_path: str,
+        image_dir: str,
+        video_dir: str,
+        split: str = "train",
+        nframe: int = 4,
+        image_size: int = 224,
+        conv_template: str = "vicuna_v1",
+        include_text_only: bool = False,
+        text_only_path: str | None = None,
+        num_base_frames: int = 32,
+        pseudo_label_path: str | None = None,
+        seed: int = 0,
+    ):
+        with open(text_path) as f:
+            self.data = json.load(f)
+        if include_text_only and text_only_path and os.path.exists(text_only_path):
+            with open(text_only_path) as f:
+                self.data += json.load(f)  # width-0 rows (ivtinstruct:216-225)
+        self.image_dir = image_dir
+        self.video_dir = video_dir
+        self.nframe = nframe
+        self.num_base_frames = num_base_frames
+        self.image_size = image_size
+        self.conv = conv_templates[conv_template]
+        self.rng = random.Random(seed)
+        # span ratios keyed by sample id (reference pseudo_label.json); rows
+        # may alternatively embed their own "pseudo_label" [start, end]
+        self.pseudo_label: dict[str, list[float]] = {}
+        if pseudo_label_path and os.path.exists(pseudo_label_path):
+            with open(pseudo_label_path) as f:
+                self.pseudo_label = json.load(f)
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def _render(self, conversations: list[dict]) -> tuple[str, str]:
+        conv = self.conv.copy()
+        roles = {"human": conv.roles[0], "gpt": conv.roles[1]}
+        for turn in conversations[:-1]:
+            conv.append_message(roles[turn["from"]], turn["value"])
+        conv.append_message(conv.roles[1], None)
+        prompt = conv.get_prompt()
+        answer = conversations[-1]["value"] + " </s>"
+        return prompt, answer
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        try:
+            return self._get(index)
+        except Exception as e:  # noqa: BLE001 — the reference resamples
+            # (ivinstruct_dataset.py:128-130)
+            log.warning("row %d failed to load (%s: %s); a random row "
+                        "replaces it", index, type(e).__name__, e)
+            return self[self.rng.randrange(len(self))]
+
+    def _get(self, index: int) -> dict[str, Any]:
+        d = self.data[index]
+        prompt, answer = self._render(d["conversations"])
+        if "image" in d:
+            import cv2
+
+            img = cv2.imread(os.path.join(self.image_dir, d["image"]))[..., ::-1]
+            frames = clip_transform(img[None], self.image_size)
+            width = 1
+        elif "video" in d:
+            # decode the 32 base frames, crop to the grounded pseudo-label
+            # span, then uniform-sample nframe INSIDE the span (the
+            # reference's frames[start:end+1] crop, ivinstruct_dataset.py:
+            # 116-123)
+            span = d.get("pseudo_label") or self.pseudo_label.get(
+                str(d.get("id")), [0.0, 1.0])
+            frames, _ = read_video_cv2(
+                os.path.join(self.video_dir, d["video"]),
+                num_frames=self.num_base_frames,
+                size=(self.image_size, self.image_size),
+            )
+            vlen = frames.shape[0]
+            start = int(span[0] * (vlen - 1))
+            end = int(span[1] * (vlen - 1))
+            frames = frames[start : end + 1]
+            fid = sample_frames(self.nframe, frames.shape[0])
+            frames = clip_transform(frames[fid], self.image_size)
+            width = self.nframe
+        else:
+            frames = None
+            width = 0
+        return {"frames": frames, "width": width, "question": prompt,
+                "answer": answer}
+
+
+def collate_iv(
+    samples: list[dict],
+    tokenizer,
+    nframe: int,
+    image_size: int = 224,
+    max_txt_len: int = 128,
+    answer_len: int = 32,
+    qformer_tokenizer=None,
+) -> dict[str, np.ndarray]:
+    """Static-shape IV/IVT batch: every sample carries an (nframe, H, W, 3)
+    frame slab; width < nframe rows repeat their frames (image rows) or zero
+    them (text rows), with ``widths`` recording the true count (the static
+    encoding of the reference's flat frames + per-sample widths,
+    ivinstruct_dataset.py:132-197). ``qformer_tokenizer`` (the
+    instruction-aware backbones) also tokenizes the prompt for the
+    Q-Former."""
+    b = len(samples)
+    frames = np.zeros((b, nframe, image_size, image_size, 3), np.float32)
+    widths = np.zeros((b,), np.int32)
+    for i, s in enumerate(samples):
+        w = s["width"]
+        widths[i] = w
+        if w > 0:
+            reps = int(np.ceil(nframe / w))
+            frames[i] = np.concatenate([s["frames"]] * reps)[:nframe]
+    q = tokenizer([s["question"] for s in samples], padding="max_length",
+                  truncation=True, max_length=max_txt_len)
+    a = tokenizer([s["answer"] for s in samples], padding="max_length",
+                  truncation=True, max_length=answer_len)
+    pad_id = getattr(tokenizer, "pad_token_id", 0) or 0
+    inst_ids, inst_mask, labels = pack_text_input_output(
+        _ragged_ids(q), _strip_bos(_ragged_ids(a), tokenizer),
+        max_txt_len + answer_len, pad_id)
+    out = {
+        "frames": frames,
+        "widths": widths,
+        "question_ids": np.asarray(q["input_ids"], np.int32),
+        "question_mask": np.asarray(q["attention_mask"], np.int32),
+        "answer_ids": np.asarray(a["input_ids"], np.int32),
+        "answer_mask": np.asarray(a["attention_mask"], np.int32),
+        # the decoder-only packed prompt + answer (LAVIS labels) of the
+        # InstructBLIP-Vicuna recipes
+        "instruction_ids": np.asarray(inst_ids, np.int32),
+        "instruction_mask": np.asarray(inst_mask, np.int32),
+        "labels": np.asarray(labels, np.int32),
+        "_text_answer": [s["answer"] for s in samples],
+    }
+    if qformer_tokenizer is not None:
+        qf = qformer_tokenizer([s["question"] for s in samples],
+                               padding="max_length", truncation=True,
+                               max_length=max_txt_len)
+        out["qformer_input_ids"] = np.asarray(qf["input_ids"], np.int32)
+        out["qformer_attention_mask"] = np.asarray(
+            qf["attention_mask"], np.int32)
+    return out

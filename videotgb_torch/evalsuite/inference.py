@@ -21,8 +21,10 @@ the 32 candidates.
         --video_dir videos --gt_file_question q.json --gt_file_answers a.json \\
         --output_dir out --output_name preds [--device cpu]
 
-Random weights only: a checkpoint directory, --lora and --mesh raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+--model_path is ``random:<preset>`` or a checkpoint directory written by
+``python -m videotgb_torch.train`` (with --preset naming its config and
+--lora 1 for an IVT checkpoint); --mesh raises ``NotImplementedError``
+naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -56,8 +58,8 @@ def get_chunk(lst, n, k):
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model_path", required=True,
-                   help="'random:<preset>' (random weights from seed 0); a "
-                        "checkpoint directory is not supported yet")
+                   help="'random:<preset>' (random weights from seed 0) or "
+                        "a checkpoint directory of videotgb_torch.train")
     p.add_argument("--preset", default="flagship",
                    help="VideoTGBConfig preset for a checkpoint model_path")
     p.add_argument("--backbone", default="blip2",
@@ -81,7 +83,9 @@ def parse_args(argv=None):
     p.add_argument("--model_base", type=str, default=None)
     p.add_argument("--sampler_base", type=str, default=None)
     p.add_argument("--model_max_length", type=int, default=2048)
-    p.add_argument("--lora", type=int, default=0)
+    p.add_argument("--lora", type=int, default=0,
+                   help="1: rank-8 LoRA adapters on the LLM (an IVT "
+                        "checkpoint)")
     p.add_argument("--bf16_params", type=int, default=1,
                    help="bf16 parameters for ViT, Q-Former, the LLM and "
                         "TGB (default); 0 keeps f32")
@@ -152,37 +156,50 @@ def _warn_ignored_flags(args) -> None:
 
 def load_model(args, device=None):
     """Build the VideoTGB of ``backbone`` (blip2, instructblip_t5 or
-    instructblip) on ``device`` (None = the CUDA device) with random weights
-    from seed 0 for ``random:<preset>``, honouring ``nframe``, ``flow_size``
-    and ``bf16_params``. Returns (model, cfg).
+    instructblip) on ``device`` (None = the CUDA device), honouring
+    ``nframe``, ``flow_size``, ``lora`` and ``bf16_params``. Returns
+    (model, cfg).
 
-    What the port does not have raises ``NotImplementedError``: a checkpoint
-    directory (ROADMAP.md queue 1 item 4) and ``lora`` (item 5)."""
+    ``model_path`` is ``random:<preset>`` (random weights from seed 0) or a
+    checkpoint of ``training.checkpoint.CheckpointManager`` (its root, its
+    best/ or last/ directory, or one step directory; the root gives its
+    newest step), whose ``params`` are restored onto the model of
+    ``preset``. ``lora`` puts rank-8 adapters on the LLM (T5 or LLaMA)
+    before the restore, as the IVT recipe trains them. The checkpoint's keys
+    must be the model's exactly: a LoRA checkpoint without ``lora``, or the
+    reverse, raises naming the keys. ``bf16_params`` builds
+    the ViT, Q-Former, LLM (with its adapters) and TGB in bf16 and copies
+    the restored values in, rounding them; RAFT stays f32, as for random
+    weights."""
     from videotgb_torch.models.videotgb import (
         VideoTGB,
         VideoTGBConfig,
         bf16_param_config,
+        with_lora,
     )
 
     _warn_ignored_flags(args)
     backbone = getattr(args, "backbone", "blip2")
-    if getattr(args, "lora", 0):
-        raise NotImplementedError(
-            "LoRA is not ported: ROADMAP.md queue 1 item 5")
-    if not args.model_path.startswith("random:"):
-        raise NotImplementedError(
-            f"checkpoint restore ({args.model_path!r}) is not ported: "
-            "ROADMAP.md queue 1 item 4")
-    cfg = getattr(VideoTGBConfig, args.model_path.split(":", 1)[1])(backbone)
+    random_weights = args.model_path.startswith("random:")
+    preset = (args.model_path.split(":", 1)[1] if random_weights
+              else getattr(args, "preset", "flagship"))
+    cfg = getattr(VideoTGBConfig, preset)(backbone)
     nframe = getattr(args, "nframe", None)
     if nframe and nframe != cfg.nframe:
         cfg = dataclasses.replace(cfg, nframe=nframe)
     if getattr(args, "flow_size", None):
         cfg = dataclasses.replace(
             cfg, tgb=dataclasses.replace(cfg.tgb, flow_size=args.flow_size))
+    if getattr(args, "lora", 0):
+        cfg = with_lora(cfg, 8)
     if getattr(args, "bf16_params", False):
         cfg = bf16_param_config(cfg)
-    return VideoTGB(cfg, device=device, seed=0), cfg
+    model = VideoTGB(cfg, device=device, seed=0)
+    if not random_weights:
+        from videotgb_torch.training.checkpoint import restore_params
+
+        restore_params(model, args.model_path)
+    return model, cfg
 
 
 def text_batch(tok, sampler_tok, questions, text_len, device):

@@ -11,6 +11,9 @@ directory. Runs on the CUDA card unless ``trainer.platform=cpu``::
 
     python -m videotgb_torch.evaluate experiment=smoke_tg_synthetic \\
         trainer=cpu ckpt_path=outputs/checkpoints
+    python -m videotgb_torch.evaluate \\
+        experiment=eval_LSTP_instructblipvicuna7b_ivinstruct \\
+        ckpt_path=outputs/checkpoints        # a stage-3 (IV) checkpoint
 """
 
 from __future__ import annotations
@@ -27,10 +30,7 @@ log = get_logger("videotgb_torch.eval")
 def evaluate(cfg: Config) -> dict[str, float]:
     from videotgb_torch.train import (build_data, build_model, build_recipe,
                                       evaluate_recipe, run_device)
-    from videotgb_torch.training.checkpoint import (CheckpointConfig,
-                                                    CheckpointManager,
-                                                    resolve_ckpt_path,
-                                                    restore_into)
+    from videotgb_torch.training.checkpoint import restore_params
 
     if cfg.get("ckpt_path") in (None, "???"):
         raise ValueError("ckpt_path is required (reference src/eval.py:42)")
@@ -40,14 +40,9 @@ def evaluate(cfg: Config) -> dict[str, float]:
                               seed=cfg.get("seed", 42))
     _, val_loader, tok = build_data(cfg, mcfg)
 
-    root, step = resolve_ckpt_path(str(cfg.ckpt_path))
-    mgr = CheckpointManager(CheckpointConfig(directory=root))
-    step = step if step is not None else mgr.latest_step()
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint under {root}")
     # parameters only: a full train-state checkpoint's optimizer state and
     # step are not read
-    restore_into(mgr.restore(step, items=["params"]), model)
+    root, step = restore_params(model, str(cfg.ckpt_path))
     log.info("restored params from %s @ step %d", root, step)
 
     metrics = evaluate_recipe(cfg, model, recipe, val_loader, tok)

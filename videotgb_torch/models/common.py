@@ -169,12 +169,15 @@ class MultiHeadAttention(nn.Module):
     ``use_flash`` (an attribute, True) lets long sequences take the flash
     kernel; set it False to run the plain version everywhere. ``quant``
     ("int8") routes the q/k/v/o projections through the int8 product; the
-    scores and values stay in ``dtype``."""
+    scores and values stay in ``dtype``. ``lora_rank`` > 0 adds a LoRA
+    delta (``models.lora.LoRADelta``, modules ``q_lora`` / ``v_lora``) to
+    the outputs of the projections named in ``lora_targets``."""
 
     def __init__(self, features, num_heads, head_dim, kv_features=None,
                  out_features=None, use_bias=True, scale=None,
                  dtype=torch.float32, param_dtype=torch.float32, device=None,
-                 quant=None):
+                 quant=None, lora_rank=0, lora_alpha=32.0,
+                 lora_targets=("q", "v")):
         super().__init__()
         inner = num_heads * head_dim
         kv_features = kv_features or features
@@ -188,6 +191,20 @@ class MultiHeadAttention(nn.Module):
         self.k = Dense(kv_features, inner, **kw)
         self.v = Dense(kv_features, inner, **kw)
         self.o = Dense(inner, out_features or features, **kw)
+        if lora_rank > 0:
+            from videotgb_torch.models.lora import LoRADelta
+
+            widths = {"q": features, "k": kv_features, "v": kv_features}
+            for name in lora_targets:
+                self.add_module(f"{name}_lora", LoRADelta(
+                    widths[name], inner, lora_rank, lora_alpha, dtype=dtype,
+                    param_dtype=param_dtype, device=device))
+
+    def _proj(self, name, x):
+        """The ``name`` projection (B, S, H*D), with its LoRA delta."""
+        y = getattr(self, name)(x)
+        delta = self._modules.get(f"{name}_lora")
+        return y if delta is None else y + delta(x)
 
     def _heads(self, y):
         # (B, S, H*D) -> (B, H, S, D) view
@@ -207,13 +224,13 @@ class MultiHeadAttention(nn.Module):
           K/V are returned as a cache for later reads.
         """
         x_kv = x_q if x_kv is None else x_kv
-        q = self._heads(self.q(x_q))
+        q = self._heads(self._proj("q", x_q))
         if cache is not None and cross_cached:
             k, v = cache["k"], cache["v"]
             new_cache = cache
         else:
-            k = self._heads(self.k(x_kv))
-            v = self._heads(self.v(x_kv))
+            k = self._heads(self._proj("k", x_kv))
+            v = self._heads(self._proj("v", x_kv))
             if rope_k is not None:
                 k = rope_k(k)
             new_cache = None

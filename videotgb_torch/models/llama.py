@@ -16,8 +16,9 @@ Attention is ``models.common.MultiHeadAttention`` with its dispatch rule:
 a prefill with Sq * Skv > 128^2 takes the flash kernel (kernel A on the
 card), a single-token decode step the plain version.
 
-The JAX config's ``scan_layers`` / ``remat`` (stacked layers, the pipeline
-forward) and ``lora_rank`` have no counterpart yet and raise.
+``lora_rank`` > 0 puts LoRA deltas on every attention's q and v
+projections. The JAX config's ``scan_layers`` / ``remat`` (stacked layers,
+the pipeline forward) have no counterpart yet and raise.
 """
 
 from __future__ import annotations
@@ -79,7 +80,9 @@ class LlamaBlock(nn.Module):
         d, inner = cfg.hidden_size, cfg.intermediate_size
         self.input_ln = RMSNorm(d, cfg.rms_norm_eps, **kw)
         self.attn = MultiHeadAttention(d, cfg.num_heads, cfg.head_dim,
-                                       use_bias=False, **kw)
+                                       use_bias=False,
+                                       lora_rank=cfg.lora_rank,
+                                       lora_alpha=cfg.lora_alpha, **kw)
         self.post_ln = RMSNorm(d, cfg.rms_norm_eps, **kw)
         self.gate_proj = Dense(d, inner, use_bias=False, **kw)
         self.up_proj = Dense(d, inner, use_bias=False, **kw)
@@ -107,9 +110,6 @@ class LlamaModel(nn.Module):
             raise NotImplementedError(
                 "scan_layers / remat (stacked layers, the pipeline forward) "
                 "are not ported: ROADMAP.md queue 1 items 7 and 8")
-        if cfg.lora_rank:
-            raise NotImplementedError(
-                "LoRA is not ported: ROADMAP.md queue 1 item 5")
         self.config = cfg
         kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, **kw)

@@ -2,7 +2,8 @@
 ``videotgb_tpu/models/t5.py``): RMS norms, pre-norm blocks, bias-free dense
 layers, unscaled attention scores, one bucketed relative-position bias per
 stack (bidirectional in the encoder, causal in the decoder), gated-gelu FFN,
-separate lm_head.
+separate lm_head. ``lora_rank`` > 0 puts LoRA deltas on the q and v
+projections of every attention (encoder self, decoder self and cross).
 
 Decoder caches are a list of per-layer ``{"self": {k, v}, "cross": {k, v}}``
 dicts; the self K/V are written in place at ``cache_index``, the cross K/V
@@ -44,6 +45,8 @@ class T5Config:
     decoder_start_token_id: int = 0
     pad_token_id: int = 0
     eos_token_id: int = 1
+    lora_rank: int = 0
+    lora_alpha: float = 32.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -108,7 +111,8 @@ class T5Block(nn.Module):
         super().__init__()
         kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
         mha = dict(num_heads=cfg.num_heads, head_dim=cfg.d_kv,
-                   out_features=cfg.d_model, use_bias=False, scale=1.0, **kw)
+                   out_features=cfg.d_model, use_bias=False, scale=1.0,
+                   lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha, **kw)
         d = cfg.d_model
         self.is_decoder = is_decoder
         self.self_ln = RMSNorm(d, cfg.layer_norm_eps, **kw)

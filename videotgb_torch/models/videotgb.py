@@ -146,6 +146,19 @@ def bf16_param_config(cfg: VideoTGBConfig) -> VideoTGBConfig:
                                tgb=rep(cfg.tgb))
 
 
+def with_lora(cfg: VideoTGBConfig, rank: int) -> VideoTGBConfig:
+    """``cfg`` with LoRA adapters of ``rank`` on its LLM's attention q and
+    v projections: T5 on the blip2 backbone (the instructblip_t5 variant
+    included), LLaMA on instructblip."""
+    if cfg.backbone == "blip2":
+        t5 = dataclasses.replace(cfg.blip2.t5, lora_rank=rank)
+        return dataclasses.replace(
+            cfg, blip2=dataclasses.replace(cfg.blip2, t5=t5))
+    llm = dataclasses.replace(cfg.instructblip.llm, lora_rank=rank)
+    return dataclasses.replace(
+        cfg, instructblip=dataclasses.replace(cfg.instructblip, llm=llm))
+
+
 class VideoTGB(nn.Module):
     """Built directly on ``device`` (None = the CUDA device) with random
     weights from ``seed``; load real weights with ``load_state_dict``
@@ -453,6 +466,48 @@ def generate_instructblip(model: VideoTGB, batch, decode_config: DecodeConfig,
     out = llama_generate_from_embeds(model, embeds, mask, decode_config,
                                      generator, stop_sequences)
     return out, cand
+
+
+@torch.no_grad()
+def generate_iv(model: VideoTGB, batch, decode_config: DecodeConfig,
+                generator=None, stop_sequences=()):
+    """Stage-3 IV/IVT generation: the frames (B, nframe, H, W, 3) arrive
+    pre-selected and CLIP-normalized from ``collate_iv`` (no RAFT, TGB or
+    selection) and mean-pool to the Q-token visual prefix (the Q-Former
+    reads the instruction, repeated per frame, where the config is
+    instruction-aware); a text-only row (``widths`` 0) masks the prefix out
+    of attention. T5: the encoder over [visual | question], then greedy
+    decode; LLaMA: [visual | prompt] embeddings, then decoder-only decode.
+    Returns token_ids (B, max_new)."""
+    cfg = model.config
+    batch = _on(model, batch)
+    frames = batch["frames"]
+    b, nf = frames.shape[:2]
+    vis_valid = None
+    if "widths" in batch:
+        vis_valid = (batch["widths"] > 0).float()
+    qf_ids = qf_mask = None
+    if cfg.instruction_aware:
+        qf_ids = batch.get("qformer_input_ids")
+        qf_mask = batch.get("qformer_attention_mask")
+        if qf_ids is not None:
+            qf_ids = qf_ids.repeat_interleave(nf, 0)
+            qf_mask = (qf_mask.repeat_interleave(nf, 0)
+                       if qf_mask is not None else None)
+    visual = model.model.encode_frames(
+        frames.reshape(b * nf, *frames.shape[2:]), mean_pool_groups=b,
+        qformer_input_ids=qf_ids, qformer_attention_mask=qf_mask)
+    if cfg.backbone == "blip2":
+        embeds, mask = model.model.encoder_inputs(
+            visual, batch["question_ids"], batch["question_mask"], vis_valid)
+        enc_hidden = model.model.language_model.encode(embeds, mask)
+        return t5_generate_from_encoder(model, enc_hidden, mask,
+                                        decode_config, generator,
+                                        stop_sequences)
+    embeds, mask = model.model.decoder_inputs(
+        visual, batch["question_ids"], batch["question_mask"], vis_valid)
+    return llama_generate_from_embeds(model, embeds, mask, decode_config,
+                                      generator, stop_sequences)
 
 
 @torch.no_grad()

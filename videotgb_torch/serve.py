@@ -105,8 +105,10 @@ class ServingEngine:
     ):
         """``model_base``/``sampler_base``: tokenizer dirs for the LLM and
         the TGB sampler (None = the byte tokenizer, for random weights).
-        ``preset`` names the config of a checkpoint path, which the port
-        does not restore yet; ``random:<preset>`` carries its own.
+        ``preset`` names the config of a checkpoint path (a
+        ``videotgb_torch.train`` checkpoint without LoRA adapters, restored
+        by ``evalsuite.inference.load_model``); ``random:<preset>`` carries
+        its own.
         ``backbone``: "blip2", "instructblip_t5" or "instructblip".
         ``device``: None = the CUDA device (raises without one); "cpu" runs
         the plain path. ``mesh`` raises ``NotImplementedError``."""
@@ -119,7 +121,7 @@ class ServingEngine:
                 f"mesh-sharded serving ({mesh!r}) is not ported: ROADMAP.md "
                 "queue 1 item 7")
         self.model, self.cfg = load_model(SimpleNamespace(
-            model_path=model_path, backbone=backbone,
+            model_path=model_path, preset=preset, backbone=backbone,
             bf16_params=bf16_params), device=device)
         dev = self.model.device
         if dev.type == "cuda" and dev.index is None:

@@ -14,14 +14,25 @@ checkpoints and early stopping, and optionally tests the best checkpoint::
         trainer=cpu
 
 The run goes to the CUDA card unless ``trainer.platform=cpu`` (``trainer=cpu``
-sets it); without a card that raises. The ported recipes are TG, SF
-(self-refinement: a pseudo-label pass with the current parameters before
-each step, ``sf_pseudo_scores``) and E2E, on the BLIP2-Flan-T5,
-InstructBLIP-Flan-T5 (``backbone: instructblip_t5``) and
-InstructBLIP-Vicuna (``backbone: instructblip``) backbones; IV, IVT, LoRA
-and parallel layouts raise ``NotImplementedError`` naming their ROADMAP.md
-item. ``ckpt_path=<dir>`` resumes the full training state
-(parameters, optimizer moments, step) or warm-starts from parameters only.
+sets it); without a card that raises. Every recipe of the JAX package is
+here: TG, SF (self-refinement: a pseudo-label pass with the current
+parameters before each step, ``sf_pseudo_scores``), E2E, and stage 3's IV
+and IVT (pre-selected frames from the image/video/text instruction mix,
+``data.name`` iv / ivt; IVT with ``model.lora_rank`` adapters on the LLM),
+on the BLIP2-Flan-T5, InstructBLIP-Flan-T5 (``backbone: instructblip_t5``)
+and InstructBLIP-Vicuna (``backbone: instructblip``) backbones; parallel
+layouts raise ``NotImplementedError`` naming their ROADMAP.md item.
+``ckpt_path=<dir>`` resumes the full training state (parameters, optimizer
+moments, step) or warm-starts from parameters only.
+``trainer.accumulate_grad_batches=A`` makes each optimizer step of A
+consecutive loader batches (Lightning's accumulation), so a step sees A x
+``data.batch_size`` rows and an epoch is len(loader) / A steps.
+
+Stage 3 (IV, IVT) uses the whole model as the other recipes do: RAFT and
+the TGB are built (from ``seed``) and saved with it, frozen and unused, so a
+stage-3 checkpoint also serves the two-phase path through
+``evalsuite.inference.load_model``. (The JAX CLI initialises only the
+backbone for stage 3.)
 
 Unlike the JAX CLI, the port takes no batch from the train loader to
 initialise parameters, so its first epoch is the loader's first (shuffled
@@ -44,11 +55,12 @@ import contextlib
 import os
 import sys
 
+import numpy as np
 import torch
 
 from videotgb_torch.config import Config, compose
 from videotgb_torch.device import resolve_device
-from videotgb_torch.models.videotgb import VideoTGB, VideoTGBConfig
+from videotgb_torch.models.videotgb import VideoTGB, VideoTGBConfig, with_lora
 from videotgb_torch.training.recipes import RECIPES
 from videotgb_torch.utils.logging import get_logger
 
@@ -57,39 +69,30 @@ log = get_logger("videotgb_torch.train")
 CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 
-# recipes of the JAX package that the port does not have yet
-_NOT_PORTED = {
-    "iv": "the IV recipe is ROADMAP.md queue 1 item 4",
-    "ivt": "the IVT recipe (with LoRA) is ROADMAP.md queue 1 item 5",
-}
-
 
 def build_model(model_cfg: dict, device=None, seed: int = 0):
     """(VideoTGB with random weights from ``seed``, its config). ``preset``
     is tiny / small / flagship; ``backbone`` is blip2 (BLIP2-Flan-T5, the
     default), instructblip_t5 (the T5 composition with the
-    instruction-aware Q-Former) or instructblip (Vicuna). ``device=None``
-    means the CUDA device."""
-    if model_cfg.get("lora_rank"):
-        raise NotImplementedError(
-            "LoRA adapters are not ported: ROADMAP.md queue 1 item 5")
+    instruction-aware Q-Former) or instructblip (Vicuna). ``lora_rank``
+    puts LoRA adapters of that rank on the LLM (T5 or LLaMA).
+    ``device=None`` means the CUDA device."""
     backbone = model_cfg.get("backbone", "blip2")
     if backbone not in ("blip2", "instructblip_t5", "instructblip"):
         raise ValueError(f"unknown backbone {backbone!r}")
     mcfg = getattr(VideoTGBConfig, model_cfg.get("preset", "flagship"))(
         backbone)
+    if model_cfg.get("lora_rank"):
+        mcfg = with_lora(mcfg, int(model_cfg["lora_rank"]))
     return VideoTGB(mcfg, device=device, seed=seed), mcfg
 
 
 def build_recipe(model_cfg: dict):
     name = model_cfg.get("recipe", "tg")
     if name not in RECIPES:
-        raise NotImplementedError(
-            f"recipe {name!r} is not ported yet: "
-            f"{_NOT_PORTED.get(name, 'unknown recipe')} "
-            f"(ported: {sorted(RECIPES)})")
+        raise ValueError(f"unknown recipe {name!r} (one of {sorted(RECIPES)})")
     kwargs = {}
-    if model_cfg.get("tgb_mode"):
+    if name in ("tg", "sf", "e2e") and model_cfg.get("tgb_mode"):
         kwargs["mode"] = model_cfg["tgb_mode"]
     if name == "sf" and model_cfg.get("online_flow"):
         kwargs["online_flow"] = True
@@ -163,9 +166,8 @@ def apply_callbacks(cfg: Config, tcfg) -> dict:
 
 
 def build_data(cfg: Config, mcfg):
-    """(train loader, val loader, tokenizer) of ``data.name`` synthetic or
-    videoinstruct; the image/video instruction mixes (iv, ivt) come with
-    the IV recipe (ROADMAP.md queue 1 item 4)."""
+    """(train loader, val loader, tokenizer) of ``data.name`` synthetic,
+    videoinstruct, or the stage-3 mixes iv / ivt."""
     from videotgb_torch.data.datasets import (
         SyntheticVideoQA, VideoInstructDataset, collate_videoinstruct,
     )
@@ -174,10 +176,6 @@ def build_data(cfg: Config, mcfg):
 
     dcfg = cfg.data
     kind = dcfg.get("name", "synthetic")
-    if kind in ("iv", "ivt"):
-        raise NotImplementedError(
-            f"data.name={kind}: the image/video instruction data comes with "
-            "the IV recipe, ROADMAP.md queue 1 item 4")
     tok = load_tokenizer(dcfg.get("tokenizer"))
     sampler_tok = load_tokenizer(dcfg.get("sampler_tokenizer"))
     common = dict(
@@ -186,6 +184,13 @@ def build_data(cfg: Config, mcfg):
         nframe=mcfg.nframe,
         image_size=mcfg.vit.image_size,
     )
+    loader_kw = dict(
+        batch_size=dcfg.get("batch_size", 2),
+        num_workers=dcfg.get("num_workers", 8),
+        seed=cfg.get("seed", 0),
+    )
+    if kind in ("iv", "ivt"):
+        return _stage3_loaders(cfg, mcfg, tok, sampler_tok, loader_kw)
     if kind == "synthetic":
         train_ds = SyntheticVideoQA(
             length=dcfg.get("train_size", 64),
@@ -213,14 +218,51 @@ def build_data(cfg: Config, mcfg):
             answer_len=dcfg.get("answer_len", 32),
         )
 
-    loader_kw = dict(
-        batch_size=dcfg.get("batch_size", 2),
-        collate_fn=collate,
-        num_workers=dcfg.get("num_workers", 8),
-        seed=cfg.get("seed", 0),
-    )
-    return (PrefetchLoader(train_ds, shuffle=True, **loader_kw),
-            PrefetchLoader(val_ds, shuffle=False, **loader_kw), tok)
+    return (PrefetchLoader(train_ds, shuffle=True, collate_fn=collate,
+                           **loader_kw),
+            PrefetchLoader(val_ds, shuffle=False, collate_fn=collate,
+                           **loader_kw), tok)
+
+
+def _stage3_loaders(cfg: Config, mcfg, tok, sampler_tok, loader_kw):
+    """The IV / IVT loaders from the ``text_dir`` layout of the reference
+    (ivinstruct_dataset.py:52,202, ivtinstruct_dataset.py:218):
+    ``{split}.json`` and ``pseudo_label.json``, and for ivt the text-only
+    rows of ``nlp_tune.json``; ``data.text_path`` / ``text_only_path`` /
+    ``pseudo_label_path`` override them. The instruction-aware backbones
+    read the prompt through the sampler tokenizer (the BERT vocabulary) for
+    the Q-Former."""
+    from videotgb_torch.data.datasets import IVInstructDataset, collate_iv
+    from videotgb_torch.data.loader import PrefetchLoader
+
+    dcfg = cfg.data
+    kind = dcfg.name
+    image_size = mcfg.vit.image_size
+    td = dcfg.get("text_dir")
+
+    def dataset(split):
+        text = dcfg.get("text_path") or os.path.join(td, f"{split}.json")
+        pseudo = dcfg.get("pseudo_label_path") or (
+            os.path.join(td, "pseudo_label.json") if td else None)
+        text_only = dcfg.get("text_only_path") or (
+            os.path.join(td, "nlp_tune.json") if td else None)
+        return IVInstructDataset(
+            text, dcfg.image_dir, dcfg.video_dir, split=split,
+            nframe=mcfg.nframe, image_size=image_size,
+            include_text_only=kind == "ivt", text_only_path=text_only,
+            pseudo_label_path=pseudo, seed=cfg.get("seed", 0))
+
+    def collate(samples):
+        return collate_iv(
+            samples, tok, nframe=mcfg.nframe, image_size=image_size,
+            max_txt_len=dcfg.get("max_txt_len", 128),
+            answer_len=dcfg.get("answer_len", 32),
+            qformer_tokenizer=sampler_tok if mcfg.instruction_aware else None)
+
+    return (PrefetchLoader(dataset("train"), shuffle=True, collate_fn=collate,
+                           **loader_kw),
+            PrefetchLoader(dataset("val"), shuffle=False, collate_fn=collate,
+                           **loader_kw), tok)
 
 
 @torch.no_grad()
@@ -251,9 +293,11 @@ def evaluate_tg(model, recipe, loader) -> dict[str, float]:
 @torch.no_grad()
 def evaluate_generative(model, recipe, loader, tok,
                         max_new_tokens: int = 16) -> dict[str, float]:
-    """SF/E2E validation: the eval loss (dropout off), then greedy answers
-    (``generate_blip2`` on the T5 backbones, ``generate_instructblip`` on
-    Vicuna) scored with BLEU-1 — the reference's val/score monitor
+    """SF/E2E/IV/IVT validation: the eval loss (dropout off), then greedy
+    answers (``generate_blip2`` on the T5 backbones, ``generate_instructblip``
+    on Vicuna; ``generate_iv`` for a stage-3 batch, which has pre-selected
+    frames and no flow) scored with BLEU-1 — the reference's val/score
+    monitor
     (LSTP_SF_blip2_module.py:107-119,560-584). An SF batch without pseudo
     scores has no loss (the reference's eval never computes mrc_loss), and
     ``val/loss`` is absent when no batch had one. Every batch draws its
@@ -261,7 +305,8 @@ def evaluate_generative(model, recipe, loader, tok,
     ``jax.random.key(0)``."""
     from videotgb_torch.data.loader import device_batch
     from videotgb_torch.models.videotgb import (generate_blip2,
-                                                generate_instructblip)
+                                                generate_instructblip,
+                                                generate_iv)
     from videotgb_torch.ops.decode import DecodeConfig
     from videotgb_torch.training import metrics as M
     from videotgb_torch.training.recipes import SFRecipe
@@ -292,7 +337,10 @@ def evaluate_generative(model, recipe, loader, tok,
                                      deterministic=True)
             loss_state = M.mean_update(loss_state, loss)
             loss_batches += 1
-        tokens, _ = generate(model, db, dcfg, generator())
+        if "flow" in db:
+            tokens, _ = generate(model, db, dcfg, generator())
+        else:  # stage 3: pre-selected frames, no selection
+            tokens = generate_iv(model, db, dcfg, generator())
         preds.extend(tok.batch_decode(tokens.cpu().numpy(),
                                       skip_special_tokens=True))
         targets.extend(a.replace(" </s>", "") for a in batch["_text_answer"])
@@ -328,6 +376,12 @@ def _train(cfg: Config) -> dict[str, float]:
 
     seed = cfg.get("seed", 42)
     device = run_device(cfg)
+    tcfg_raw = cfg.get("trainer", Config())
+    accum = tcfg_raw.get("accumulate_grad_batches", 1)
+    is_sf = cfg.model.get("recipe", "tg") == "sf"
+    if is_sf and accum > 1:
+        raise ValueError("the SF pseudo-label pass scores one loader batch "
+                         "a step: trainer.accumulate_grad_batches must be 1")
     recipe = build_recipe(cfg.model)
     model, mcfg = build_model(cfg.model, device=device, seed=seed)
     train_loader, val_loader, tok = build_data(cfg, mcfg)
@@ -335,15 +389,15 @@ def _train(cfg: Config) -> dict[str, float]:
         raise ValueError(f"the train loader has no batch: data.train_size < "
                          f"data.batch_size ({cfg.data.get('batch_size')})")
 
-    tcfg_raw = cfg.get("trainer", Config())
-    max_steps = tcfg_raw.get("max_steps",
-                             tcfg_raw.get("max_epochs", 1) * len(train_loader))
+    max_steps = tcfg_raw.get(
+        "max_steps",
+        max(tcfg_raw.get("max_epochs", 1) * len(train_loader) // accum, 1))
     tcfg = TrainerConfig(
         max_steps=max_steps,
         lr=cfg.model.get("optimizer", Config()).get("lr", 5e-5),
         weight_decay=cfg.model.get("optimizer", Config()).get("weight_decay", 0.0),
         warmup_ratio=cfg.model.get("scheduler", Config()).get("warmup", 0.05),
-        accumulate_grad_batches=tcfg_raw.get("accumulate_grad_batches", 1),
+        accumulate_grad_batches=accum,
         steps_per_dispatch=tcfg_raw.get("steps_per_dispatch", 1),
         log_every=tcfg_raw.get("log_every", 10),
         eval_every=tcfg_raw.get("eval_every", max(max_steps // 4, 1)),
@@ -391,19 +445,27 @@ def _train(cfg: Config) -> dict[str, float]:
     def checkpoint_fn(state, metrics):
         ckpt.save(state.step, train_state_items(state), metrics)
 
-    is_sf = cfg.model.get("recipe", "tg") == "sf"
+    def loader_batches():
+        while True:
+            yield from train_loader
 
     def batches():
-        step = 0
-        while step < tcfg.max_steps:
-            for batch in train_loader:
+        """Each step's batch: one loader batch, or ``accum`` consecutive
+        ones stacked on a new first axis (the trainer's micro-batches)."""
+        stream = loader_batches()
+        for _ in range(tcfg.max_steps):
+            if accum == 1:
+                batch = next(stream)
                 db = device_batch(batch, device)
                 if is_sf:  # the pseudo pass scores against the gold text
                     db["_text_answer"] = batch["_text_answer"]
-                yield db
-                step += 1
-                if step >= tcfg.max_steps:
-                    return
+            else:
+                group = [next(stream) for _ in range(accum)]
+                db = device_batch({k: np.stack([g[k] for g in group])
+                                   for k in group[0]
+                                   if isinstance(group[0][k], np.ndarray)},
+                                  device)
+            yield db
 
     def sf_scores(cur_state, db):
         db = dict(db)

@@ -278,3 +278,18 @@ def restore_into(restored: dict, model: torch.nn.Module,
     if optimizer is not None and "opt_state" in restored:
         optimizer.load_state_dict(restored["opt_state"])
     return int(restored["step"]) if "step" in restored else None
+
+
+def restore_params(model: torch.nn.Module, path: str) -> tuple[str, int]:
+    """Copy the ``params`` item of the checkpoint that ``path`` names (see
+    :func:`resolve_ckpt_path`; a root gives its newest step) into
+    ``model``, cast to each parameter's dtype. The keys must be the
+    model's exactly (``load_state_dict`` raises naming the others).
+    Returns (root, step)."""
+    root, step = resolve_ckpt_path(path)
+    mgr = CheckpointManager(CheckpointConfig(directory=root))
+    step = step if step is not None else mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {root}")
+    restore_into(mgr.restore(step, items=["params"]), model)
+    return root, step

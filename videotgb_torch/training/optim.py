@@ -38,14 +38,19 @@ def cosine_warmup_schedule(lr: float, total_steps: int,
 
 
 def path_freeze_filter(freeze_prefixes: Sequence[str] = (),
-                       train_prefixes: Sequence[str] | None = None
+                       train_prefixes: Sequence[str] | None = None,
+                       train_lora_only: bool = False
                        ) -> Callable[[str], bool]:
     """Returns f(name) -> True if the parameter ``name`` (a ``state_dict``
     key of the port) trains. Prefixes are written as in the JAX package
     (``"model/qformer"``, ``"temporal_encoder"``): ``/`` reads as ``.``.
 
-    * ``train_prefixes`` given: only those subtrees train;
-    * else: everything except ``freeze_prefixes``.
+    * ``train_prefixes`` given: only those subtrees train (IV: the
+      Q-Former, its projection and query tokens);
+    * else: everything except ``freeze_prefixes``;
+    * ``train_lora_only``: additionally train every LoRA adapter parameter
+      wherever it lives (IVT): a name with a part that ends in ``_lora``
+      or starts with ``lora_``.
     """
     def dotted(prefixes):
         return tuple(p.replace("/", ".") for p in prefixes)
@@ -53,7 +58,13 @@ def path_freeze_filter(freeze_prefixes: Sequence[str] = (),
     freeze = dotted(freeze_prefixes)
     train = None if train_prefixes is None else dotted(train_prefixes)
 
+    def is_lora(name: str) -> bool:
+        return any(part.endswith("_lora") or part.startswith("lora_")
+                   for part in name.split("."))
+
     def fn(name: str) -> bool:
+        if train_lora_only and is_lora(name):
+            return True
         if train is not None:
             return name.startswith(train)
         return not name.startswith(freeze)

@@ -1,5 +1,5 @@
 """Training recipes as loss functions (counterpart of
-``videotgb_tpu/training/recipes.py``, the TG, SF and E2E stages):
+``videotgb_tpu/training/recipes.py``, the TG, SF, E2E, IV and IVT stages):
 
   TG  - stage 2: the TGB alone, span CE against precomputed pseudo-label
         spans;
@@ -207,7 +207,44 @@ def backbone_forward(model, frames, batch, mean_pool=False):
                        mean_pool=mean_pool, visual_valid=visual_valid)
 
 
-RECIPES = {"tg": TGRecipe, "sf": SFRecipe, "e2e": E2ERecipe}
+STAGE3_TRAIN = ("model/qformer", "model/language_projection",
+                "model/query_tokens")
+
+
+@dataclasses.dataclass(frozen=True)
+class IVRecipe:
+    """Stage 3 with a fixed sampler: the Q-Former (with its projection and
+    query tokens) trains, everything else is frozen
+    (LSTP_Blip2_IV_module.py:560-568). Frames arrive pre-selected."""
+
+    @property
+    def filter_fn(self) -> Callable[[str], bool]:
+        return path_freeze_filter(train_prefixes=STAGE3_TRAIN)
+
+    def loss_fn(self, model, batch, generator=None, deterministic=False):
+        # no dropout in the backbone towers and no selection: the generator
+        # and ``deterministic`` are taken for the recipes' common interface
+        lm_loss, _ = backbone_forward(model, batch["frames"], batch,
+                                      mean_pool=True)
+        return lm_loss, {"loss": lm_loss}
+
+
+@dataclasses.dataclass(frozen=True)
+class IVTRecipe:
+    """Stage 3 with LoRA: the adapters train with the Q-Former
+    (LSTP_Blip2_IVT_module.py:184-188). Build the LLM with ``lora_rank``
+    (8 in the reference) for this recipe."""
+
+    @property
+    def filter_fn(self) -> Callable[[str], bool]:
+        return path_freeze_filter(train_prefixes=STAGE3_TRAIN,
+                                  train_lora_only=True)
+
+    loss_fn = IVRecipe.loss_fn
+
+
+RECIPES = {"tg": TGRecipe, "sf": SFRecipe, "e2e": E2ERecipe, "iv": IVRecipe,
+           "ivt": IVTRecipe}
 
 
 # ---------------------------------------------- the SF pseudo-label pass
