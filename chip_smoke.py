@@ -203,7 +203,23 @@ Phases, each fatal on failure (exit code 1):
    ``generate_iv``'s LLaMA branch in the eval. Each run's step walls split
    into data wait and ``train_step``, eval walls, save and restore walls
    and bytes, peak memory. Then kernel C at the phase's two shapes against
-   its plain version, timed beside SDPA's backward.
+   its plain version, timed beside SDPA's backward;
+18. the chat demo and the converter (``demo_paths``): two 96-frame clips at
+   320x240 written with cv2 under ``build/phase18/``; 18a
+   ``demo.app.Chat`` on BLIP2-Flan-T5-xl at flagship width (bf16
+   residency, RAFT f32 on bf16-rounded weights) behind ``make_handler`` on
+   127.0.0.1: the page, a multipart POST with beams 5 equal to
+   ``Chat.generate(num_beams=5)``, a greedy answer equal to
+   ``generate_blip2`` on its batch and generator, nframe 8 through the form
+   on the same parameters, 20 B + 1 D + 39 A per answer; 18b
+   InstructBLIP-Vicuna-7B with beams 5 at 128 new tokens, 20 B + 1 D + 71
+   A; on both, beams on the two clips in one batch equal to each clip's;
+   18c ``tools.convert_checkpoint`` at the tiny preset from a
+   raft-sintel.pth and a sampler (safetensors where it imports) written
+   from a seeded model under the reference's names
+   (``tests/_torch_reference_names.py``), restored by ``load_model`` on
+   the card and served. Each answer's wall and each model's peak
+   memory.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -4194,6 +4210,9 @@ def stage3_paths(card: str) -> tuple:
         # model held in memory (the same bf16 residency), then evaluate.main
         ref = V.VideoTGB(V.bf16_param_config(mcfg), device="cuda", seed=0)
         ref.load_state_dict(trained.state_dict())
+        with torch.no_grad():  # the residency rounds RAFT's weights too
+            for p in ref.of_extractor.parameters():
+                p.copy_(p.to(torch.bfloat16))
         del trainer, state, trained, db
         probe.fits.clear()
         probe.models.clear()
@@ -4218,7 +4237,7 @@ def stage3_paths(card: str) -> tuple:
         log(f"  17b load_model(--lora 1, bf16): {load_s:.2f} s, of it the "
             f"restore of {r['bytes'] / 1e9:.3f} GB in {r['s']:.2f} s; all "
             f"{len(mine)} tensors bit-identical to the trained model's cast "
-            f"to bf16 on {card}")
+            f"to bf16 (RAFT's rounded in f32) on {card}")
         b, n_flow, text_len = 4, 5, 24
         img, fs = mcfg.vit.image_size, mcfg.tgb.flow_size
         dev = torch.device("cuda")
@@ -4357,6 +4376,322 @@ def stage3_paths(card: str) -> tuple:
     return launches, rows
 
 
+# ------------------------------------------------------------------ phase 18
+P18_QUESTION = "what is moving in the video?"
+
+
+def write_moving_clip(path: str, seed: int, frames: int = 96,
+                      size: tuple = (320, 240)) -> str:
+    """An mp4 (mp4v) of ``frames`` frames at ``size``: a smooth random
+    texture from ``seed`` that slides 2 pixels left every frame, so RAFT
+    has motion to find."""
+    import cv2
+    import numpy as np
+
+    w, h = size
+    rng = np.random.default_rng(seed)
+    wide = w + 2 * frames
+    texture = cv2.resize(rng.integers(0, 255, (h // 8, wide // 8, 3),
+                                      np.uint8), (wide, h),
+                         interpolation=cv2.INTER_LINEAR)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24.0,
+                             (w, h))
+    if not writer.isOpened():
+        fail(f"cv2 cannot write {path}")
+    for t in range(frames):
+        writer.write(np.ascontiguousarray(texture[:, 2 * t:2 * t + w]))
+    writer.release()
+    return path
+
+
+def multipart(fields: dict) -> tuple[bytes, str]:
+    """A multipart/form-data body of ``fields`` ({name: (bytes or str,
+    filename or None)}) and its Content-Type."""
+    import uuid
+
+    boundary = uuid.uuid4().hex
+    parts = []
+    for name, (payload, filename) in fields.items():
+        disp = f'form-data; name="{name}"'
+        if filename:
+            disp += f'; filename="{filename}"'
+        parts.append(f"--{boundary}\r\nContent-Disposition: {disp}\r\n\r\n"
+                     .encode())
+        parts.append(payload if isinstance(payload, bytes)
+                     else payload.encode())
+        parts.append(b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), f"multipart/form-data; boundary={boundary}"
+
+
+def beams_batch_invariant(name, generate, batches, top_k, flow_len) -> None:
+    """``generate(batch, noise)`` with beams on the two clips in one batch
+    gives each row what the clip gives in a batch of itself twice (the same
+    shapes, so the same GEMM algorithms: this holds the beams' reorder and
+    the caches' bookkeeping, not batch invariance of cuBLAS), frames and
+    tokens; zero Gumbel noise through kernel D."""
+    import torch
+
+    def cat(rows):
+        return {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+
+    dev = batches[0]["flow"].device
+    noise = torch.zeros((top_k, 2, 2, flow_len), device=dev)
+    both, cand = generate(cat(batches), noise)
+    for i in (0, 1):
+        alone, cand_i = generate(cat([batches[i]] * 2), noise)
+        if not (torch.equal(alone[0], alone[1])
+                and torch.equal(both[i], alone[0])
+                and torch.equal(cand[i], cand_i[0])):
+            fail(f"{name}: clip {i}'s beams in a batch with the other clip "
+                 f"differ from its beams in a batch of itself")
+    log(f"  {name}: batched beams equal per-clip beams, {tuple(both.shape)} "
+        f"tokens, frames {cand.tolist()}")
+
+
+def demo_paths(card: str) -> dict:
+    """Phase 18: the chat demo (``videotgb_torch.demo.app``) at flagship
+    width, bf16 residency (RAFT f32 on bf16-rounded weights), random
+    weights from seed 0, two clips of 96 frames at 320x240 written with cv2
+    under ``build/phase18/``, 8 flow frames, the demo's 64-token prompts.
+    18a: BLIP2-Flan-T5-xl served by ``make_handler`` on 127.0.0.1 in a
+    thread: GET the page; a multipart POST with beams 5 equals
+    ``Chat.generate`` called directly; a greedy answer equals
+    ``generate_blip2`` on the same batch and generator; nframe 8 through
+    the form gives 8 frames on the same parameters (the allocator's bytes
+    unchanged); 20 B + 1 D + 39 A per answer, the 96-token T5 encoder
+    plain; beams on two clips in one batch equal each clip's. 18b:
+    InstructBLIP-Vicuna-7B, beams 5 at 128 new tokens, 20 B + 1 D + 71 A
+    (39 ViT-g + 32 on the prefill at batch 5), batched beams as in 18a.
+    18c: ``tools.convert_checkpoint`` at the tiny preset from a
+    raft-sintel.pth (``torch.save``, DataParallel names) and a sampler in
+    safetensors where it imports (else ``torch.save``), restored by
+    ``load_model`` on the card with bf16 residency and served. Returns the
+    launches of the counted answers."""
+    import shutil
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from videotgb_torch.demo import app as A
+    from videotgb_torch.evalsuite.inference import load_model
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.ops.decode import DecodeConfig
+
+    t18 = time.perf_counter()
+    root = os.path.join(HERE, "build", "phase18")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    clips = [write_moving_clip(os.path.join(root, f"clip{i}.mp4"), seed=i)
+             for i in (0, 1)]
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    walls, peaks = {}, {}
+
+    def answer(name, expected, fn):
+        """``fn()`` timed and counted against ``expected``."""
+        out = []
+
+        def drive():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out.append(fn())
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t) * 1e3
+
+        got = counted(name, drive, expected)
+        for k in launches:
+            launches[k] += got[k]
+        return out[0]
+
+    def build(backbone, **kw):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        chat = A.Chat("random:flagship", preset="flagship",
+                      backbone=backbone, flow_frames=8, **kw)
+        torch.cuda.synchronize()
+        if chat.device.type != "cuda":
+            fail(f"Chat without a device built on {chat.device}")
+        raft = list(chat.model.of_extractor.parameters())
+        if {p.dtype for p in raft} != {torch.float32} or not all(
+                torch.equal(p, p.bfloat16().float()) for p in raft):
+            fail("bf16 residency left RAFT's weights off the bf16 grid")
+        log(f"  Chat({backbone}) built on the card in "
+            f"{time.perf_counter() - t:.2f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB; RAFT's "
+            f"{len(raft)} tensors f32 on bf16 values")
+        return chat
+
+    # ---- 18a: BLIP2-Flan-T5-xl through the HTTP server
+    chat = build("blip2")
+    vit, raft_cfg = chat.cfg.vit, chat.cfg.raft
+    per_answer = {"corr_lookup": raft_cfg.iters, "select_frames": 1,
+                  "flash_fwd": vit.num_layers}
+    chat.generate(clips[0], P18_QUESTION, do_sample=False)  # cold plans
+    greedy = answer("Chat.generate greedy (T5)", per_answer,
+                    lambda: chat.generate(clips[0], P18_QUESTION,
+                                          do_sample=False))
+    _, _, batch = chat.inputs(clips[0], P18_QUESTION)
+    tokens, cand = V.generate_blip2(
+        chat.model, batch, chat.decode_config(do_sample=False),
+        generator=torch.Generator(chat.device).manual_seed(0))
+    direct = chat.tok.batch_decode(tokens.cpu().numpy(),
+                                   skip_special_tokens=True)[0]
+    if direct != greedy[0] or cand[0].tolist() != greedy[1]:
+        fail("Chat.generate greedy differs from generate_blip2 on its batch")
+    log(f"  greedy Chat.generate equals generate_blip2: frames {greedy[1]}, "
+        f"{int((tokens != 0).sum())} tokens before the pad")
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), A.make_handler(chat))
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    with open(clips[0], "rb") as f:
+        video = f.read()
+
+    def post(**fields):
+        body, ctype = multipart({"video": (video, "clip0.mp4"),
+                                 "question": (P18_QUESTION, None),
+                                 **{k: (str(v), None)
+                                    for k, v in fields.items()}})
+        req = urllib.request.Request(base + "/generate", data=body,
+                                     headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    try:
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            if "VideoTGB" not in r.read().decode():
+                fail("the demo's page lacks its title")
+        reply = answer("POST /generate, beams 5 (T5)", per_answer,
+                       lambda: post(num_beams=5, temperature=0.2))
+        beams = answer("Chat.generate beams 5 (T5)", per_answer,
+                       lambda: chat.generate(clips[0], P18_QUESTION,
+                                             num_beams=5))
+        if (reply["answer"], reply["cand"]) != beams[:2] or \
+                reply["frames"] != [A._png_b64(x) for x in beams[2]] or \
+                reply["flows"] != [A._png_b64(x) for x in beams[3]]:
+            fail("the POST with beams 5 and Chat.generate(num_beams=5) "
+                 "answered differently")
+        log(f"  POST /generate with beams 5 equals Chat.generate: frames "
+            f"{beams[1]}, {len(beams[3])} flow images, answer of "
+            f"{len(beams[0])} characters")
+        before = torch.cuda.memory_allocated()
+        view, _ = chat._model_for_nframe(8)
+        shared = all(p.data_ptr() == q.data_ptr() for p, q in
+                     zip(view.parameters(), chat.model.parameters()))
+        if torch.cuda.memory_allocated() != before or not shared:
+            fail("the nframe view copied parameters")
+        del view
+        wide = answer("POST /generate, nframe 8 (T5)", per_answer,
+                      lambda: post(nframe=8))
+        if len(wide["cand"]) != 8 or len(wide["frames"]) != 8:
+            fail(f"nframe 8 gave {len(wide['cand'])} frames")
+        log(f"  nframe 8 through the form: frames {wide['cand']} on the "
+            f"same parameters ({before} bytes allocated before and after "
+            f"the view)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        fail("the demo's server thread did not stop")
+    del server, thread  # the handler class holds the chat
+    batches = [chat.inputs(c, P18_QUESTION)[2] for c in clips]
+    dcfg = chat.decode_config(num_beams=5)
+    beams_batch_invariant(
+        "T5 beams 5", lambda b, n: V.generate_blip2(chat.model, b, dcfg,
+                                                    noise=n),
+        batches, chat.cfg.top_k, chat.flow_frames)
+    peaks["T5"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del chat, batch, tokens, cand, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 18b: InstructBLIP-Vicuna-7B, beams 5 at 128 new tokens
+    chat = build("instructblip", max_new_tokens=128)
+    prefill = chat.cfg.instructblip.llm.num_layers  # 96 x 224 > 128^2
+    vicuna = answer("Chat.generate beams 5, 128 tokens (Vicuna)",
+                    {**per_answer, "flash_fwd": vit.num_layers + prefill},
+                    lambda: chat.generate(clips[0], P18_QUESTION,
+                                          num_beams=5))
+    log(f"  Vicuna beams 5: frames {vicuna[1]}, answer of "
+        f"{len(vicuna[0])} characters")
+    batches = [chat.inputs(c, P18_QUESTION)[2] for c in clips]
+    dcfg = chat.decode_config(num_beams=5)
+    beams_batch_invariant(
+        "Vicuna beams 5, 128 tokens",
+        lambda b, n: V.generate_instructblip(chat.model, b, dcfg, noise=n),
+        batches, chat.cfg.top_k, chat.flow_frames)
+    peaks["Vicuna"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del chat, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 18c: the converter CLI on this machine, served on the card
+    # the reference's names for the port's RAFT / TGB, shared with the tests
+    sys.path.append(os.path.join(HERE, "tests"))
+    import _torch_reference_names as RN
+    from videotgb_torch.tools import convert_checkpoint as CC
+
+    src = V.VideoTGB(V.VideoTGBConfig.tiny(), device="cpu",
+                     seed=5).state_dict()
+    raft_path = os.path.join(root, "raft-sintel.pth")
+    torch.save({f"module.{k}": t for k, t in
+                RN.raft_to_reference(src).items()}, raft_path)
+    try:
+        from safetensors.torch import save_file
+
+        sampler = os.path.join(root, "sampler.safetensors")
+        save_file(RN.tgb_to_reference(src), sampler)
+    except ImportError:
+        sampler = os.path.join(root, "sampler.pth")
+        torch.save(RN.tgb_to_reference(src), sampler)
+    out = CC.main(["--preset", "tiny", "--raft_path", raft_path,
+                   "--sampler_path", sampler,
+                   "--output", os.path.join(root, "converted")])
+    model, cfg = load_model(SimpleNamespace(model_path=out, preset="tiny",
+                                            bf16_params=1), device="cuda")
+    got = model.state_dict()
+    moved = [k for k in src
+             if k.startswith(("of_extractor.", "temporal_encoder."))]
+    if not all(torch.equal(got[k].cpu().float(),
+                           src[k].bfloat16().float()) for k in moved):
+        fail("the converted RAFT / TGB did not come back as written")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    img, fs = cfg.vit.image_size, cfg.tgb.flow_size
+    frames = torch.randint(0, 256, (2, cfg.num_frames, img, img, 3),
+                           generator=gen, device="cuda", dtype=torch.uint8)
+    flow_u8 = torch.randint(0, 256, (2, 4, fs, fs, 3), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+    tiny = _batch(cfg, 2, 3, 8, gen, torch.device("cuda"))
+    cand = V.select_phase_blip2(model, flow_u8, tiny, generator=gen)
+    sel = frames[torch.arange(2, device="cuda")[:, None], cand]
+    t5 = cfg.blip2.t5
+    toks = V.answer_phase_blip2(model, sel, tiny, DecodeConfig(
+        max_new_tokens=4, eos_token_id=t5.eos_token_id,
+        pad_token_id=t5.pad_token_id))
+    if tuple(toks.shape) != (2, 4) or int(toks.min()) < 0:
+        fail(f"the converted tiny model answered {tuple(toks.shape)}")
+    log(f"  convert_checkpoint at tiny: {len(moved)} RAFT / TGB tensors "
+        f"from {os.path.basename(raft_path)} and "
+        f"{os.path.basename(sampler)} restored by load_model on the card "
+        f"(bf16 residency) and served: frames {cand.tolist()}")
+    del model
+    shutil.rmtree(root, ignore_errors=True)
+
+    for name, ms in walls.items():
+        log(f"  wall {name}: {ms:.2f} ms on {card}")
+    for name, gib in peaks.items():
+        log(f"  peak device memory, {name} demo: {gib:.2f} GiB on {card}")
+    log(f"  phase 18 ran in {time.perf_counter() - t18:.1f} s")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -4472,11 +4807,20 @@ def main() -> None:
     log(f"  kernel C at stage 3: the T5 encoder's (1, 32, 160, 160, 64) "
         f"{s3_rows['t5']}; the LLaMA's (2, 32, 192, 192, 128) "
         f"{s3_rows['llama']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    log("phase 18: the chat demo (Chat, its HTTP server, beams on T5 and "
+        "Vicuna-7B) and the checkpoint converter")
+    demo = demo_paths(card)
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += demo.get(kern["name"], 0)
     done = time.perf_counter()
-    log(f"phases 1-17 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-18 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
         f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
-        f"{t17 - t16:.1f} s, phase 17 in {done - t17:.1f} s")
+        f"{t17 - t16:.1f} s, phase 17 in {t18 - t17:.1f} s, phase 18 in "
+        f"{done - t18:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

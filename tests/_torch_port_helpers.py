@@ -179,11 +179,16 @@ def few_torch_threads():
 
 def jax_load_model_seeded(args, with_specs=False):
     """Stands in for ``videotgb_tpu.evalsuite.inference.load_model`` on
-    ``random:<preset>`` with f32 parameters: the same config (``nframe``,
-    ``flow_size``), weights from :func:`jax_params` in place of flax's
-    ``init``, which compiles some 800 small programs on the CPU."""
+    ``random:<preset>``: the same config (``nframe``, ``flow_size``, and
+    ``bf16_param_config`` under ``bf16_params``), weights from
+    :func:`jax_params` in place of flax's ``init``, which compiles some 800
+    small programs on the CPU; under ``bf16_params`` the JAX package's own
+    ``bf16_residency`` then casts every f32 leaf to bf16, as its
+    ``load_model`` does."""
+    from videotgb_tpu.evalsuite.inference import bf16_residency
+
     assert args.model_path.startswith("random:")
-    assert not getattr(args, "bf16_params", False)
+    bf16 = getattr(args, "bf16_params", False)
     cfg = getattr(JV.VideoTGBConfig, args.model_path.split(":", 1)[1])(
         getattr(args, "backbone", "blip2"))
     nframe = getattr(args, "nframe", None)
@@ -192,8 +197,12 @@ def jax_load_model_seeded(args, with_specs=False):
     if getattr(args, "flow_size", None):
         cfg = dataclasses.replace(
             cfg, tgb=dataclasses.replace(cfg.tgb, flow_size=args.flow_size))
+    if bf16:
+        cfg = JV.bf16_param_config(cfg)
     model = JV.VideoTGB(cfg)
     params = jax_params(model, cfg)
+    if bf16:
+        params = bf16_residency(params)
     return (model, params, cfg, None) if with_specs else (model, params, cfg)
 
 

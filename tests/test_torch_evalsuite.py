@@ -197,7 +197,7 @@ def test_load_model_honours_flags_and_refuses_what_is_not_ported(tmp_path):
         want = model.state_dict()
         assert all(torch.equal(v, want[k])
                    for k, v in restored.state_dict().items())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         TI.run_inference(SimpleNamespace(mesh="dp=2"))
 
 

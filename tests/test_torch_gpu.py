@@ -1587,3 +1587,104 @@ def test_tiny_stage3_step_on_the_card_matches_the_cpu(cuda, backbone, lora,
             assert float((g - w).abs().max()) <= 1e-6 * top, n
         else:
             _close_to_largest(g, w, 1e-3, n)
+
+
+@pytest.mark.gpu
+def test_beams_on_the_card_equal_the_cpu(cuda):
+    """``beam_search`` on the card gives the CPU's tokens for a synthetic
+    step function (f64 dynamics carried in the caches, as in
+    ``tests/test_torch_beam.py``; a repetition penalty)."""
+    from videotgb_torch.ops.decode import beam_search
+
+    rng = np.random.default_rng(0)
+    v, d, k = 16, 6, 3
+    arrays = (rng.standard_normal((v, d)),
+              0.9 * np.linalg.qr(rng.standard_normal((d, d)))[0],
+              rng.standard_normal((d, v)) / np.sqrt(d), np.eye(v)[1])
+
+    def run(dev):
+        emb, mix, out, eos = (torch.as_tensor(a, dtype=torch.float64,
+                                              device=dev) for a in arrays)
+
+        def step(tokens, caches, t):
+            h = caches["h"] @ mix + emb[tokens[:, 0]]
+            return (2.0 * (h @ out) + eos * (t - 2.0)).float(), {"h": h}
+
+        cfg = DecodeConfig(max_new_tokens=8, eos_token_id=1, pad_token_id=0,
+                           num_beams=k, length_penalty=0.5,
+                           repetition_penalty=1.2)
+        caches = {"h": torch.zeros((2 * k, d), dtype=torch.float64,
+                                   device=dev)}
+        return beam_search(step, caches, torch.tensor([3, 7], device=dev),
+                           cfg)
+
+    got = run(cuda)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), run("cpu"))
+
+
+@pytest.mark.gpu
+def test_tiny_chat_on_the_card_answers(cuda, tmp_path):
+    """The demo's ``Chat`` without a device builds on the card and answers
+    greedy, with beams and with an nframe override: RAFT's lookups on
+    kernel B and the selection on kernel D in every answer."""
+    import cv2
+
+    from videotgb_torch.demo.app import Chat
+
+    path = str(tmp_path / "clip.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10.0,
+                             (64, 64))
+    rng = np.random.default_rng(0)
+    for _ in range(16):
+        writer.write(rng.integers(0, 255, (64, 64, 3), np.uint8))
+    writer.release()
+    chat = Chat("random:tiny", flow_frames=3, max_new_tokens=4)
+    assert chat.device.type == "cuda"
+    for kw in (dict(do_sample=False), dict(num_beams=2), dict(nframe=2)):
+        kernels.reset_launches()
+        answer, cand, thumbs, flows = chat.generate(path, "what?", **kw)
+        assert isinstance(answer, str)
+        assert len(cand) == len(thumbs) == kw.get("nframe", chat.cfg.nframe)
+        assert len(flows) == 3 and flows[0].dtype == np.uint8
+        assert kernels.LAUNCHES["corr_lookup"] == chat.cfg.raft.iters
+        assert kernels.LAUNCHES["select_frames"] == 1
+
+
+@pytest.mark.gpu
+def test_converted_checkpoint_restores_on_the_card(cuda, tmp_path):
+    """``convert_checkpoint`` from a raft-sintel.pth (DataParallel names)
+    and a sampler.pth written with ``torch.save``; ``load_model`` without a
+    device restores them on the card, and the select phase runs."""
+    from types import SimpleNamespace
+
+    from videotgb_torch.evalsuite.inference import load_model
+    import _torch_reference_names as RN
+    from videotgb_torch.tools import convert_checkpoint as CC
+
+    src = V.VideoTGB(V.VideoTGBConfig.tiny(), device="cpu",
+                     seed=5).state_dict()
+    raft = {f"module.{k}": t for k, t in RN.raft_to_reference(src).items()}
+    torch.save(raft, tmp_path / "raft-sintel.pth")
+    torch.save(RN.tgb_to_reference(src), tmp_path / "sampler.pth")
+    out = CC.main(["--preset", "tiny", "--output", str(tmp_path / "ckpt"),
+                   "--raft_path", str(tmp_path / "raft-sintel.pth"),
+                   "--sampler_path", str(tmp_path / "sampler.pth")])
+    model, cfg = load_model(SimpleNamespace(model_path=out, preset="tiny",
+                                            bf16_params=0))
+    assert model.device.type == "cuda"
+    got = model.state_dict()
+    moved = [k for k in src
+             if k.startswith(("of_extractor.", "temporal_encoder."))]
+    assert moved and all(torch.equal(got[k].cpu(), src[k]) for k in moved)
+    fs = cfg.tgb.flow_size
+    flow = torch.randint(0, 256, (1, 4, fs, fs, 3), dtype=torch.uint8,
+                         device=cuda)
+    batch = {"flow_mask": torch.ones((1, 5), device=cuda),
+             "video_length": torch.full((1,), 3, device=cuda),
+             "sampler_question_ids": torch.randint(4, 60, (1, 5),
+                                                   device=cuda),
+             "sampler_question_mask": torch.ones((1, 5), device=cuda)}
+    cand = V.select_phase_blip2(model, flow, batch,
+                                generator=torch.Generator(cuda))
+    assert tuple(cand.shape) == (1, cfg.nframe)

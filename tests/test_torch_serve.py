@@ -341,17 +341,79 @@ def test_bf16_residency_by_default_and_f32_opt_out():
     dtypes = {p.dtype for n, p in model.named_parameters()
               if not n.startswith("of_extractor")}
     assert dtypes == {torch.bfloat16}
-    raft = {p.dtype for p in model.of_extractor.parameters()}
-    assert raft == {torch.float32}  # RAFT stays f32, as in the JAX package
+    raft = list(model.of_extractor.parameters())
+    # RAFT keeps f32 storage and compute, on values rounded to bf16 as the
+    # JAX load_model casts every f32 leaf, RAFT's included
+    assert {p.dtype for p in raft} == {torch.float32}
+    assert all(torch.equal(p, p.bfloat16().float()) for p in raft)
     args.bf16_params = False
     model, _ = load_model(args, device="cpu")
     assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert not all(torch.equal(p, p.bfloat16().float())
+                   for p in model.of_extractor.parameters())
+
+
+def test_bf16_raft_matches_the_jax_load_model(tmp_path):
+    """``load_model(bf16_params=1)`` on a checkpoint of the seeded f32
+    weights against the JAX ``load_model`` on ``random:tiny`` with the same
+    weights (``jax_load_model_seeded`` + the JAX ``bf16_residency``): every
+    RAFT value, and every other parameter, equal; flow features at the f32
+    tolerance; the same frame indices from the same Gumbel draws."""
+    from _torch_port_helpers import TOL, jax_params, t
+    from videotgb_torch.convert import flax_to_state_dict
+    from videotgb_torch.training import checkpoint as TCK
+    from videotgb_tpu.models import videotgb as JV
+
+    args = SimpleNamespace(model_path="random:tiny", bf16_params=True)
+    jmodel, jparams, jcfg = jax_load_model_seeded(args)
+    f32 = flax_to_state_dict(jax.device_get(jax_params(jmodel, jcfg)))
+    TCK.CheckpointManager(TCK.CheckpointConfig(directory=str(tmp_path))).save(
+        1, {"params": f32, "step": 1})
+    model, _ = load_model(SimpleNamespace(model_path=str(tmp_path),
+                                          preset="tiny", bf16_params=1),
+                          device="cpu")
+    want = flax_to_state_dict(jax.device_get(jparams))
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    raft = [k for k in got if k.startswith("of_extractor.")]
+    assert len(raft) == 154
+    for key, value in got.items():
+        assert torch.equal(value.float(), want[key]), key
+    assert {got[k].dtype for k in raft} == {torch.float32}
+
+    rng = np.random.default_rng(3)
+    fs = jcfg.tgb.flow_size
+    flow_u8 = rng.integers(0, 255, (2, 4, fs, fs, 3), np.uint8)
+    jflow = jax.jit(lambda p, f: jmodel.apply(
+        p, f, method=jmodel.flow_features))(jparams,
+                                            jnp.asarray(flow_u8, jnp.float32))
+    with torch.no_grad():
+        tflow = model.flow_features(t(flow_u8).float())
+    np.testing.assert_allclose(tflow.numpy(), np.asarray(jflow), **TOL)
+
+    batch = {"flow_mask": np.ones((2, 5), np.float32),
+             "video_length": np.full((2,), 3, np.int32),
+             "sampler_question_ids": rng.integers(4, 60, (2, 5)).astype(
+                 np.int32),
+             "sampler_question_mask": np.ones((2, 5), np.float32)}
+    key = jax.random.key(8)
+    jcand = jax.jit(lambda p, f, b, k: JV.select_phase_blip2(
+        jmodel, p, f, b, k))(jparams, jnp.asarray(flow_u8),
+                             {k: jnp.asarray(v) for k, v in batch.items()},
+                             key)
+    tb = {k: t(v) for k, v in batch.items()}
+    tb["sampler_question_ids"] = tb["sampler_question_ids"].long()
+    noise = gumbel_like(key, torch.zeros((2, 3)), jcfg.top_k)
+    with torch.no_grad():
+        tcand = TV.select_phase_blip2(model, t(flow_u8), tb,
+                                      noise=noise)
+    np.testing.assert_array_equal(tcand.numpy(), np.asarray(jcand))
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(mesh="dp=2,tp=2"), "queue 1 item 7"),
-    (dict(mesh="dp=2,tp=2", backbone="instructblip"), "queue 1 item 7"),
-    (dict(mesh="dp=2,tp=2", backbone="instructblip_t5"), "queue 1 item 7"),
+    (dict(mesh="dp=2,tp=2"), "queue 1 item 5"),
+    (dict(mesh="dp=2,tp=2", backbone="instructblip"), "queue 1 item 5"),
+    (dict(mesh="dp=2,tp=2", backbone="instructblip_t5"), "queue 1 item 5"),
 ])
 def test_what_the_port_lacks_raises(kw, match, tmp_path):
     """The mesh engine raises; a checkpoint directory of

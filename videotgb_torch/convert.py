@@ -23,8 +23,11 @@ module names, so the mapping is:
 The InstructBLIP-Vicuna tree needs no rule of its own: LLaMA's
 ``embed_tokens/embedding``, the RMS norms' ``scale``, the bias-free
 projections' ``kernel`` and ``language_model/layer_{i}`` all fall under the
-rules above. Trees built with ``scan_layers`` (stacked layer axes) are not
-supported.
+rules above. Trees built with ``scan_layers`` are unstacked first (the
+inverse of the JAX package's ``training.convert.stack_layers``): a leaf
+under ``layers/layer`` (ViT, LLaMA) or ``encoder_layers/block`` /
+``decoder_layers/block`` (T5) carries a leading layer axis and becomes one
+leaf per ``layer_{i}`` / ``encoder_{i}`` / ``decoder_{i}``.
 """
 
 from __future__ import annotations
@@ -53,12 +56,33 @@ def _flatten(tree: Mapping, prefix=()) -> dict[tuple, Any]:
     return out
 
 
+# a scanned stack's scope -> (its inner scope, the per-layer scope)
+_STACKED = {"layers": ("layer", "layer_{}"),
+            "encoder_layers": ("block", "encoder_{}"),
+            "decoder_layers": ("block", "decoder_{}")}
+
+
+def unstack_layers(flat: Mapping[tuple, Any]) -> dict[tuple, Any]:
+    """Split every stacked (``scan_layers``) leaf of a flat flax dict along
+    its leading layer axis into per-layer paths; other leaves pass
+    through."""
+    out = {}
+    for path, value in flat.items():
+        for i, scope in enumerate(path[:-2]):
+            inner, per_layer = _STACKED.get(scope, (None, None))
+            if path[i + 1] == inner:
+                arr = np.asarray(value)
+                for j in range(arr.shape[0]):
+                    out[path[:i] + (per_layer.format(j),) + path[i + 2:]] = (
+                        arr[j])
+                break
+        else:
+            out[path] = value
+    return out
+
+
 def _map_path(path: tuple) -> tuple[str, str]:
     """(port key, leaf kind) for one flax path."""
-    if any(p in ("encoder_layers", "decoder_layers") for p in path) or (
-            path[:2] == ("layers", "layer")):
-        raise NotImplementedError(
-            f"stacked (scan_layers) parameters are not supported: {path}")
     parts = []
     leaf = path[-1]
     scopes = list(path[:-1])
@@ -85,8 +109,14 @@ def flax_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
     """Map a flax parameter tree onto the port's ``state_dict`` keys."""
     if set(tree) == {"params"}:
         tree = tree["params"]
+    return flat_to_state_dict(_flatten(tree))
+
+
+def flat_to_state_dict(flat: Mapping[tuple, Any]) -> dict[str, torch.Tensor]:
+    """Map a flat flax dict ({path tuple: array}, stacked or per-layer) onto
+    the port's ``state_dict`` keys."""
     out = {}
-    for path, value in _flatten(tree).items():
+    for path, value in unstack_layers(flat).items():
         arr = np.asarray(value)
         key, kind = _map_path(path)
         if kind == "kernel":

@@ -169,8 +169,13 @@ def load_model(args, device=None):
     must be the model's exactly: a LoRA checkpoint without ``lora``, or the
     reverse, raises naming the keys. ``bf16_params`` builds
     the ViT, Q-Former, LLM (with its adapters) and TGB in bf16 and copies
-    the restored values in, rounding them; RAFT stays f32, as for random
-    weights."""
+    the restored values in, rounding them. RAFT keeps f32 storage and f32
+    compute, but every parameter of it, random or restored, is rounded to
+    a bf16 value: the JAX ``load_model`` casts every f32 leaf
+    (RAFT's 154 included) to bf16, and its jitted programs compute RAFT in
+    f32 on them (XLA keeps the frozen batch norms' ``rsqrt(var + eps)`` in
+    f32 too; JAX run op by op, as its demo runs ``flow_features``, rounds
+    that one to bf16)."""
     from videotgb_torch.models.videotgb import (
         VideoTGB,
         VideoTGBConfig,
@@ -199,6 +204,10 @@ def load_model(args, device=None):
         from videotgb_torch.training.checkpoint import restore_params
 
         restore_params(model, args.model_path)
+    if getattr(args, "bf16_params", False):
+        with torch.no_grad():
+            for p in model.of_extractor.parameters():
+                p.copy_(p.to(torch.bfloat16))
     return model, cfg
 
 
@@ -320,7 +329,7 @@ def run_inference(args) -> str:
     if args.mesh:
         raise NotImplementedError(
             "mesh-sharded inference is not ported: ROADMAP.md queue 1 "
-            "item 7")
+            "item 5")
     model, cfg = load_model(args, device=args.device)
     tok = load_tokenizer(args.model_base)
     sampler_tok = load_tokenizer(args.sampler_base)

@@ -42,7 +42,7 @@ from videotgb_torch.models.raft import RAFT, RAFTConfig
 from videotgb_torch.models.t5 import T5Config
 from videotgb_torch.models.tgb import TGBConfig, TGBModel
 from videotgb_torch.models.vit import ViTConfig
-from videotgb_torch.ops.decode import DecodeConfig, decode
+from videotgb_torch.ops.decode import DecodeConfig, beam_search, decode
 from videotgb_torch.ops.select import select_frames
 from videotgb_torch.ops.select_pallas import draw_seed, select_frames_cuda
 
@@ -360,22 +360,31 @@ def generate_blip2(model: VideoTGB, batch, decode_config: DecodeConfig,
 def t5_generate_from_encoder(model: VideoTGB, enc_hidden, enc_mask,
                              decode_config: DecodeConfig, generator=None,
                              stop_sequences=()):
-    """Greedy / sampling T5 decode from a computed encoder state. Step 0 is
-    the prefill: it writes token 0's self K/V and every layer's cross K/V."""
+    """Greedy / sampling / beam T5 decode from a computed encoder state.
+    Step 0 is the prefill: it writes token 0's self K/V and every layer's
+    cross K/V. With ``num_beams`` k > 1 the encoder state is repeated per
+    beam and the caches hold B * k rows."""
     t5cfg = model.config.blip2.t5
     b = enc_hidden.shape[0]
+    beams = decode_config.num_beams
+    if beams > 1:
+        enc_hidden = enc_hidden.repeat_interleave(beams, 0)
+        enc_mask = enc_mask.repeat_interleave(beams, 0)
+    bk = enc_hidden.shape[0]
     max_new = decode_config.max_new_tokens
     dev = enc_hidden.device
-    caches = model.init_t5_caches(b, max_new, enc_hidden.shape[1])
+    caches = model.init_t5_caches(bk, max_new, enc_hidden.shape[1])
     start = torch.full((b,), t5cfg.decoder_start_token_id, dtype=torch.long,
                        device=dev)
     steps = torch.arange(max_new, device=dev)
 
     def step_fn(tokens, caches, index):
-        valid = (steps[None] <= index).float().expand(b, max_new)
+        valid = (steps[None] <= index).float().expand(bk, max_new)
         return model.t5_decode_step(tokens, enc_hidden, enc_mask, caches,
                                     index, valid, cross_prefill=index == 0)
 
+    if beams > 1:
+        return beam_search(step_fn, caches, start, decode_config)
     return decode(step_fn, caches, start, decode_config, generator=generator,
                   stop_sequences=stop_sequences)
 
@@ -514,15 +523,23 @@ def generate_iv(model: VideoTGB, batch, decode_config: DecodeConfig,
 def llama_generate_from_embeds(model: VideoTGB, embeds, mask,
                                decode_config: DecodeConfig, generator=None,
                                stop_sequences=()):
-    """Greedy / sampling LLaMA decode from a right-padded [visual | prompt]
-    prefix (B, S, d) with its mask (B, S).
+    """Greedy / sampling / beam LLaMA decode from a right-padded [visual |
+    prompt] prefix (B, S, d) with its mask (B, S).
 
     The prefill writes the prompt's K/V into buffers of S + max_new slots,
     at per-row RoPE positions that count only the real tokens; each row's
     first token comes from the logits at its last real token. The token of
     step t-1 is written at slot S + t - 1 with RoPE position length + t - 1,
-    and the validity mask opens that slot. Beam search is not ported
-    (ROADMAP.md queue 1 item 5)."""
+    and the validity mask opens that slot. With ``num_beams`` k > 1 the
+    prefix is repeated per beam before the prefill and beam search reorders
+    the caches; a sample's k rows share one mask row and one length, so the
+    reorder, which stays within a sample's rows, leaves ``valid`` and
+    ``lengths`` right."""
+    b_orig = embeds.shape[0]
+    beams = decode_config.num_beams
+    if beams > 1:
+        embeds = embeds.repeat_interleave(beams, 0)
+        mask = mask.repeat_interleave(beams, 0)
     b, s = embeds.shape[:2]
     max_new = decode_config.max_new_tokens
     dev = embeds.device
@@ -546,6 +563,9 @@ def llama_generate_from_embeds(model: VideoTGB, embeds, mask,
             cache_positions_valid=valid)
         return logits[:, -1], caches
 
-    start = torch.zeros((b,), dtype=torch.long, device=dev)
+    start = torch.zeros((b_orig,), dtype=torch.long, device=dev)
+    if beams > 1:
+        return beam_search(step_fn, caches, start, decode_config,
+                           penalty_length_offset=1)
     return decode(step_fn, caches, start, decode_config, generator=generator,
                   stop_sequences=stop_sequences)

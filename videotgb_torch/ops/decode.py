@@ -1,10 +1,15 @@
 """Autoregressive decode: greedy and temperature / top-p sampling with HF
-repetition penalty and per-sequence early stop on EOS or stop sequences.
+repetition penalty and per-sequence early stop on EOS or stop sequences
+(:func:`decode`), and beam search with HF's done-hypotheses semantics
+(:func:`beam_search`, ``num_beams`` > 1, ``length_penalty``).
 
 Model-agnostic: the caller passes ``step_fn(tokens (B, 1), caches, index)``
--> (logits (B, V), caches). The output buffer is (B, max_new_tokens) padded
-with pad_token_id after EOS. A Python loop replaces the JAX package's
-``lax.while_loop``; it stops once every sequence has finished.
+-> (logits (B, V), caches); caches are nested lists / dicts of tensors
+whose axis 0 is the batch, which beam search reorders every step. The
+output buffer is (B, max_new_tokens) padded with pad_token_id after EOS. A
+Python loop replaces the JAX package's ``lax.while_loop``; it stops once
+every sequence (every sample, for beams) has finished, with one host sync
+a step.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ class DecodeConfig:
     temperature: float = 1.0
     top_p: float = 1.0
     repetition_penalty: float = 1.0
+    num_beams: int = 1
+    length_penalty: float = 1.0
     do_sample: bool = False
 
 
@@ -97,3 +104,143 @@ def decode(step_fn, caches, start_tokens, config: DecodeConfig,
         if bool(finished.all()):
             break
     return tokens
+
+
+def _insert_hypothesis(d_scores, d_tokens, d_count, accept, score, hyp, k):
+    """Where ``accept``, insert one hypothesis per sample into the k-slot
+    done set, replacing the current worst (HF ``BeamHypotheses.add``: keep
+    the best k by length-penalized score; empty slots hold NEG_INF, so the
+    first minimum fills them first)."""
+    worst = torch.argmin(d_scores, dim=1)
+    worst_score = d_scores.min(dim=1).values
+    accept = accept & ((d_count < k) | (score > worst_score))
+    slot = (torch.nn.functional.one_hot(worst, k).bool()
+            & accept[:, None])
+    d_scores = torch.where(slot, score[:, None], d_scores)
+    d_tokens = torch.where(slot[..., None], hyp[:, None, :], d_tokens)
+    d_count = torch.clamp(d_count + accept.long(), max=k)
+    return d_scores, d_tokens, d_count
+
+
+def _reorder_caches(caches, index):
+    """Every tensor of the nested lists / dicts ``caches`` gathered along
+    its batch axis 0 by ``index``."""
+    if torch.is_tensor(caches):
+        return caches.index_select(0, index)
+    if isinstance(caches, dict):
+        return {k: _reorder_caches(v, index) for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return type(caches)(_reorder_caches(v, index) for v in caches)
+    return caches
+
+
+def beam_search(step_fn, caches, start_tokens, config: DecodeConfig,
+                penalty_length_offset: int = 1):
+    """Beam search with HF done-hypotheses semantics (transformers
+    ``BeamSearchScorer`` / ``BeamHypotheses``, ``early_stopping=False``):
+
+    * each step ranks the top 2k candidates of (beam score + logp) over
+      k x V, ties to the lower index as ``jax.lax.top_k`` breaks them;
+    * candidates ending in EOS that rank within the top k retire into a
+      per-sample done set, scored ``sum_logp / (t + offset) **
+      length_penalty`` at the step they finish;
+    * the k best non-EOS candidates continue as live beams;
+    * a finished sample freezes its beams, extending them with pad;
+    * a sample stops once k hypotheses are done and the best live beam,
+      normalized at the current length, can no longer beat the worst;
+    * at the horizon, live beams of unfinished samples join the done set
+      normalized at ``t - 1 + offset``, and the best done hypothesis is
+      returned.
+
+    ``caches`` must already hold B * num_beams rows (repeat the batch per
+    beam before building them); ``start_tokens`` is (B,). The repetition
+    penalty reads each beam's own tokens. Stop sequences do not apply.
+    Returns (B, max_new_tokens) int64, EOS at the finishing position, pad
+    after."""
+    cfg = config
+    b = start_tokens.shape[0]
+    k = cfg.num_beams
+    horizon = cfg.max_new_tokens
+    dev = start_tokens.device
+    batch_iota = torch.arange(b, device=dev)
+    beam_iota = torch.arange(k, device=dev)[None, :]
+
+    tokens = torch.full((b * k, horizon), cfg.pad_token_id, dtype=torch.long,
+                        device=dev)
+    # beam 0 live, the others at NEG_INF: the first step seeds k distinct
+    # tokens from beam 0
+    scores = torch.tensor([0.0] + [NEG_INF] * (k - 1), device=dev).repeat(b)
+    cur = start_tokens.long().repeat_interleave(k)
+    d_scores = torch.full((b, k), NEG_INF, device=dev)
+    d_tokens = torch.full((b, k, horizon), cfg.pad_token_id,
+                          dtype=torch.long, device=dev)
+    d_count = torch.zeros(b, dtype=torch.long, device=dev)
+    b_done = torch.zeros(b, dtype=torch.bool, device=dev)
+
+    steps = 0
+    for t in range(horizon):
+        steps = t + 1
+        logits, caches = step_fn(cur[:, None], caches, t)
+        logits = apply_repetition_penalty(logits.float(), tokens,
+                                          cfg.repetition_penalty)
+        logp = torch.log_softmax(logits, dim=-1)
+        v = logp.shape[-1]
+        cand = (scores[:, None] + logp).reshape(b, k * v)
+        top_scores, top_idx = torch.sort(cand, dim=1, descending=True,
+                                         stable=True)
+        top_scores, top_idx = top_scores[:, :2 * k], top_idx[:, :2 * k]
+        src2k = top_idx // v
+        tok2k = top_idx % v
+        is_eos = tok2k == cfg.eos_token_id
+        pen = float(t + penalty_length_offset) ** cfg.length_penalty
+
+        # retire EOS candidates ranked within the top k
+        for j in range(k):
+            hyp = tokens[batch_iota * k + src2k[:, j]].clone()
+            hyp[:, t] = cfg.eos_token_id
+            d_scores, d_tokens, d_count = _insert_hypothesis(
+                d_scores, d_tokens, d_count, is_eos[:, j] & ~b_done,
+                top_scores[:, j] / pen, hyp, k)
+
+        # the k best non-EOS candidates continue (2k candidates hold at
+        # most k EOS entries, one per source beam)
+        live = ~is_eos
+        rank_live = torch.cumsum(live.long(), dim=1) - 1
+        pick = torch.stack(
+            [(live & (rank_live == s)).int().argmax(dim=1) for s in range(k)],
+            dim=1)
+        new_scores = torch.gather(top_scores, 1, pick)
+        src_sel = torch.gather(src2k, 1, pick)
+        tok_sel = torch.gather(tok2k, 1, pick)
+
+        # finished samples freeze: beams stay in place, extended with pad
+        frozen = b_done[:, None]
+        src_sel = torch.where(frozen, beam_iota, src_sel)
+        tok_sel = torch.where(frozen, cfg.pad_token_id, tok_sel)
+        new_scores = torch.where(frozen, scores.reshape(b, k), new_scores)
+
+        flat_src = (batch_iota[:, None] * k + src_sel).reshape(-1)
+        tokens = tokens[flat_src]
+        caches = _reorder_caches(caches, flat_src)
+        cur = tok_sel.reshape(-1)
+        tokens[:, t] = cur
+        scores = new_scores.reshape(-1)
+
+        # HF's early-stop heuristic (early_stopping=False) on the best live
+        # beam at the current length
+        best_possible = new_scores[:, 0] / pen
+        b_done = b_done | ((d_count >= k)
+                           & (d_scores.min(dim=1).values >= best_possible))
+        if bool(b_done.all()):
+            break
+
+    # hitting the horizon stops inside the last step, so the live beams
+    # normalize at the length of that step's EOS retirements
+    pen = float(steps - 1 + penalty_length_offset) ** cfg.length_penalty
+    scores_bk = scores.reshape(b, k)
+    tokens_bk = tokens.reshape(b, k, horizon)
+    for s in range(k):
+        d_scores, d_tokens, d_count = _insert_hypothesis(
+            d_scores, d_tokens, d_count, ~b_done, scores_bk[:, s] / pen,
+            tokens_bk[:, s], k)
+    return d_tokens[batch_iota, torch.argmax(d_scores, dim=1)]
