@@ -219,7 +219,21 @@ Phases, each fatal on failure (exit code 1):
    from a seeded model under the reference's names
    (``tests/_torch_reference_names.py``), restored by ``load_model`` on
    the card and served. Each answer's wall and each model's peak
-   memory.
+   memory;
+19. the slice's tools (``tool_paths``), each ``main`` run in the process
+   at flagship width with batches, layers and iterations cut: the native
+   host library built and ``clip_transform``'s native and numpy paths
+   within 2e-2; kernel A at the Q-Former's shapes (128 frames x 12 heads x
+   32 queries over 32 and 264 keys, 64 wide, bf16) against its plain
+   version, timed beside it and SDPA; ``traceprobe`` raft, vit, qformer
+   and decode at batch 32 on the JAX tool's model, ``perfprobe`` pipe,
+   vit, raft and model, ``qformerattnprobe``, ``raftencprobe``,
+   ``stemprobe``, ``decodeprobe``, ``traintraceprobe`` tg and ivt on one
+   flagship with LoRA rank 8 and sf on ``small``: each run's launches of
+   A-D exactly as derived from the code, every summariser's device total
+   in (0, wall], the variants' exactness checks; a 2-trial sweep through
+   ``utils.sweep.run_sweep`` on the card (``<sweep dir>/0`` and ``/1``
+   under ``build/phase19/``); ``evalsuite.debug`` on a written file.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -1085,46 +1099,20 @@ def selection_tail(model, flow_u8, batch, start_logits, end_logits, gen,
         f"{ops['plain']} on {card}")
 
 
-# kernel families of a trace, by substrings of the kernels' names
-FAMILIES = {
-    "kernel D": ("select_frames_kernel",),
-    "kernels B/E": ("corr_tile::tile_kernel", "corr_gather_kernel"),
-    "kernel C": ("bwd_one_pass", "bwd_rows", "bwd_cols"),
-    "kernel H": ("gemm_kernel",),
-    "kernel A": ("flash_mma_kernel", "flash_fma_kernel"),
-    "cuBLAS/cuDNN": ("gemm", "xmma", "cutlass", "nvjet", "conv", "cudnn"),
-}
-OTHER = "eager elementwise/reductions/copies"
-
-
 def traced(fn) -> dict:
-    """One run of ``fn`` under ``torch.profiler``, synchronised: the device
-    time of its kernels in ms, by name and by family (``FAMILIES``, the
-    rest ``OTHER``), the number of device operations (kernels and copies),
-    and the wall time of the traced run (the trace's own cost included)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One run of ``fn`` under ``torch.profiler``, synchronised
+    (``videotgb_torch.utils.profiling.traced``): the device time of its
+    kernels in ms, by name and by family (``profiling.FAMILIES``, the rest
+    ``profiling.OTHER``), the number of device operations (kernels and
+    copies), and the wall time of the traced run (the trace's own cost
+    included)."""
+    from videotgb_torch.utils import profiling
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    by_name: dict[str, float] = {}
-    ops = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ops += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-    families = dict.fromkeys((*FAMILIES, OTHER), 0.0)
-    for name, ms in by_name.items():
-        families[next((f for f, keys in FAMILIES.items()
-                       if any(k in name for k in keys)), OTHER)] += ms
-    return {"busy": sum(by_name.values()), "wall": wall,
-            "families": families, "by_name": by_name, "ops": ops}
+    r = profiling.traced(fn, "cuda")
+    return {"busy": r["device_total_ms"], "wall": r["wall_ms"],
+            "families": {f: g["ms"] for f, g in r["families"].items()},
+            "by_name": {n: g["ms"] for n, g in r["by_name"].items()},
+            "ops": r["ops"]}
 
 
 # ------------------------------------------------------------------ kernel C
@@ -1533,10 +1521,11 @@ def train_paths(card: str) -> dict:
     return {k: e2e_launches[k] + tg_launches[k] for k in e2e_launches}
 
 
-def counted(name, drive, expected) -> dict:
+def counted(name, drive, expected, bodies=True) -> dict:
     """Run ``drive`` with every launch count set to 0 just before it; fail
     unless the counts read just after are ``expected`` (0 for every kernel
-    not named)."""
+    not named) and, with ``bodies``, every launch of A, G and C ran the
+    tensor-core body and every launch of B and E the tile body."""
     from videotgb_torch.ops import kernels
 
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), **expected}
@@ -1546,7 +1535,8 @@ def counted(name, drive, expected) -> dict:
     log(f"  launches in {name}: {got} (expected {want})")
     if got != want:
         fail(f"launch counts of {name}: {got} != {want}")
-    check_bodies(name, got)
+    if bodies:
+        check_bodies(name, got)
     return got
 
 
@@ -4692,6 +4682,336 @@ def demo_paths(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------- the tools (phase 19)
+def run_counted(name, drive, expected, bodies=True):
+    """``counted`` that also returns what ``drive`` returned: (its result,
+    the launches). What it prints is logged indented (a tool's own JSON
+    lines must not look like this script's)."""
+    import contextlib
+    import io
+
+    printed, out = io.StringIO(), []
+
+    def quiet():
+        with contextlib.redirect_stdout(printed):
+            out.append(drive())
+
+    got = counted(name, quiet, expected, bodies)
+    for line in printed.getvalue().splitlines():
+        log(f"    | {line}")
+    return out[0], got
+
+
+def check_summary(name, s) -> None:
+    """A summariser's device total must be positive and not above the
+    synchronised wall of the run it traced."""
+    log(f"  {name} traced: device {s['device_total_ms']:.3f} ms of "
+        f"{s['wall_ms']:.3f} ms wall, {s['ops']} device operations; by "
+        "family " + ", ".join(f"{f} {g['ms']:.2f} ms ({g['n']})"
+                              for f, g in s["families"].items() if g["n"]))
+    if not 0 < s["device_total_ms"] <= s["wall_ms"]:
+        fail(f"{name}: device total {s['device_total_ms']} ms outside "
+             f"(0, wall {s['wall_ms']} ms]")
+
+
+def qformer_flash(card: str) -> dict:
+    """Kernel A at the Q-Former's shapes (the rule sends them to the plain
+    version on the model paths; the attention probe's variant c calls the
+    kernel there): 128 frames (traceprobe's batch 32 x 4) x 12 heads x 32
+    queries x 64, bf16, as the transposes of (frames, S, 768) projections;
+    self-attention over the 32 queries with the Q-Former's (F, 1, 1, 32)
+    padding bias, cross-attention over 264 ViT-g tokens without one.
+    Against the plain version, timed beside it and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from videotgb_torch.ops.attention import (dot_product_attention,
+                                              flash_attention,
+                                              make_padding_bias)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    frames, heads, d, q_len = 128, 12, 64, 32
+    rows = {}
+    for name, s_kv in (("self 32 x 32", 32), ("cross 32 x 264", 264)):
+        def proj(s):
+            x = torch.randn((frames, s, heads * d), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            return x.reshape(frames, s, heads, d).transpose(1, 2)
+
+        q, k, v = proj(q_len), proj(s_kv), proj(s_kv)
+        bias = (make_padding_bias(torch.ones((frames, s_kv), device=dev))
+                if s_kv == q_len else None)
+        with torch.no_grad():
+            got = flash_attention(q, k, v, bias)
+            want = dot_product_attention(q, k, v, bias)
+            err = check_close(
+                f"kernel A at the Q-Former's {name} ({frames}, {heads}, "
+                f"{q_len}, {s_kv}, {d})", got, want, 2e-2, 2e-2,
+                "bf16 output rounding (ulp 2^-8) plus a different f32 "
+                "summation order")
+            ms = graph_ms(lambda: flash_attention(q, k, v, bias))
+            plain = graph_ms(lambda: dot_product_attention(q, k, v, bias))
+            mask = None if bias is None else bias.to(q.dtype)
+            sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=d ** -0.5))
+        nbytes = 2 * (2 * frames * heads * q_len * d
+                      + 2 * frames * heads * s_kv * d)
+        if bias is not None:
+            nbytes += bias.numel() * 4
+        flops = 4 * frames * heads * q_len * s_kv * d
+        r = row("flash_fwd", "videotgb_torch/csrc/flash_fwd.cu", "", err, ms,
+                plain, nbytes, flops, library_ms=sdpa)
+        log(f"  kernel A at the Q-Former's {name}: {ms:.4f} ms a call "
+            f"(device time, CUDA graph), plain {plain:.4f}, SDPA {sdpa:.4f}, "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}, {nbytes / 1e6:.2f} "
+            f"MB, {flops / 1e9:.2f} GFLOP) on {card}")
+        rows[name] = r
+    return rows
+
+
+def tool_paths(card: str) -> dict:
+    """Phase 19: the slice's tools, each ``main`` run in the process at
+    flagship width (batches, layers and iterations cut to fit the time):
+    the native host library and ``clip_transform``; kernel A at the
+    Q-Former shapes; ``traceprobe`` (raft, vit, qformer, decode),
+    ``traintraceprobe`` (tg, ivt, sf), ``decodeprobe``, ``perfprobe``
+    (vit, raft, model, pipe), ``qformerattnprobe``, ``raftencprobe`` and
+    ``stemprobe``, each run's launches of A-D exactly as derived from the
+    code and every summariser's device total in (0, wall]; a 2-trial sweep
+    through ``run_sweep`` on the card; ``evalsuite.debug`` on a written
+    file. Returns the launches of the counted runs."""
+    import gc
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from videotgb_torch import train as T
+    from videotgb_torch.data import native, transforms
+    from videotgb_torch.data.constants import CLIP_MEAN, CLIP_STD
+    from videotgb_torch.evalsuite import debug
+    from videotgb_torch.models.videotgb import VideoTGBConfig
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.tools import (decodeprobe, perfprobe,
+                                      qformerattnprobe, raftencprobe,
+                                      stemprobe, traceprobe, traintraceprobe)
+    from videotgb_torch.utils import sweep
+
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    walls = {}
+
+    def tally(name, drive, expected, bodies=True):
+        t = time.perf_counter()
+        out, got = run_counted(name, drive, expected, bodies)
+        walls[name] = time.perf_counter() - t
+        for k, v in got.items():
+            totals[k] += v
+        return out
+
+    # ---- 19a: the native host library behind clip_transform
+    if not native.available():
+        fail("the native host library did not build on the card's machine")
+    rng = np.random.default_rng(0)
+    clip = rng.integers(0, 256, (32, 240, 320, 3), np.uint8)
+    host = {}
+    for name, flag in (("native", True), ("numpy", False)):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            out = transforms.clip_transform(clip, 224, use_native=flag)
+            times.append((time.perf_counter() - t) * 1e3)
+        host[name] = (out, statistics.median(times))
+    diff = float(np.abs(host["native"][0] - host["numpy"][0]).max())
+    log(f"  native library {native.library_path().name}; clip_transform of "
+        f"32 frames 240x320 -> 224: native {host['native'][1]:.2f} ms, numpy "
+        f"{host['numpy'][1]:.2f} ms (host, median of 3), max |diff| "
+        f"{diff:.3e} (tolerance 2e-2 in normalized pixels: the library's "
+        "bilinear weights against cv2's fixed-point ones, "
+        "tests/test_native.py)")
+    if not diff <= 2e-2:
+        fail(f"native and numpy clip_transform differ by {diff}")
+    if native.resize_normalize(clip[:1], 224, CLIP_MEAN, CLIP_STD).shape != \
+            (1, 224, 224, 3):
+        fail("native resize_normalize shape")
+
+    # ---- 19b: kernel A at the Q-Former shapes
+    qrows = qformer_flash(card)
+
+    # ---- 19c: the serving trace probe on the JAX tool's model
+    t = time.perf_counter()
+    model = traceprobe.serving_model(torch.device("cuda"))
+    torch.cuda.synchronize()
+    log(f"  traceprobe's model (bf16 parameters, tanh GELU, RAFT bf16) built "
+        f"in {time.perf_counter() - t:.2f} s")
+    cfg = model.config
+    vit_a = cfg.blip2.vit.num_layers
+    # the answer path mean-pools the Q-Former's queries over a clip's
+    # frames: the T5 encoder reads 32 visual + 24 question tokens
+    enc_len = cfg.blip2.qformer.num_query_tokens + traceprobe.TEXT_LEN
+    t5_a = cfg.blip2.t5.num_encoder_layers * flash_on(enc_len, enc_len)
+    iters = cfg.raft.iters
+    b_tr = 32
+    segments = {"raft": {"corr_lookup": 3 * iters},
+                "vit": {"flash_fwd": 3 * vit_a}, "qformer": {},
+                # the encoder state is computed once, before the calls
+                "decode": {"corr_lookup": iters, "select_frames": 1,
+                           "flash_fwd": vit_a + t5_a}}
+    summaries = {}
+    for seg, want in segments.items():
+        # decode at 4 new tokens: the Chrome trace of 16 steps (54,216
+        # device operations) takes ~30 s to write
+        s = tally(f"traceprobe {seg} (batch {b_tr})",
+                  lambda seg=seg: traceprobe.main(
+                      [seg, "--batch", str(b_tr), "--max_new", "4", "--top",
+                       "8"], model=model),
+                  want)
+        check_summary(f"traceprobe {seg}", s)
+        summaries[seg] = s
+
+    # ---- 19d: perfprobe on the same model (pipe), then its other probes
+    it, b_pipe = 2, 4
+    pipe_want = {"corr_lookup": 2 * iters * (1 + it) + iters,
+                 "select_frames": 2 * (1 + it) + 1,
+                 "flash_fwd": (vit_a + 2 * (vit_a + t5_a)) * (1 + it)
+                 + vit_a + t5_a}
+    tally(f"perfprobe pipe (batch {b_pipe})", lambda: perfprobe.main(
+        ["pipe", "--batch", str(b_pipe), "--iters", str(it)], model=model),
+        pipe_want)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = 4
+    vit_rows = tally(f"perfprobe vit (batch 32, {layers} layers)",
+                     lambda: perfprobe.main(["vit", "--batch", "32",
+                                             "--layers", str(layers),
+                                             "--iters", str(it)]),
+                     {"flash_fwd": 3 * (1 + it) * layers + 3})
+    for r in vit_rows[1:4]:
+        # one bf16 layer on activations of size ~1: products and attention
+        # rounded in another order
+        if not r["max_abs_vs_a"] <= 2 ** -4:
+            fail(f"perfprobe {r['probe']} differs from A by "
+                 f"{r['max_abs_vs_a']}")
+    tally("perfprobe raft (8 pairs, f32)", lambda: perfprobe.main(
+        ["raft", "--pairs", "8", "--iters", str(it)]),
+        {"corr_lookup": iters * (1 + it)}, bodies=False)
+    tally("perfprobe model (batch 8)", lambda: perfprobe.main(
+        ["model", "--batch", "8", "--iters", str(it)]),
+        {"flash_fwd": vit_a * (1 + it)})
+
+    # ---- 19e: the Q-Former attention probe, kernel A below the rule
+    f_q, l_q = 128, 4
+    out = tally(f"qformerattnprobe ({f_q} frames, {l_q} layers)",
+                lambda: qformerattnprobe.main(
+                    ["--frames", str(f_q), "--layers", str(l_q), "--iters",
+                     str(it)]),
+                {"flash_fwd": 3 * ((1 + it) * l_q + 1)})
+    for key, r in out.items():
+        # c is kernel A; b sums the same f32 scores by einsum
+        if not r["max_abs_vs_a"] <= 2 ** -4:
+            fail(f"qformerattnprobe {key}: {r['max_abs_vs_a']} from a")
+
+    # ---- 19f: RAFT's encoder and stem (cuDNN, no kernel)
+    enc = tally("raftencprobe (fnet 64, cnet 32)", lambda: raftencprobe.main(
+        ["--fnet", "64", "--cnet", "32", "--iters", str(it)]), {})
+    stem = tally("stemprobe (batch 64)", lambda: stemprobe.main(
+        ["--batch", "64", "--iters", str(it)]), {})
+    # bf16 outputs of size ~1 (ulp 2^-8) from sums of 147 products in
+    # another order; instance norm: two f32 variance formulas
+    checks = {"raftencprobe stem_s2d": enc["stem_s2d_maxdiff"],
+              "raftencprobe inorm": enc["inorm_maxdiff"],
+              **{f"stemprobe {k}": v["max_abs_err"] for k, v in stem.items()}}
+    log("  exactness between variants: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in checks.items()) + " (tolerance 2^-4)")
+    bad = {k: v for k, v in checks.items() if not v <= 2 ** -4}
+    if bad:
+        fail(f"probe variants disagree: {bad}")
+
+    # ---- 19g: the host decode probe
+    tally("decodeprobe (3 clips)", lambda: decodeprobe.main(
+        ["--clips", "3"]), {})
+
+    # ---- 19h: the training trace probe: tg and ivt on one flagship model
+    t = time.perf_counter()
+    tmodel = T.build_model({"preset": "flagship", "lora_rank": 8},
+                           device=torch.device("cuda"))[0]
+    torch.cuda.synchronize()
+    log(f"  traintraceprobe's flagship (f32 parameters, LoRA rank 8) built "
+        f"in {time.perf_counter() - t:.2f} s")
+    steps = 4  # one warm, two traced, one timed
+    # ivt at one micro-batch of 4 a step: the trace of two steps of 2
+    # micro-batches (57,737 device operations) takes ~30 s to write
+    train_runs = {
+        "tg": ({"batch": 32, "flow_len": 64}, {}),
+        "ivt": ({"micro": 4, "accum": 1}, {"flash_fwd": steps * vit_a})}
+    for mode, (kw, want) in train_runs.items():
+        r = tally(f"traintraceprobe {mode} {kw}", lambda mode=mode, kw=kw:
+                  traintraceprobe.main([mode, "--top", "8"], model=tmodel,
+                                       **kw), want)
+        check_summary(f"traintraceprobe {mode}", r)
+        if r["state_step"] != steps or not math.isfinite(r["loss"]):
+            fail(f"traintraceprobe {mode}: step {r['state_step']}, loss "
+                 f"{r['loss']}")
+        summaries[mode] = r
+    del tmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    sf_step = expected_launches(VideoTGBConfig.small(), "sf", 24, 16)
+    r = tally("traintraceprobe sf (small, batch 8)", lambda: traintraceprobe.main(
+        ["sf", "--top", "8"]), {k: steps * v for k, v in sf_step.items()})
+    check_summary("traintraceprobe sf", r)
+    if r["state_step"] != steps or not math.isfinite(r["loss"]):
+        fail(f"traintraceprobe sf: step {r['state_step']}, loss {r['loss']}")
+    summaries["sf"] = r
+
+    # ---- 19i: a 2-trial sweep through run_sweep on the card
+    root = os.path.join(HERE, "build", "phase19")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        result = tally("sweep (2 trials of smoke_tg_synthetic)",
+                       lambda: sweep.run_sweep(
+                           ["experiment=smoke_tg_synthetic",
+                            f"paths.root_dir={root}/run"],
+                           {"model.optimizer.lr": sweep.parse_space(
+                               "choice(1e-4,2e-4)")},
+                           trials=2, metric="val/iou_score", mode="max",
+                           sampler="random"), {})
+    finally:
+        os.chdir(cwd)
+    if len(result["history"]) != 2 or any("error" in h
+                                          for h in result["history"]):
+        fail(f"sweep trials failed: {result['history']}")
+    multi = os.path.join(root, "run", "logs", "train", "multiruns")
+    sweeps = os.listdir(multi)
+    subdirs = sorted(os.listdir(os.path.join(multi, sweeps[0])))
+    if len(sweeps) != 1 or subdirs != ["0", "1"]:
+        fail(f"sweep layout: {sweeps} / {subdirs}")
+    log(f"  sweep: best {result['best']}, history {result['history']}, "
+        f"trials in {sweeps[0]}/{{0,1}}")
+
+    # ---- 19j: the judge statistics from a written file
+    combined = os.path.join(root, "combined.json")
+    with open(combined, "w") as f:
+        json.dump({"1": [{"pred": "yes", "score": 4}, {}],
+                   "2": [{"pred": "no", "score": 2}, {}],
+                   "3": [{"pred": "maybe", "score": 3}, {}]}, f)
+    stats = debug.main(["--combined", combined])
+    if stats != {"yes_count": 1, "no_count": 1, "accuracy": 0.5,
+                 "average_score": 3.0, "count": 3}:
+        fail(f"evalsuite.debug: {stats}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    log("  phase 19 walls (s): " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in walls.items()))
+    log(f"  phase 19 launches of the counted runs: {totals}")
+    return {"launches": totals, "qformer_rows": qrows}
+
+
 def main() -> None:
     try:
         import torch
@@ -4815,12 +5135,20 @@ def main() -> None:
     demo = demo_paths(card)
     for kern in (flash, flash_bwd, lookup, select):
         kern["launches"] += demo.get(kern["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    log("phase 19: the trace and probe tools, the native host library, a "
+        "sweep and the judge statistics")
+    tools = tool_paths(card)
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += tools["launches"].get(kern["name"], 0)
     done = time.perf_counter()
-    log(f"phases 1-18 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-19 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
         f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
         f"{t17 - t16:.1f} s, phase 17 in {t18 - t17:.1f} s, phase 18 in "
-        f"{done - t18:.1f} s")
+        f"{t19 - t18:.1f} s, phase 19 in {done - t19:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

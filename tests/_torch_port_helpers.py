@@ -100,22 +100,30 @@ def random_tree(shapes, seed=0):
     return unflatten_dict(out)
 
 
+_PARAM_SHAPES: dict = {}
+
+
 def jax_params(jmodel, jcfg, seed=0):
     """numpy weights from ``seed`` for the JAX VideoTGB ``jmodel``, as the
     ``{"params": ...}`` tree of jnp arrays (shapes from ``jax.eval_shape``
-    of its ``init_pipeline``: nothing is compiled)."""
-    fs = jcfg.tgb.flow_size
-    img = image_size(jcfg)
-    x = make_inputs(jcfg, seed)
-    args = (jnp.zeros((1, jcfg.num_frames, img, img, 3)),
-            jnp.zeros((1, L_FLOW, fs, fs, 2)),
-            *(jnp.asarray(x[k][:1]) for k in (
-                "flow_mask", "video_length", "sampler_question_ids",
-                "sampler_question_mask", "question_ids", "question_mask")))
-    shapes = jax.eval_shape(
-        lambda k: jmodel.init(k, *args, k, method=jmodel.init_pipeline),
-        jax.random.key(0))
-    tree = random_tree(nn.meta.unbox(shapes)["params"], seed)
+    of its ``init_pipeline``: nothing is compiled). The shapes, a function
+    of the config alone, are traced once per config; the arrays are new on
+    every call (a JAX trainer may donate them)."""
+    if jcfg not in _PARAM_SHAPES:
+        fs = jcfg.tgb.flow_size
+        img = image_size(jcfg)
+        x = make_inputs(jcfg, 0)
+        args = (jnp.zeros((1, jcfg.num_frames, img, img, 3)),
+                jnp.zeros((1, L_FLOW, fs, fs, 2)),
+                *(jnp.asarray(x[k][:1]) for k in (
+                    "flow_mask", "video_length", "sampler_question_ids",
+                    "sampler_question_mask", "question_ids",
+                    "question_mask")))
+        shapes = jax.eval_shape(
+            lambda k: jmodel.init(k, *args, k, method=jmodel.init_pipeline),
+            jax.random.key(0))
+        _PARAM_SHAPES[jcfg] = nn.meta.unbox(shapes)["params"]
+    tree = random_tree(_PARAM_SHAPES[jcfg], seed)
     return {"params": jax.tree.map(jnp.asarray, tree)}
 
 
@@ -175,6 +183,22 @@ def few_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def cheap_jax_compiles():
+    """A port test runs each JAX reference program once or a few times, so
+    compiling it costs more than running it: XLA's cheapest CPU level
+    (``jax_disable_most_optimizations``: LLVM at level 0 without its
+    expensive passes, as ``CHEAP_COMPILE``) compiles the tiny programs in
+    about a third less time, inside the JAX package's own jits too. Set
+    for the module's tests and restored after them."""
+    from jax._src import compiler
+
+    before = compiler._DISABLE_MOST_OPTIMIZATIONS.value
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
 
 
 def jax_load_model_seeded(args, with_specs=False):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import Pair, few_torch_threads  # noqa: F401
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch.models import videotgb as TV
 from videotgb_torch.ops import decode as TD
 from videotgb_tpu.models import videotgb as JV

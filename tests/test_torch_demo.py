@@ -35,6 +35,7 @@ from _torch_port_helpers import (  # noqa: F401
     gumbel_like,
     jax_load_model_seeded,
 )
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch.convert import load_flax_params
 from videotgb_torch.demo import app as TA
 from videotgb_torch.models import videotgb as TV

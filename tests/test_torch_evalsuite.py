@@ -7,9 +7,8 @@ modes; the CLI helpers and the offline judge give the same values.
 Both packages serve the tiny f32 preset with the same numpy weights from a
 seed (``_torch_port_helpers.jax_load_model_seeded`` on the JAX side,
 carried across with ``videotgb_torch.convert``), the JAX selection's Gumbel
-draws are handed to the port for each batch, and the JAX package's
-``clip_transform`` takes its numpy path (its C++ host library is not
-ported)."""
+draws are handed to the port for each batch, and both packages'
+``clip_transform`` take their default path, the C++ host library."""
 
 import json
 import os
@@ -27,6 +26,7 @@ from _torch_port_helpers import (  # noqa: F401
     gumbel_like,
     jax_load_model_seeded,
 )
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch.convert import load_flax_params
 from videotgb_torch.data import tokenizer as TT
 from videotgb_torch.device import step_generator
@@ -98,11 +98,8 @@ def test_run_inference_instructblip_matches_jax(qa_assets, tmp_path,
 
 def _cli_matches_jax(qa_assets, tmp_path, monkeypatch, mode, backbone):
     """Both CLIs on the fixture's videos: the same JSONL rows."""
-    from videotgb_tpu.data import native
-
     f32_tiny_presets(monkeypatch)
     monkeypatch.setattr(JI, "load_model", jax_load_model_seeded)
-    monkeypatch.setattr(native, "available", lambda: False)
     flags = ["--batch_size", "2", "--flow_frames", "3", "--max_new_tokens",
              "4", "--do_sample", "0", "--bf16_params", "0", "--flow_mode",
              mode, "--backbone", backbone]
@@ -197,7 +194,7 @@ def test_load_model_honours_flags_and_refuses_what_is_not_ported(tmp_path):
         want = model.state_dict()
         assert all(torch.equal(v, want[k])
                    for k, v in restored.state_dict().items())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         TI.run_inference(SimpleNamespace(mesh="dp=2"))
 
 

@@ -496,6 +496,44 @@ def test_flash_kernel_mma_body_at_the_vicuna_prefill_shape(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s_kv", [32, 264])
+def test_flash_kernel_mma_body_at_the_qformer_shapes(cuda, s_kv):
+    """Kernel A below the flash rule, as ``tools/qformerattnprobe.py``'s
+    variant c launches it: 32 queries of 12 heads x 64 over the 32 queries
+    (with the Q-Former's (F, 1, 1, 32) padding bias) or 264 ViT-g tokens,
+    the (B, H, S, D) transposes of (B, S, 768) projections; one partly
+    filled 64-row query tile per head."""
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    frames, h, sq, d = 16, 12, 32, 64
+
+    def proj(s):
+        x = torch.randn((frames, s, h * d), generator=gen, device=cuda)
+        return x.to(torch.bfloat16).reshape(frames, s, h, d).transpose(1, 2)
+
+    q, k, v = proj(sq), proj(s_kv), proj(s_kv)
+    bias = (make_padding_bias(torch.ones((frames, s_kv), device=cuda))
+            if s_kv == sq else None)
+    got = _launch_a(q, k, v, bias, "mma")
+    _close(got, dot_product_attention(q, k, v, bias), TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_native_clip_transform_on_the_cards_machine(cuda):
+    """The C++ host library builds on the card's machine, and
+    ``clip_transform``'s native path agrees with its numpy path within
+    2e-2 (bilinear weights against cv2's fixed-point ones)."""
+    from videotgb_torch.data import native, transforms
+
+    assert native.available()
+    frames = np.random.default_rng(0).integers(0, 256, (4, 120, 160, 3),
+                                               np.uint8)
+    got = transforms.clip_transform(frames, 224)
+    want = transforms.clip_transform(frames, 224, use_native=False)
+    assert got.shape == (4, 224, 224, 3) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=2e-2)
+
+
+@pytest.mark.gpu
 def test_vicuna_phases_launch_counts_at_small_width(cuda):
     """The Vicuna path at ``small`` width in bf16: the select phase in
     "multi_modal" / "ratio" launches B per refine and D once; the answer

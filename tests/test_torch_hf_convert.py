@@ -24,6 +24,7 @@ from _torch_port_helpers import (  # noqa: F401
     few_torch_threads,
     jax_params,
 )
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch.convert import (
     flat_to_state_dict,
     flax_to_state_dict,

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import Pair, close, few_torch_threads, t  # noqa: F401
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch import convert
 from videotgb_torch.models import raft as TRAFT
 from videotgb_torch.models import t5 as TT5

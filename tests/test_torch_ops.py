@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import few_torch_threads  # noqa: F401
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 import videotgb_tpu.ops.attention as JA
 from videotgb_tpu.ops import correlation as JC
 from videotgb_tpu.ops import correlation_pallas as JCP

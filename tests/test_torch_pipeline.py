@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import Pair, close, few_torch_threads, t  # noqa: F401
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch import resolve_device
 from videotgb_torch.models import videotgb as TV
 from videotgb_torch.ops.decode import DecodeConfig as TDecode
@@ -131,8 +132,13 @@ def test_port_imports_no_jax_and_runs_tiny_path():
         import videotgb_torch
         from videotgb_torch import convert, serve
         from videotgb_torch.data import tokenizer, transforms, video_io
-        from videotgb_torch.evalsuite import evaluate, inference
+        from videotgb_torch.data import native
+        from videotgb_torch.evalsuite import debug, evaluate, inference
         from videotgb_torch.models import videotgb as V
+        from videotgb_torch.tools import (
+            build_llama_tokenizer, decodeprobe, perfprobe, qformerattnprobe,
+            raftencprobe, stemprobe, traceprobe, traintraceprobe)
+        from videotgb_torch.utils import profiling, sweep, task
         from videotgb_torch.ops.decode import DecodeConfig
         cfg = V.VideoTGBConfig.tiny()
         model = V.VideoTGB(cfg, device="cpu", seed=0)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch.tools import attnlayoutprobe, lnprobe, lookupprobe
 from videotgb_tpu.models.common import LayerNorm
 from videotgb_tpu.ops.attention import flash_attention

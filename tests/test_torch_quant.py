@@ -35,6 +35,7 @@ import torch
 from flax import linen as nn
 
 from _torch_port_helpers import few_torch_threads, random_tree  # noqa: F401
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch.convert import load_flax_params
 from videotgb_torch.models.common import Dense, init_params
 from videotgb_torch.models.vit import ViTConfig as TViTConfig

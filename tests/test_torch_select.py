@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch.models import videotgb as TV
 from videotgb_torch.ops import kernels
 from videotgb_torch.ops import select_pallas as S

@@ -32,6 +32,7 @@ from _torch_port_helpers import (  # noqa: F401
     gumbel_like,
     jax_load_model_seeded,
 )
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch import serve as TS
 from videotgb_torch.convert import load_flax_params
 from videotgb_torch.device import step_generator
@@ -410,10 +411,16 @@ def test_bf16_raft_matches_the_jax_load_model(tmp_path):
     np.testing.assert_array_equal(tcand.numpy(), np.asarray(jcand))
 
 
+# The ids are historical: they keep the names these cases had when ROADMAP.md
+# numbered the parallel layouts queue 1 item 5. The match strings carry
+# today's number.
 @pytest.mark.parametrize("kw, match", [
-    (dict(mesh="dp=2,tp=2"), "queue 1 item 5"),
-    (dict(mesh="dp=2,tp=2", backbone="instructblip"), "queue 1 item 5"),
-    (dict(mesh="dp=2,tp=2", backbone="instructblip_t5"), "queue 1 item 5"),
+    pytest.param(dict(mesh="dp=2,tp=2"), "queue 1 item 4",
+                 id="kw0-queue 1 item 5"),
+    pytest.param(dict(mesh="dp=2,tp=2", backbone="instructblip"),
+                 "queue 1 item 4", id="kw1-queue 1 item 5"),
+    pytest.param(dict(mesh="dp=2,tp=2", backbone="instructblip_t5"),
+                 "queue 1 item 4", id="kw2-queue 1 item 5"),
 ])
 def test_what_the_port_lacks_raises(kw, match, tmp_path):
     """The mesh engine raises; a checkpoint directory of

@@ -25,6 +25,7 @@ import torch
 from _torch_port_helpers import (  # noqa: F401
     B, L_FLOW, TOL, Pair, close, few_torch_threads, grads_against_jax,
     run_once, t)
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch import train as TT
 from videotgb_torch.convert import flax_to_state_dict
 from videotgb_torch.data.datasets import pack_text_input_output

@@ -26,6 +26,7 @@ import torch
 from _torch_port_helpers import (  # noqa: F401
     B, Pair, close, few_torch_threads, grads_against_jax, image_size,
     random_tree, run_once, t, write_stage3_media)
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch.convert import _map_path, load_flax_params
 from videotgb_torch.data import conversation as TC
 from videotgb_torch.data import datasets as TD
@@ -219,15 +220,11 @@ def test_stage3_filters_train_what_jax_trains(pairs, backbone, lora):
 
 
 # ---------------------------------------------------- data and collate
-def test_iv_dataset_and_collate_match_jax(tmp_path, monkeypatch):
+def test_iv_dataset_and_collate_match_jax(tmp_path):
     """Image (width 1), video cropped to the span of pseudo_label.json and
     to its own ``pseudo_label`` (width nframe), text-only rows (width 0):
     the same frames, strings and widths; then ``collate_iv`` with and
     without the Q-Former's tokenizer, every array equal."""
-    from videotgb_tpu.data import native
-
-    # the port has no native host library: the JAX numpy path
-    monkeypatch.setattr(native, "available", lambda: False)
     write_stage3_media(tmp_path)
     kw = dict(nframe=3, image_size=32, include_text_only=True,
               text_only_path=str(tmp_path / "nlp_tune.json"),

@@ -26,6 +26,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec
 
 from _torch_port_helpers import TOL, Pair, close, few_torch_threads  # noqa: F401
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch import evaluate as TE
 from videotgb_torch import train as TT
 from videotgb_torch.config import compose
@@ -82,13 +83,10 @@ def test_synthetic_items_and_collate_equal_jax(seed):
                                  j_tokenizer("byte"), **kw))
 
 
-def test_videoinstruct_dataset_reads_the_files_as_jax(tmp_path, monkeypatch):
-    """The JAX dataset on its numpy transform path: the C++ host library of
-    ``clip_transform`` is not ported (ROADMAP.md queue 1 item 6)."""
+def test_videoinstruct_dataset_reads_the_files_as_jax(tmp_path):
+    """Both datasets on their default transform path: ``clip_transform``'s
+    C++ host library in each package."""
     cv2 = pytest.importorskip("cv2")
-    from videotgb_tpu.data import native
-
-    monkeypatch.setattr(native, "available", lambda: False)
     rng = np.random.default_rng(0)
     for d in ("text", "video", "flow"):
         (tmp_path / d).mkdir()
@@ -734,12 +732,12 @@ def test_without_trainer_cpu_the_cli_wants_the_card(tmp_path):
 # match strings carry today's numbers.
 @pytest.mark.parametrize("overrides,match", [
     pytest.param(["experiment=smoke_tg_synthetic", "trainer.tp=2"],
-                 "queue 1 item 5", id="overrides5-queue 1 item 7"),
+                 "queue 1 item 4", id="overrides5-queue 1 item 7"),
     pytest.param(["experiment=smoke_tg_synthetic", "trainer=ddp_sim"],
-                 "queue 1 item 5", id="overrides6-queue 1 item 7"),
+                 "queue 1 item 4", id="overrides6-queue 1 item 7"),
     pytest.param(["experiment=smoke_tg_synthetic",
                   "+trainer.steps_per_dispatch=2"],
-                 "queue 1 item 3", id="overrides7-queue 1 item 2"),
+                 "queue 1 item 2", id="overrides7-queue 1 item 2"),
 ])
 def test_unported_recipes_layouts_and_options_raise(tmp_path, overrides,
                                                     match):

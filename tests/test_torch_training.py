@@ -21,6 +21,7 @@ import torch
 from flax.traverse_util import flatten_dict
 
 from _torch_port_helpers import B, L_FLOW, TOL, Pair, close, few_torch_threads, t  # noqa: F401
+from _torch_port_helpers import cheap_jax_compiles  # noqa: F401
 from videotgb_torch import train as TT
 from videotgb_torch.convert import _map_path, flax_to_state_dict, load_flax_params
 from videotgb_torch.models import blip2 as TB
@@ -229,8 +230,27 @@ def test_recipe_loss_and_gradients_match_jax(pair, case):
     assert moved > 0
 
 
+@pytest.fixture(scope="module")
+def optax_chain(pair):
+    """The JAX package's optax chain for both cases of
+    ``test_two_optimizer_steps_match_optax`` (lr 1e-3, weight decay 0.01,
+    10 steps, the E2E freeze): the chain, its initial state and its jitted
+    update, built and compiled once."""
+    jrecipe = RECIPE_CASES["e2e_uniform"][0]
+    params = pair.params["params"]
+    schedule = JO.cosine_warmup_schedule(1e-3, 10)
+    tx, _ = JO.make_optimizer(params, schedule, 0.01, jrecipe.filter_fn, 1.0)
+
+    @jax.jit
+    def apply(grads, opt_state, params):
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    return jax.jit(tx.init)(params), apply
+
+
 @pytest.mark.parametrize("accum", [1, 2])
-def test_two_optimizer_steps_match_optax(pair, accum):
+def test_two_optimizer_steps_match_optax(pair, optax_chain, accum):
     """Two Trainer steps (E2E, uniform selection) against the optax chain of
     the JAX package applied to the JAX gradients. Step 0 of the warmup has
     lr 0; step 1 has the peak lr 1e-3. Tolerance: the gradients agree to
@@ -245,16 +265,9 @@ def test_two_optimizer_steps_match_optax(pair, accum):
     jrecipe, trecipe = RECIPE_CASES[case]
     micro = [make_batch(pair, 20 + i) for i in range(accum)]
     lr, wd, steps = 1e-3, 0.01, 10
-    schedule = JO.cosine_warmup_schedule(lr, steps)
     params = pair.params["params"]
-    tx, _ = JO.make_optimizer(params, schedule, wd, jrecipe.filter_fn, 1.0)
-    opt_state = jax.jit(tx.init)(params)
+    opt_state, apply = optax_chain
     grad_fn = jax_value_and_grad(pair, case)
-
-    @jax.jit
-    def apply(grads, opt_state, params):
-        updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), opt_state
 
     for _ in range(2):
         grads = [grad_fn(params, to_jax(mb))[1] for mb in micro]

@@ -1,10 +1,11 @@
 """Host-side video/image transforms with CLIP normalization (the port's
-copy of the numpy path of ``videotgb_tpu/data/transforms.py``, same arrays).
+copy of ``videotgb_tpu/data/transforms.py``, same arrays).
 
 Functional numpy equivalents of the reference's LAVIS-derived transform
 stack: resize -> (optional crop) -> to float [0,1] -> normalize by CLIP
 stats. Layout is (T, H, W, C) throughout. ``cv2`` is imported inside the
-resizes only.
+resizes only. ``clip_transform`` hands uint8 frames to the C++ library of
+``data.native`` when it built, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -51,11 +52,18 @@ def normalize_video(
     return (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
 
 
-def clip_transform(frames: np.ndarray, size: int = 224) -> np.ndarray:
+def clip_transform(frames: np.ndarray, size: int = 224,
+                   use_native: bool = True) -> np.ndarray:
     """The standard eval-time pipeline: resize to (size, size) + normalize
     (the reference's ResizeVideo((224,224)) + ToTensor + Normalize chain).
-    The numpy path of the JAX package's ``clip_transform(use_native=False)``;
-    its C++ host library is not ported."""
+    Delegates uint8 input to the multithreaded C++ library
+    (``data.native``) when it built, as the JAX package does; the numpy
+    path differs from it by up to 2e-2 in normalized pixels."""
+    if use_native and frames.dtype == np.uint8:
+        from videotgb_torch.data import native
+
+        if native.available():
+            return native.resize_normalize(frames, size, CLIP_MEAN, CLIP_STD)
     frames = resize_video(frames, (size, size))
     return normalize_video(frames)
 

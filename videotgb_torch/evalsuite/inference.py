@@ -329,7 +329,7 @@ def run_inference(args) -> str:
     if args.mesh:
         raise NotImplementedError(
             "mesh-sharded inference is not ported: ROADMAP.md queue 1 "
-            "item 5")
+            "item 4")
     model, cfg = load_model(args, device=args.device)
     tok = load_tokenizer(args.model_base)
     sampler_tok = load_tokenizer(args.sampler_base)

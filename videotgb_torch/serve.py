@@ -119,7 +119,7 @@ class ServingEngine:
         if mesh:
             raise NotImplementedError(
                 f"mesh-sharded serving ({mesh!r}) is not ported: ROADMAP.md "
-                "queue 1 item 5")
+                "queue 1 item 4")
         self.model, self.cfg = load_model(SimpleNamespace(
             model_path=model_path, preset=preset, backbone=backbone,
             bf16_params=bf16_params), device=device)

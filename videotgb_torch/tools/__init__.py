@@ -1,6 +1,6 @@
-"""Probe tools of the port: each runs one hand-written kernel beside the
-variants it was written to be compared with, at the shapes of the JAX
-package's probe of the same name (``tools/*.py``), and prints its lines.
+"""Probe and trace tools of the port: each is the counterpart of the JAX
+package's tool of the same name (``tools/*.py``), at its shapes and flags,
+and prints its lines.
 
     python -m videotgb_torch.tools.lookupprobe       # kernel E
     python -m videotgb_torch.tools.lnprobe           # kernel F
@@ -8,9 +8,20 @@ package's probe of the same name (``tools/*.py``), and prints its lines.
     python -m videotgb_torch.tools.int8pallas_probe  # kernel H, 8192^3
     python -m videotgb_torch.tools.int8sweep         # kernel H at ViT-g shapes
     python -m videotgb_torch.tools.int8probe         # ViT-g, bf16 vs W8A8
+    python -m videotgb_torch.tools.traceprobe        # a serving segment traced
+    python -m videotgb_torch.tools.traintraceprobe   # a training step traced
+    python -m videotgb_torch.tools.perfprobe         # ViT layouts, segments
+    python -m videotgb_torch.tools.qformerattnprobe  # Q-Former attention, A
+    python -m videotgb_torch.tools.raftencprobe      # RAFT encoder stages
+    python -m videotgb_torch.tools.stemprobe         # RAFT stem variants
+    python -m videotgb_torch.tools.decodeprobe       # host video decode
+    python -m videotgb_torch.tools.convert_checkpoint     # released weights
+    python -m videotgb_torch.tools.build_llama_tokenizer  # the LLaMA asset
 
 They run on the CUDA device unless given ``--device cpu``, which runs the
-plain versions of the kernels on the CPU (use small shapes there).
+plain versions of the kernels on the CPU (use small shapes there);
+``decodeprobe``, ``convert_checkpoint`` and ``build_llama_tokenizer`` run
+on the host only.
 """
 
 import statistics

@@ -113,7 +113,7 @@ def run_device(cfg: Config) -> torch.device:
         raise NotImplementedError(
             f"parallel layout {layout} on {tcfg.get('devices', 1)} devices: "
             "the port trains on one device; data, FSDP, tensor, pipeline and "
-            "sequence parallelism are ROADMAP.md queue 1 item 5")
+            "sequence parallelism are ROADMAP.md queue 1 item 4")
     platform = tcfg.get("platform")
     if platform in (None, "cuda", "gpu"):
         if not torch.cuda.is_available():

@@ -11,7 +11,7 @@ syncs until a compute is read on the host.
               (reference: LSTP_SF_blip2_module.py:107-119)
 
 The cross-process reduction of the states (``all_reduce_state``) comes with
-the parallel layouts (ROADMAP.md queue 1 item 5).
+the parallel layouts (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -39,7 +39,7 @@ class TrainerConfig:
     accumulate_grad_batches: int = 1
     max_grad_norm: float | None = 1.0
     # K train steps per dispatch is the JAX trainer's lax.scan window; its
-    # counterpart here is a CUDA-graphed step (ROADMAP.md queue 1 item 3)
+    # counterpart here is a CUDA-graphed step (ROADMAP.md queue 1 item 2)
     steps_per_dispatch: int = 1
     log_every: int = 50
     eval_every: int = 500
@@ -95,7 +95,7 @@ class Trainer:
         if config.steps_per_dispatch > 1:
             raise NotImplementedError(
                 "steps_per_dispatch > 1 (several steps per dispatch) is the "
-                "CUDA-graphed train step of ROADMAP.md queue 1 item 3, not "
+                "CUDA-graphed train step of ROADMAP.md queue 1 item 2, not "
                 "ported yet")
         self.config = config
         self.loss_fn = loss_fn

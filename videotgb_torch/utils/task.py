@@ -1,20 +1,54 @@
-"""Run-directory, extras and metric glue of the entry points (the port's
-copy of ``videotgb_tpu/utils/task.py`` without ``task_wrapper``, which no
-entry point calls).
+"""Task wrapping, run-directory, extras and metric glue of the entry points
+(the port's copy of ``videotgb_tpu/utils/task.py``).
 
 Ports the reference's hydra-run utilities (reference: src/utils/utils.py):
-``get_metric_value`` (:96-119 — pull the optimized metric for a sweep),
-the hydra run directory and ``extras()``.
+``task_wrapper`` (:43-93 — log the exception into the run dir, always close
+loggers so multiruns survive a crashed trial), ``get_metric_value``
+(:96-119 — pull the optimized metric for a sweep), the hydra run directory
+(single runs and multirun trials) and ``extras()``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Mapping
+import traceback
+from typing import Any, Callable, Mapping
 
 from videotgb_torch.utils.logging import get_logger
 
 log = get_logger("videotgb_torch.task")
+
+
+def task_wrapper(task_fn: Callable) -> Callable:
+    """Wrap an entry function: exceptions are written to
+    ``<output_dir>/error.log`` and re-raised; the closers registered on
+    ``wrapped._closers`` (writers and the like) run either way, and a
+    closer's own failure is logged."""
+
+    @functools.wraps(task_fn)
+    def wrapped(cfg, *args: Any, **kwargs: Any):
+        paths = cfg.get("paths") if hasattr(cfg, "get") else None
+        out_dir = paths.get("output_dir") if paths else None
+        try:
+            return task_fn(cfg, *args, **kwargs)
+        except Exception:
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+                with open(os.path.join(out_dir, "error.log"), "a") as f:
+                    f.write(traceback.format_exc())
+                log.error("task failed; traceback saved to %s/error.log",
+                          out_dir)
+            raise
+        finally:
+            for closer in getattr(wrapped, "_closers", []):
+                try:
+                    closer()
+                except Exception as e:  # one closer must not stop the rest
+                    log.error("closer %r failed: %s", closer, e)
+
+    wrapped._closers = []
+    return wrapped
 
 
 def get_metric_value(metric_dict: Mapping[str, float],
@@ -49,7 +83,9 @@ def _rewrite_prefix(node, old: str, new: str) -> None:
 
 
 def setup_run_dir(cfg, job_name: str = "train",
-                  overrides: list[str] | None = None) -> str | None:
+                  overrides: list[str] | None = None,
+                  multirun_dir: str | None = None,
+                  job_num: int | None = None) -> str | None:
     """Hydra run-dir management analogue (reference
     configs/hydra/default.yaml:9-21): point ``paths.output_dir`` (and the
     derived ``paths.ckpt_dir``) at a fresh dated run directory from
@@ -61,6 +97,10 @@ def setup_run_dir(cfg, job_name: str = "train",
     (the user pinned the dir; nothing is redirected), mirroring hydra where
     a CLI override of the interpolated path wins. Returns the active output
     dir, or None when the ``hydra`` group is absent (hydra=null).
+
+    Multirun trials pass ``multirun_dir`` (the sweep dir, frozen across
+    trials) and ``job_num``: the trial lands in ``<sweep_dir>/<job_num>``
+    (reference ``sweep.subdir: ${hydra.job.num}``).
     """
     explicit = any(o.split("=", 1)[0].lstrip("+") == "paths.output_dir"
                    for o in (overrides or []))
@@ -69,7 +109,10 @@ def setup_run_dir(cfg, job_name: str = "train",
     if hydra_cfg is None or paths is None or explicit:
         return paths.get("output_dir") if paths else None
 
-    run_dir = hydra_cfg["run"]["dir"]
+    if multirun_dir is not None:
+        run_dir = os.path.join(multirun_dir, str(job_num or 0))
+    else:
+        run_dir = hydra_cfg["run"]["dir"]
     # de-collide runs launched within the same second (the template's finest
     # granularity): numeric suffix like hydra's job-id disambiguation
     base, n = run_dir, 1
