@@ -1427,6 +1427,46 @@ def train_steps(name, trainer, state, batch, expected, card,
     return totals
 
 
+def e2e_batch(cfg, dev, gen) -> dict:
+    """An E2E batch of 8: 32 candidate frames at 224^2, 32-token questions
+    (the second half padded by 8) and answers of 32 down to 4 tokens."""
+    import torch
+
+    b, text_len, ans_len, img = 8, 32, 32, cfg.blip2.vit.image_size
+    vocab = min(cfg.blip2.t5.vocab_size, 5000)
+    q_mask = torch.ones((b, text_len), device=dev)
+    q_mask[b // 2:, -8:] = 0
+    answers = torch.randint(100, vocab, (b, ans_len), generator=gen,
+                            device=dev)
+    a_len = torch.arange(ans_len, 0, -ans_len // b, device=dev)[:b, None]
+    answers = torch.where(torch.arange(ans_len, device=dev)[None] < a_len,
+                          answers, cfg.blip2.t5.pad_token_id)
+    return {"frames": torch.randn((b, cfg.num_frames, img, img, 3),
+                                  generator=gen, device=dev),
+            "question_ids": torch.randint(100, vocab, (b, text_len),
+                                          generator=gen, device=dev),
+            "question_mask": q_mask, "answer_ids": answers}
+
+
+def tg_batch(cfg, dev, gen) -> dict:
+    """A TG batch of 32: 64 flow frames at the TGB's flow size, 24-token
+    questions, spans inside the flow."""
+    import torch
+
+    b, flow_len, text_len, fs = 32, 64, 24, cfg.tgb.flow_size
+    starts = torch.randint(0, flow_len, (b,), generator=gen, device=dev)
+    ends = torch.clamp(starts + torch.randint(0, flow_len, (b,), generator=gen,
+                                              device=dev), max=flow_len - 1)
+    tgb_vocab = min(cfg.tgb.vocab_size, 5000)
+    return {"flow": torch.randn((b, flow_len, fs, fs, 2), generator=gen,
+                                device=dev),
+            "flow_mask": torch.ones((b, flow_len + 2), device=dev),
+            "sampler_question_ids": torch.randint(
+                100, tgb_vocab, (b, text_len), generator=gen, device=dev),
+            "sampler_question_mask": torch.ones((b, text_len), device=dev),
+            "starts": starts, "ends": ends}
+
+
 def train_paths(card: str) -> dict:
     import torch
 
@@ -1446,20 +1486,7 @@ def train_paths(card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
 
     # ---- E2E: batch 8, 32 candidate frames at 224^2, 32-token Q and A
-    b, text_len, ans_len, img = 8, 32, 32, cfg.blip2.vit.image_size
-    vocab = min(cfg.blip2.t5.vocab_size, 5000)
-    q_mask = torch.ones((b, text_len), device=dev)
-    q_mask[b // 2:, -8:] = 0
-    answers = torch.randint(100, vocab, (b, ans_len), generator=gen,
-                            device=dev)
-    a_len = torch.arange(ans_len, 0, -ans_len // b, device=dev)[:b, None]
-    answers = torch.where(torch.arange(ans_len, device=dev)[None] < a_len,
-                          answers, cfg.blip2.t5.pad_token_id)
-    batch = {"frames": torch.randn((b, cfg.num_frames, img, img, 3),
-                                   generator=gen, device=dev),
-             "question_ids": torch.randint(100, vocab, (b, text_len),
-                                           generator=gen, device=dev),
-             "question_mask": q_mask, "answer_ids": answers}
+    batch = e2e_batch(cfg, dev, gen)
     recipe = T.build_recipe({"recipe": "e2e", "tgb_mode": "multi_modal",
                              "selection": "uniform"})
     trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), recipe.loss_fn,
@@ -1498,18 +1525,7 @@ def train_paths(card: str) -> dict:
     torch.cuda.empty_cache()
 
     # ---- TG: batch 32, 64 flow frames at 224^2, 24-token questions
-    b, flow_len, text_len, fs = 32, 64, 24, cfg.tgb.flow_size
-    starts = torch.randint(0, flow_len, (b,), generator=gen, device=dev)
-    ends = torch.clamp(starts + torch.randint(0, flow_len, (b,), generator=gen,
-                                              device=dev), max=flow_len - 1)
-    tgb_vocab = min(cfg.tgb.vocab_size, 5000)
-    batch = {"flow": torch.randn((b, flow_len, fs, fs, 2), generator=gen,
-                                 device=dev),
-             "flow_mask": torch.ones((b, flow_len + 2), device=dev),
-             "sampler_question_ids": torch.randint(
-                 100, tgb_vocab, (b, text_len), generator=gen, device=dev),
-             "sampler_question_mask": torch.ones((b, text_len), device=dev),
-             "starts": starts, "ends": ends}
+    batch = tg_batch(cfg, dev, gen)
     recipe = T.build_recipe({"recipe": "tg", "tgb_mode": "fusion"})
     trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), recipe.loss_fn,
                       recipe.filter_fn)
@@ -2319,6 +2335,36 @@ def check_int8_tools(card: str) -> int:
 
 
 # ------------------------------------------------ InstructBLIP-Vicuna path
+def vicuna_requests(cfg, dev, seed=14):
+    """4 Vicuna requests: frames (4, 32, 224, 224, 3) and flow frames (4, 5,
+    fs, fs, 3) uint8, and a batch of 64-token prompts right-padded from 40
+    to 64 real tokens, the Q-Former reading the sampler's question."""
+    import torch
+
+    b, n_flow, text_len, img = 4, 5, 64, cfg.vit.image_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames_u8 = torch.randint(0, 256, (b, cfg.num_frames, img, img, 3),
+                              generator=gen, device=dev, dtype=torch.uint8)
+    fs = cfg.tgb.flow_size
+    flow_u8 = torch.randint(0, 256, (b, n_flow, fs, fs, 3), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    lengths = torch.tensor([64, 56, 48, 40], device=dev)
+    mask = (torch.arange(text_len, device=dev)[None]
+            < lengths[:, None]).float()
+    batch = {
+        "flow_mask": torch.ones((b, n_flow + 1), device=dev),
+        "video_length": torch.full((b,), n_flow - 1, device=dev),
+        "sampler_question_ids": torch.randint(100, 5000, (b, text_len),
+                                              generator=gen, device=dev),
+        "sampler_question_mask": mask,
+        "question_ids": torch.randint(100, 5000, (b, text_len),
+                                      generator=gen, device=dev),
+        "question_mask": mask}
+    batch["qformer_input_ids"] = batch["sampler_question_ids"]
+    batch["qformer_attention_mask"] = mask
+    return frames_u8, flow_u8, batch
+
+
 def vicuna_path(card: str) -> dict:
     """Phase 14: InstructBLIP-Vicuna-7B at flagship width, built on the card
     without a ``device`` (bf16 parameters, RAFT's convolutions in bf16 as in
@@ -2356,28 +2402,9 @@ def vicuna_path(card: str) -> dict:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, in "
         f"{time.perf_counter() - t0:.2f} s; random weights from seed 0")
 
-    b, n_flow, text_len, img = 4, 5, 64, vit.image_size
+    b, n_flow, img = 4, 5, vit.image_size
     max_new = 128
-    gen = torch.Generator(device=dev).manual_seed(14)
-    frames_u8 = torch.randint(0, 256, (b, cfg.num_frames, img, img, 3),
-                              generator=gen, device=dev, dtype=torch.uint8)
-    fs = cfg.tgb.flow_size
-    flow_u8 = torch.randint(0, 256, (b, n_flow, fs, fs, 3), generator=gen,
-                            device=dev, dtype=torch.uint8)
-    lengths = torch.tensor([64, 56, 48, 40], device=dev)
-    mask = (torch.arange(text_len, device=dev)[None]
-            < lengths[:, None]).float()
-    batch = {
-        "flow_mask": torch.ones((b, n_flow + 1), device=dev),
-        "video_length": torch.full((b,), n_flow - 1, device=dev),
-        "sampler_question_ids": torch.randint(100, 5000, (b, text_len),
-                                              generator=gen, device=dev),
-        "sampler_question_mask": mask,
-        "question_ids": torch.randint(100, 5000, (b, text_len),
-                                      generator=gen, device=dev),
-        "question_mask": mask}
-    batch["qformer_input_ids"] = batch["sampler_question_ids"]
-    batch["qformer_attention_mask"] = mask
+    frames_u8, flow_u8, batch = vicuna_requests(cfg, dev)
     dcfg = DecodeConfig(max_new_tokens=max_new,
                         eos_token_id=llm.eos_token_id,
                         pad_token_id=llm.pad_token_id)
@@ -2500,7 +2527,7 @@ def vicuna_path(card: str) -> dict:
                  f"flash_fwd in 2 calls, not {2 * prefill}")
         valid[:, s] = 1.0
         tok = tokens[:, :1]
-        step_pos = lengths[:, None] + 32
+        step_pos = batch["question_mask"].sum(1).long()[:, None] + 32
         part("LLaMA decode step (1 token, 225 slots)", lambda: model.llama_step(
             tokens=tok, positions=step_pos, caches=caches, cache_index=s,
             cache_positions_valid=valid), reps=16)
@@ -2837,6 +2864,7 @@ class CliProbe:
         self.pseudo, self.bwd, self.opt, self.row_faults = [], [], [], []
         self.snapshot = self.moving_snapshot = None
         self.peak = 0
+        self.step_peak = (0, 0)  # allocated, reserved
         self.waits_seen = 0
         self.keep_args = False
 
@@ -2889,11 +2917,21 @@ class CliProbe:
         def train_step(orig):
             def timed(trainer, state, batch):
                 before, mma = counts()
+                probe.peak = max(probe.peak, torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                probe.step_peak = (0, 0)
                 t = time.perf_counter()
                 state, metrics = orig(trainer, state, batch)
                 host = {k: float(v) for k, v in metrics.items()}
                 after, mma_after = counts()
                 end = time.perf_counter()
+                # the step's peak, allocated and reserved: the first step of
+                # a batch signature runs eagerly, the second captures its
+                # CUDA graph, whose pool stays reserved
+                alloc = max(torch.cuda.max_memory_allocated(),
+                            probe.step_peak[0])
+                reserved = max(torch.cuda.max_memory_reserved(),
+                               probe.step_peak[1])
                 # the loader batches of this step (several when it
                 # accumulates micro-batches)
                 mine = probe.waits[probe.waits_seen:] or [(t, t)]
@@ -2906,7 +2944,8 @@ class CliProbe:
                     "wall_ms": (end - mine[0][0]) * 1e3,
                     "widths": None if widths is None else widths.tolist(),
                     "launches": diff(after, before),
-                    "mma": diff(mma_after, mma)})
+                    "mma": diff(mma_after, mma),
+                    "peak_alloc": alloc, "peak_reserved": reserved})
                 return state, metrics
             return timed
 
@@ -3025,8 +3064,15 @@ class CliProbe:
 
         def opt_step(orig):
             def measured(optimizer, lr, max_grad_norm):
+                if torch.cuda.is_current_stream_capturing():
+                    # inside a step's CUDA-graph capture: nothing runs, and
+                    # a synchronisation would break the capture
+                    return orig(optimizer, lr, max_grad_norm)
                 torch.cuda.synchronize()
                 probe.peak = max(probe.peak, torch.cuda.max_memory_allocated())
+                probe.step_peak = (
+                    max(probe.step_peak[0], torch.cuda.max_memory_allocated()),
+                    max(probe.step_peak[1], torch.cuda.max_memory_reserved()))
                 held = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 out = orig(optimizer, lr, max_grad_norm)
@@ -3135,7 +3181,17 @@ def cli_run(name, probe, drive, step_want, eval_want, card,
         log(f"  {name} step {r['step']}: wall {r['wall_ms']:.2f} ms = data "
             f"wait {r['wait_ms']:.2f} + upload and train_step; train_step "
             f"{r['step_ms']:.2f} ms; loss {m['loss']:.6f}, grad_norm "
-            f"{m['grad_norm']:.6f}, lr {m['lr']:.6g} on {card}")
+            f"{m['grad_norm']:.6f}, lr {m['lr']:.6g}; peak device memory "
+            f"{r['peak_alloc'] / 2 ** 30:.2f} GiB allocated, "
+            f"{r['peak_reserved'] / 2 ** 30:.2f} GiB reserved on {card}")
+    if len(probe.steps) >= 2:
+        eager, graphed = probe.steps[:2]
+        log(f"  {name} peak memory, eager (step {eager['step']}) against "
+            f"graphed (step {graphed['step']}, the capture): allocated "
+            f"{eager['peak_alloc'] / 2 ** 30:.2f} / "
+            f"{graphed['peak_alloc'] / 2 ** 30:.2f} GiB, reserved "
+            f"{eager['peak_reserved'] / 2 ** 30:.2f} / "
+            f"{graphed['peak_reserved'] / 2 ** 30:.2f} GiB on {card}")
     for r in probe.evals:
         log(f"  {name} eval: {r['ms']:.2f} ms over {r['batches']} batch(es) "
             f"({r['wait_ms']:.2f} of them waiting for data), "
@@ -3767,8 +3823,9 @@ def sf_paths(card: str) -> dict:
         for c in calls:
             c.pop("args")
             c.pop("dbias")
-        del calls, rel, sums
+        del calls, rel, sums, emb, t5m, pos, plain, x, y
         del trainer, state, batch, grads, loss
+        probe.bwd.clear()
         probe.models.clear()
         probe.fits.clear()
         shutil.rmtree(out)
@@ -3776,6 +3833,7 @@ def sf_paths(card: str) -> dict:
         torch.cuda.empty_cache()
 
         # ---- 16b: SF with online flow on InstructBLIP-Flan-T5, 2 steps
+        held("before 16b")
         t = time.perf_counter()
         cfg = compose(T.CONFIG_DIR, "train", [
             "model=LSTP_SF_small", "trainer.max_steps=2"] + SF_SHAPES)
@@ -3813,10 +3871,12 @@ def sf_paths(card: str) -> dict:
             f"memory {peak:.2f} GiB; {time.perf_counter() - t:.1f} s with the "
             f"build on {card}")
         del model, trainer, state, db
+        probe.models.clear()  # its CUDA graphs' pools go with the model
         gc.collect()
         torch.cuda.empty_cache()
 
         # ---- 16c: E2E on InstructBLIP-Vicuna-7B, 2 steps (step 0 has lr 0)
+        held("before 16c")
         t = time.perf_counter()
         cfg = compose(T.CONFIG_DIR, "train", [
             "model=LSTP_instructblip_e2e", "trainer.max_steps=2"] + SF_SHAPES)
@@ -4292,6 +4352,7 @@ def stage3_paths(card: str) -> tuple:
         shutil.rmtree(out)
 
         # ---- 17c: IV on InstructBLIP-Vicuna-7B, batch 2, 2 steps, an eval
+        held("before 17c")
         try:
             import transformers  # noqa: F401
 
@@ -5012,6 +5073,443 @@ def tool_paths(card: str) -> dict:
     return {"launches": totals, "qformer_rows": qrows}
 
 
+# ------------------------------------------ phase 20: the CUDA-graph programs
+def synced_ms(fn):
+    """``fn()`` and its synchronised wall in ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def held(label: str) -> None:
+    """Log the device memory held (allocated, and reserved by the caching
+    allocator and the CUDA graphs' pools) and the models still alive."""
+    import torch
+
+    from videotgb_torch.models.videotgb import VideoTGB
+
+    from videotgb_torch.utils.graphs import Graphed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    objs = gc.get_objects()
+    alive = sum(isinstance(o, VideoTGB) for o in objs)
+    wrappers = [(o.__name__, len(o.programs())) for o in objs
+                if isinstance(o, Graphed) and o.programs()]
+    cuda = [o for o in objs if torch.is_tensor(o) and o.is_cuda]
+    log(f"  {label}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB "
+        f"reserved, {alive} VideoTGB model(s) alive, graphed programs "
+        f"{wrappers}, {len(cuda)} CUDA tensors seen by gc "
+        f"({sum(t.numel() * t.element_size() for t in cuda) / 2 ** 30:.2f}"
+        f" GiB)")
+
+
+def graph_replay_ms(graph, before, iters=5) -> float:
+    """Device time of one replay of a captured ``torch.cuda.CUDAGraph``:
+    CUDA events around single replays, each after ``before()`` (the replay
+    that sets up its state), median of ``iters`` after one."""
+    import statistics
+
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(iters + 1):
+        before()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def graphed_against_eager(name, wrapper, call, expected, same, costs, card):
+    """Three calls of the graphed entry point ``wrapper`` (the first eager,
+    the second captures and replays, the third replays), each with the
+    arguments ``call()`` makes anew (generators of one seed), then its eager
+    function once on the same: every output equal to the eager one by
+    ``same``; the launches of the third call (a replay) ``expected``, every
+    A and C on the tensor-core body and B on the tile body. Appends (name,
+    eager, capture, replay ms) to ``costs``; the capture is the second
+    call's wall less a replay's. Returns (the eager output, the replay's
+    launches)."""
+    from videotgb_torch.ops import kernels
+
+    outs, walls = [], []
+    for i in range(3):
+        args, kwargs = call()
+        kernels.reset_launches()
+        out, ms = synced_ms(lambda: wrapper(*args, **kwargs))
+        outs.append(out)
+        walls.append(ms)
+    got = dict(kernels.LAUNCHES)
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0), **expected}
+    if got != want:
+        fail(f"{name}: launches of a replay {got} != {want}")
+    check_bodies(name, got)
+    args, kwargs = call()
+    ref, eager_ms = synced_ms(lambda: wrapper.eager(*args, **kwargs))
+    for i, out in enumerate(outs):
+        if not same(out, ref):
+            fail(f"{name}: call {i + 1} of the graphed entry point differs "
+                 "from the eager function")
+    costs.append((name, eager_ms, walls[1] - walls[2], walls[2]))
+    log(f"  {name}: graphed calls equal to the eager function (first eager "
+        f"{walls[0]:.2f} ms, capture + replay {walls[1]:.2f} ms, replay "
+        f"{walls[2]:.2f} ms; eager {eager_ms:.2f} ms); launches a replay "
+        f"{ {k: v for k, v in got.items() if v} } on {card}")
+    return ref, got
+
+
+def same_tensors(a, b) -> bool:
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(same_tensors, a, b))
+    return torch.equal(a, b)
+
+
+def queue_burst(engine, requests) -> list:
+    """``requests`` (frames, flow, question) queued as ``submit`` queues
+    them, all under the queue's lock, so that the select worker finds them
+    all at once and batches them alike in every engine. Returns the
+    futures."""
+    from concurrent.futures import Future
+
+    from videotgb_torch import serve
+
+    futures = [Future() for _ in requests]
+    q = engine._queue
+    with q.mutex:
+        for fut, (frames, flow, question) in zip(futures, requests):
+            q._put(serve._Request(frames, flow, question, fut,
+                                  time.perf_counter()))
+            q.unfinished_tasks += 1
+        q.not_empty.notify()
+    return futures
+
+
+def graph_paths(card: str) -> dict:
+    """Phase 20: the CUDA-graph programs at flagship width, each against its
+    eager function (``.eager``) on the same inputs and generator seeds.
+    (a) BLIP2-Flan-T5-xl serving (bf16, RAFT bf16) at batch 4:
+    ``select_phase_blip2`` (20 B + 1 D a replay) and ``answer_phase_blip2``
+    at 16 new tokens (39 A), greedy and sampled, frames and tokens
+    identical; the decode chunk's graph replayed alone beside the eager
+    decode step. (b) InstructBLIP-Vicuna-7B: its select phase and
+    ``answer_phase_instructblip`` at 128 new tokens (71 A), greedy and
+    sampled. (c) The serving engine, graphed and with both phases eager,
+    a burst of 8 queued at once: equal replies and launches. (d) E2E
+    (``LSTP_blip2_e2e``, f32 parameters, batch 8): two ``train_step`` calls
+    against one ``train_step_multi`` window of K = 2 on a twin model
+    (losses, gradient norms and every trainable parameter bit for bit),
+    then a replayed step against an eager one; 63 A + 24 C a step. (e) TG
+    at batch 32 (no kernel). Prints each program's eager, capture and
+    replay walls and the peak memory. Returns the launches of the counted
+    replays."""
+    import numpy as np
+    import torch
+
+    from videotgb_torch import serve
+    from videotgb_torch import train as T
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.ops import decode as D
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.training.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    t20 = time.perf_counter()
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    costs = []
+
+    def add(got):
+        for k, v in got.items():
+            totals[k] += v
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # ---- (a) BLIP2-Flan-T5-xl serving at batch 4, 16 new tokens
+    cfg = V.bf16_param_config(V.VideoTGBConfig.flagship())
+    cfg = dataclasses.replace(
+        cfg, raft=dataclasses.replace(cfg.raft, dtype=torch.bfloat16))
+    model = V.VideoTGB(cfg, device=dev, seed=0)
+    b, n_flow, img, fs = 4, 5, cfg.blip2.vit.image_size, cfg.tgb.flow_size
+    gen = seeded(20)
+    frames_u8 = torch.randint(0, 256, (b, cfg.num_frames, img, img, 3),
+                              generator=gen, device=dev, dtype=torch.uint8)
+    flow_u8 = torch.randint(0, 256, (b, n_flow, fs, fs, 3), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    batch = _batch(cfg, b, n_flow - 1, 24, gen, dev)
+    t5 = cfg.blip2.t5
+    greedy = D.DecodeConfig(max_new_tokens=16, eos_token_id=t5.eos_token_id,
+                            pad_token_id=t5.pad_token_id)
+    sampled = dataclasses.replace(greedy, do_sample=True, temperature=0.7,
+                                  top_p=0.9)
+    torch.cuda.reset_peak_memory_stats()
+    cand, got = graphed_against_eager(
+        "select_phase_blip2 (batch 4)", V.select_phase_blip2,
+        lambda: ((model, flow_u8, batch), {"generator": seeded(7)}),
+        {"corr_lookup": cfg.raft.iters, "select_frames": 1}, torch.equal,
+        costs, card)
+    add(got)
+    sel = frames_u8[torch.arange(b, device=dev)[:, None], cand]
+    for label, dcfg in (("greedy", greedy), ("sampled", sampled)):
+        _, got = graphed_against_eager(
+            f"answer_phase_blip2 ({label}, 16 new tokens)",
+            V.answer_phase_blip2,
+            lambda dcfg=dcfg: ((model, sel, batch, dcfg),
+                               {"generator": seeded(8)}),
+            {"flash_fwd": cfg.vit.num_layers}, torch.equal, costs, card)
+        add(got)
+    # the decode chunk alone, after the program's first graph (the encode
+    # and step 0, which set the decode's state up)
+    program = V.answer_phase_blip2.programs()[0]
+    chunk = next(g for g, loop in program.steps if loop is not None)
+    k = min(D.CHUNK, greedy.max_new_tokens - 1)
+    chunk_ms = graph_replay_ms(chunk.graph, program.steps[0][0].graph.replay)
+    with torch.no_grad():
+        visual = V._encode_selected_u8(model, sel, batch)
+        embeds, emask = model.model.encoder_inputs(
+            visual, batch["question_ids"], batch["question_mask"])
+        enc = model.model.language_model.encode(embeds, emask)
+    walls = {}
+    for n in (1, 16):
+        dn = dataclasses.replace(greedy, max_new_tokens=n)
+        V.t5_generate_from_encoder.eager(model, enc, emask, dn)
+        walls[n] = min(synced_ms(lambda: V.t5_generate_from_encoder.eager(
+            model, enc, emask, dn))[1] for _ in range(3))
+    step_eager = (walls[16] - walls[1]) / 15
+    costs.append((f"T5 decode chunk ({k} steps)", step_eager * k,
+                  float("nan"), chunk_ms))
+    costs.append(("T5 decode step", step_eager, float("nan"), chunk_ms / k))
+    log(f"  T5-xl decode at batch 4: a chunk of {k} steps replays in "
+        f"{chunk_ms:.3f} ms of device time ({chunk_ms / k:.3f} ms a step); "
+        f"an eager step {step_eager:.3f} ms (16 tokens {walls[16]:.2f} ms "
+        f"less 1 token {walls[1]:.2f} ms, over 15) on {card}")
+    log(f"  (a) peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB reserved on "
+        f"{card}")
+    del model, program, chunk, enc, embeds, visual
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) InstructBLIP-Vicuna-7B, 128 new tokens
+    vcfg = V.bf16_param_config(V.VideoTGBConfig.flagship("instructblip"))
+    vcfg = dataclasses.replace(
+        vcfg, raft=dataclasses.replace(vcfg.raft, dtype=torch.bfloat16))
+    model = V.VideoTGB(vcfg, seed=0)
+    frames_u8, flow_u8, vbatch = vicuna_requests(vcfg, dev)
+    llm = vcfg.instructblip.llm
+    vgreedy = D.DecodeConfig(max_new_tokens=128, eos_token_id=llm.eos_token_id,
+                             pad_token_id=llm.pad_token_id)
+    vsampled = dataclasses.replace(vgreedy, do_sample=True, temperature=0.7,
+                                   top_p=0.9)
+    torch.cuda.reset_peak_memory_stats()
+    cand, got = graphed_against_eager(
+        "Vicuna select_phase_blip2 (multi_modal, ratio)",
+        V.select_phase_blip2,
+        lambda: ((model, flow_u8, vbatch),
+                 {"generator": seeded(7), "mode": "multi_modal",
+                  "rescale": "ratio"}),
+        {"corr_lookup": vcfg.raft.iters, "select_frames": 1}, torch.equal,
+        costs, card)
+    add(got)
+    sel = frames_u8[torch.arange(b, device=dev)[:, None], cand]
+    prefill = llm.num_layers  # 96 x 224 scores pass the 128^2 rule
+    for label, dcfg in (("greedy", vgreedy), ("sampled", vsampled)):
+        _, got = graphed_against_eager(
+            f"answer_phase_instructblip ({label}, 128 new tokens)",
+            V.answer_phase_instructblip,
+            lambda dcfg=dcfg: ((model, sel, vbatch, dcfg),
+                               {"generator": seeded(9)}),
+            {"flash_fwd": vcfg.vit.num_layers + prefill}, torch.equal, costs,
+            card)
+        add(got)
+    log(f"  (b) peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB reserved on "
+        f"{card}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the serving engine, graphed and eager: a burst of 8
+    rng = np.random.default_rng(20)
+    scfg = V.VideoTGBConfig.flagship()
+    img, fs = scfg.vit.image_size, scfg.tgb.flow_size
+    reqs = [(rng.integers(0, 256, (scfg.num_frames, img, img, 3), np.uint8),
+             rng.integers(0, 256, (5, fs, fs, 3), np.uint8),
+             f"burst request {i}: what happens in the video?")
+            for i in range(8)]
+    replies, engine_launches = {}, {}
+    real = (serve.select_phase_blip2, serve.answer_phase_blip2)
+    for route in ("graphed", "eager"):
+        if route == "eager":
+            serve.select_phase_blip2 = V.select_phase_blip2.eager
+            serve.answer_phase_blip2 = V.answer_phase_blip2.eager
+        try:
+            t = time.perf_counter()
+            engine = serve.ServingEngine(
+                "random:flagship", preset="flagship", batch_size=4,
+                flow_frames=4, max_new_tokens=16, max_delay_ms=30)
+            built = time.perf_counter() - t
+            kernels.reset_launches()
+            t = time.perf_counter()
+            futs = queue_burst(engine, reqs)
+            replies[route] = [f.result(timeout=300) for f in futs]
+            burst = time.perf_counter() - t
+            engine_launches[route] = dict(kernels.LAUNCHES)
+            batches = engine.stats()["batches"]
+        finally:
+            engine.close()
+            serve.select_phase_blip2, serve.answer_phase_blip2 = real
+        log(f"  engine ({route} phases): built and warmed in {built:.2f} s; "
+            f"the burst of 8 in {batches} batches served in {burst:.3f} s, "
+            f"{8 / burst:.3f} req/s on {card}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = [(a.answer, a.selected_frames) == (e.answer, e.selected_frames)
+            for a, e in zip(replies["graphed"], replies["eager"])]
+    if not all(same):
+        fail(f"the graphed engine's replies differ from the eager engine's: "
+             f"{same}")
+    if engine_launches["graphed"] != engine_launches["eager"]:
+        fail(f"engine launches: graphed {engine_launches['graphed']} != "
+             f"eager {engine_launches['eager']}")
+    check_bodies("the graphed engine", engine_launches["graphed"])
+    add(engine_launches["graphed"])
+    log(f"  engine: all 8 replies of the graphed engine equal the eager "
+        f"engine's (frames and answers); launches "
+        f"{ {k: v for k, v in engine_launches['graphed'].items() if v} } in "
+        f"both")
+
+    # ---- (d) E2E: two train_step calls against a window of K = 2
+    twins = [T.build_model({"preset": "flagship", "backbone": "blip2"},
+                           device=dev, seed=0) for _ in range(2)]
+    mcfg = twins[0][1]
+    recipe = T.build_recipe({"recipe": "e2e", "tgb_mode": "multi_modal",
+                             "selection": "uniform"})
+    trainers = [Trainer(TrainerConfig(max_steps=4, lr=5e-5), recipe.loss_fn,
+                        recipe.filter_fn) for _ in range(2)]
+    states = [tr.init_state(m) for tr, (m, _) in zip(trainers, twins)]
+    gen = seeded(21)
+    batches = [e2e_batch(mcfg, dev, gen) for _ in range(2)]
+    e2e_want = {**dict.fromkeys(kernels.LAUNCHES, 0),
+                "flash_fwd": mcfg.vit.num_layers
+                + mcfg.blip2.t5.num_encoder_layers,
+                "flash_bwd": mcfg.blip2.t5.num_encoder_layers}
+    singles, walls, peaks = [], [], []
+    for i in range(2):
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        (states[0], m), ms = synced_ms(
+            lambda i=i: trainers[0].train_step(states[0], batches[i]))
+        peaks.append((torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved()))
+        singles.append(m)
+        walls.append(ms)
+        if dict(kernels.LAUNCHES) != e2e_want:
+            fail(f"E2E step {i + 1}: launches {dict(kernels.LAUNCHES)}")
+        add(dict(kernels.LAUNCHES))
+    window = {key: torch.stack([bt[key] for bt in batches])
+              for key in batches[0]}
+    kernels.reset_launches()
+    states[1], stacked = trainers[1].train_step_multi(states[1], window)
+    torch.cuda.synchronize()
+    if dict(kernels.LAUNCHES) != {k: 2 * v for k, v in e2e_want.items()}:
+        fail(f"E2E window of 2: launches {dict(kernels.LAUNCHES)}")
+    add(dict(kernels.LAUNCHES))
+
+    def compare(label):
+        params = [dict(st.model.named_parameters()) for st in states]
+        diff = [n for n in trainers[0].trainable
+                if not torch.equal(params[0][n], params[1][n])]
+        if diff:
+            fail(f"E2E {label}: trainable parameters differ: {diff[:5]}")
+        return len(trainers[0].trainable)
+
+    for i in range(2):
+        for key in ("loss", "grad_norm"):
+            if not torch.equal(singles[i][key], stacked[key][i]):
+                fail(f"E2E step {i + 1}: {key} {float(singles[i][key])!r} "
+                     f"against the window's {float(stacked[key][i])!r}")
+    n_train = compare("after two steps and a window of 2")
+    log(f"  E2E: two train_step calls (eager, then capture + replay) equal "
+        f"a train_step_multi window of K = 2 in loss "
+        f"{[float(m['loss']) for m in singles]}, grad norm "
+        f"{[float(m['grad_norm']) for m in singles]} and all {n_train} "
+        f"trainable tensors, bit for bit")
+    # a replay against an eager step on the twin
+    kernels.reset_launches()
+    (states[0], m_replay), replay_ms = synced_ms(
+        lambda: trainers[0].train_step(states[0], batches[0]))
+    if dict(kernels.LAUNCHES) != e2e_want:
+        fail(f"E2E replayed step: launches {dict(kernels.LAUNCHES)}")
+    add(dict(kernels.LAUNCHES))
+    trainers[1]._step = trainers[1]._step.eager
+    (states[1], m_eager), eager_ms = synced_ms(
+        lambda: trainers[1].train_step(states[1], batches[0]))
+    for key in ("loss", "grad_norm"):
+        if not torch.equal(m_replay[key], m_eager[key]):
+            fail(f"E2E step 3: the replay's {key} {float(m_replay[key])!r} "
+                 f"!= the eager step's {float(m_eager[key])!r}")
+    compare("after a replayed step and an eager one")
+    costs.append(("E2E train_step (batch 8)", eager_ms, walls[1] - replay_ms,
+                  replay_ms))
+    log(f"  E2E step 3: the replayed graph equals an eager step on the twin "
+        f"(loss {float(m_replay['loss'])!r}, grad norm "
+        f"{float(m_replay['grad_norm'])!r}, every trainable tensor); walls "
+        f"first {walls[0]:.2f} ms, capture + replay {walls[1]:.2f} ms, "
+        f"replay {replay_ms:.2f} ms, eager {eager_ms:.2f} ms; peak memory "
+        f"eager {peaks[0][0] / 2 ** 30:.2f} GiB allocated / "
+        f"{peaks[0][1] / 2 ** 30:.2f} reserved, graphed "
+        f"{peaks[1][0] / 2 ** 30:.2f} / {peaks[1][1] / 2 ** 30:.2f} on {card}")
+    model = states[0].model
+    del trainers, states, twins, singles, stacked, window, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) TG at batch 32 on the same model: eager, capture, replay
+    recipe = T.build_recipe({"recipe": "tg", "tgb_mode": "fusion"})
+    trainer = Trainer(TrainerConfig(max_steps=4, lr=5e-5), recipe.loss_fn,
+                      recipe.filter_fn)
+    state = trainer.init_state(model)
+    batch = tg_batch(mcfg, dev, gen)
+    walls = []
+    kernels.reset_launches()
+    for _ in range(3):
+        (state, m), ms = synced_ms(lambda: trainer.train_step(state, batch))
+        walls.append(ms)
+    if any(kernels.LAUNCHES.values()):
+        fail(f"TG steps launched {dict(kernels.LAUNCHES)}")
+    trainer._step = trainer._step.eager
+    _, eager_ms = synced_ms(lambda: trainer.train_step(state, batch))
+    costs.append(("TG train_step (batch 32)", eager_ms, walls[1] - walls[2],
+                  walls[2]))
+    del trainer, state, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name, eager_ms, capture_ms, replay_ms in costs:
+        log(f"  graph cost {name}: eager {eager_ms:.3f} ms, capture "
+            f"{capture_ms:.3f} ms, replay {replay_ms:.3f} ms "
+            f"({eager_ms / replay_ms:.2f}x) on {card}")
+    log(f"  phase 20 launches (the counted replays): "
+        f"{ {k: v for k, v in totals.items() if v} }; ran in "
+        f"{time.perf_counter() - t20:.1f} s")
+    return totals
+
+
 def main() -> None:
     try:
         import torch
@@ -5143,12 +5641,22 @@ def main() -> None:
     tools = tool_paths(card)
     for kern in (flash, flash_bwd, lookup, select):
         kern["launches"] += tools["launches"].get(kern["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    log("phase 20: the CUDA-graph programs (select, answer, decode, the "
+        "engine, train_step and train_step_multi) against their eager "
+        "functions")
+    graphs_run = graph_paths(card)
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += graphs_run.get(kern["name"], 0)
     done = time.perf_counter()
-    log(f"phases 1-19 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-20 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
         f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
         f"{t17 - t16:.1f} s, phase 17 in {t18 - t17:.1f} s, phase 18 in "
-        f"{t19 - t18:.1f} s, phase 19 in {done - t19:.1f} s")
+        f"{t19 - t18:.1f} s, phase 19 in {t20 - t19:.1f} s, phase 20 in "
+        f"{done - t20:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

@@ -1726,3 +1726,242 @@ def test_converted_checkpoint_restores_on_the_card(cuda, tmp_path):
     cand = V.select_phase_blip2(model, flow, batch,
                                 generator=torch.Generator(cuda))
     assert tuple(cand.shape) == (1, cfg.nframe)
+
+
+# ----------------------------------------------- CUDA-graph programs (tiny)
+def _tiny_requests(cuda, backbone, b=2, seed=3):
+    """A tiny model on the card and b requests: frames and flow frames
+    uint8, the batch dict (with the Q-Former's text where it reads one)."""
+    model = V.VideoTGB(V.VideoTGBConfig.tiny(backbone), device=cuda, seed=0)
+    cfg = model.config
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    img, fs = cfg.vit.image_size, cfg.tgb.flow_size
+    frames = torch.randint(0, 256, (b, cfg.num_frames, img, img, 3),
+                           generator=gen, device=cuda, dtype=torch.uint8)
+    flow = torch.randint(0, 256, (b, 4, fs, fs, 3), generator=gen,
+                         device=cuda, dtype=torch.uint8)
+    ids = torch.randint(4, 60, (b, 6), generator=gen, device=cuda)
+    mask = torch.ones((b, 6), device=cuda)
+    mask[0, 4:] = 0
+    batch = {"flow_mask": torch.ones((b, 5), device=cuda),
+             "video_length": torch.full((b,), 3, device=cuda),
+             "sampler_question_ids": ids, "sampler_question_mask": mask,
+             "question_ids": ids.flip(1), "question_mask": mask.flip(1),
+             "qformer_input_ids": ids, "qformer_attention_mask": mask}
+    return model, frames, flow, batch
+
+
+def _three_calls_and_eager(wrapper, call):
+    """Three graphed calls (eager, capture + replay, replay) and one of the
+    eager function, each on fresh arguments from ``call()``; the launches
+    of the third call and of the eager one."""
+    outs = []
+    for _ in range(3):
+        args, kwargs = call()
+        kernels.reset_launches()
+        outs.append(wrapper(*args, **kwargs))
+    replayed = dict(kernels.LAUNCHES)
+    args, kwargs = call()
+    kernels.reset_launches()
+    ref = wrapper.eager(*args, **kwargs)
+    return outs, ref, replayed, dict(kernels.LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone", ["blip2", "instructblip"])
+@pytest.mark.parametrize("sample", [False, True])
+def test_graphed_phases_equal_their_eager_functions(cuda, backbone, sample):
+    """``select_phase_blip2`` and the backbone's answer phase as CUDA-graph
+    programs: indices and tokens of every call equal the eager function's
+    on the same generator seed, greedy and sampled, and a replay launches
+    what the eager call launches."""
+    model, frames, flow, batch = _tiny_requests(cuda, backbone)
+    cfg = model.config
+    lm = cfg.blip2.t5 if backbone == "blip2" else cfg.instructblip.llm
+    dcfg = DecodeConfig(max_new_tokens=11, eos_token_id=lm.eos_token_id,
+                        pad_token_id=lm.pad_token_id, do_sample=sample,
+                        temperature=0.8)
+    kw = ({} if backbone == "blip2" else
+          {"mode": "multi_modal", "rescale": "ratio"})
+    outs, cand, replayed, eager = _three_calls_and_eager(
+        V.select_phase_blip2, lambda: ((model, flow, batch), dict(
+            kw, generator=torch.Generator(device=cuda).manual_seed(5))))
+    assert all(torch.equal(o, cand) for o in outs)
+    assert replayed == eager and replayed["select_frames"] == 1
+    sel = frames[torch.arange(2, device=cuda)[:, None], cand]
+    answer = (V.answer_phase_blip2 if backbone == "blip2"
+              else V.answer_phase_instructblip)
+    outs, tokens, replayed, eager = _three_calls_and_eager(
+        answer, lambda: ((model, sel, batch, dcfg), {
+            "generator": torch.Generator(device=cuda).manual_seed(6)}))
+    assert tokens.shape == (2, 11)
+    assert all(torch.equal(o, tokens) for o in outs)
+    assert replayed == eager
+    (program,) = answer.programs()[-1:]
+    assert sum(loop is not None for _, loop in program.steps) == 1
+
+
+@pytest.mark.gpu
+def test_graphed_generate_and_flow_equal_eager(cuda):
+    """``generate_blip2`` (the QA CLI's call) and the CLI's graphed flow
+    calls against their eager functions; a decode of one token has no
+    chunk and one of 20 tokens several."""
+    from videotgb_torch.evalsuite.inference import flow_of, flow_of_timeline
+
+    model, frames, flow, batch = _tiny_requests(cuda, "blip2")
+    outs, ref, _, _ = _three_calls_and_eager(
+        flow_of, lambda: ((model, flow.float()), {}))
+    assert all(torch.equal(o, ref) for o in outs)
+    valid = torch.ones((2, 4), device=cuda)
+    valid[1, 3:] = 0
+    outs, ref_t, _, _ = _three_calls_and_eager(
+        flow_of_timeline, lambda: ((model, flow.float(), valid), {}))
+    assert all(torch.equal(o, ref_t) for o in outs)
+    mean = torch.tensor((0.48145466, 0.4578275, 0.40821073), device=cuda)
+    std = torch.tensor((0.26862954, 0.26130258, 0.27577711), device=cuda)
+    full = dict(batch, frames=(frames.float() / 255.0 - mean) / std,
+                flow=ref[:, :3])
+    for n in (1, 20):
+        dcfg = DecodeConfig(max_new_tokens=n, eos_token_id=1, pad_token_id=0)
+        outs, ref_g, replayed, eager = _three_calls_and_eager(
+            V.generate_blip2, lambda dcfg=dcfg: ((model, full, dcfg), {
+                "generator": torch.Generator(device=cuda).manual_seed(4)}))
+        for tokens, cand in outs:
+            assert torch.equal(tokens, ref_g[0])
+            assert torch.equal(cand, ref_g[1])
+        assert replayed == eager
+
+
+@pytest.mark.gpu
+def test_a_second_signature_captures_a_second_program(cuda):
+    model, _, flow, batch = _tiny_requests(cuda, "blip2")
+    _, _, flow3, batch3 = _tiny_requests(cuda, "blip2", b=3, seed=4)
+    before = len(V.select_phase_blip2.programs())
+    for _ in range(2):
+        V.select_phase_blip2(model, flow, batch,
+                             generator=torch.Generator(device=cuda))
+    assert len(V.select_phase_blip2.programs()) == before + 1
+    for _ in range(3):
+        V.select_phase_blip2(model, flow3, batch3,
+                             generator=torch.Generator(device=cuda))
+    assert len(V.select_phase_blip2.programs()) == before + 2
+    del model
+    import gc
+    gc.collect()  # the model's programs go with it
+    assert len(V.select_phase_blip2.programs()) == before
+
+
+@pytest.mark.gpu
+def test_a_capture_that_synchronises_raises(cuda):
+    """A host read inside the function: the first (eager) call runs, every
+    later call raises instead of running eagerly, and the process goes on
+    drawing random numbers (the failed capture's generators are reset)."""
+    from videotgb_torch.utils.graphs import graphed
+
+    @graphed
+    def reads_the_host(x):
+        return x * float(x.sum())
+
+    x = torch.ones(4, device=cuda)
+    assert torch.equal(reads_the_host(x), x * 4)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            reads_the_host(x)
+    assert torch.randn(3, device=cuda).shape == (3,)
+    assert reads_the_host.programs() == []
+
+
+@pytest.mark.gpu
+def test_graphed_train_steps_equal_eager_and_a_window(cuda):
+    """The tiny E2E step (uniform selection) three times: graphed calls,
+    eager calls (``_step.eager``) and one ``train_step_multi`` window of K
+    = 3 on three twins give the same losses, gradient norms and trainable
+    parameters, bit for bit."""
+    from videotgb_torch import train as T
+
+    recipe = T.build_recipe({"recipe": "e2e", "tgb_mode": "multi_modal",
+                             "selection": "uniform"})
+    runs = []
+    for route in ("graphed", "eager", "window"):
+        model, cfg = T.build_model({"preset": "tiny"}, device=cuda, seed=0)
+        trainer = Trainer(TrainerConfig(max_steps=6, lr=1e-3),
+                          recipe.loss_fn, recipe.filter_fn)
+        state = trainer.init_state(model)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        img = cfg.vit.image_size
+        batches = [{"frames": torch.randn((2, cfg.num_frames, img, img, 3),
+                                          generator=gen, device=cuda),
+                    "question_ids": torch.randint(4, 60, (2, 6),
+                                                  generator=gen, device=cuda),
+                    "question_mask": torch.ones((2, 6), device=cuda),
+                    "answer_ids": torch.randint(4, 60, (2, 5), generator=gen,
+                                                device=cuda)}
+                   for _ in range(3)]
+        if route == "eager":
+            trainer._step = trainer._step.eager
+        if route == "window":
+            state, stacked = trainer.train_step_multi(state, {
+                k: torch.stack([bt[k] for bt in batches])
+                for k in batches[0]})
+            metrics = [{k: stacked[k][i] for k in ("loss", "grad_norm")}
+                       for i in range(3)]
+        else:
+            metrics = []
+            for bt in batches:
+                state, m = trainer.train_step(state, bt)
+                metrics.append(m)
+        runs.append((metrics, {n: p.detach().clone() for n, p in
+                               model.named_parameters()
+                               if n in set(trainer.trainable)}))
+    for metrics, params in runs[1:]:
+        for a, b in zip(runs[0][0], metrics):
+            assert torch.equal(a["loss"], b["loss"])
+            assert torch.equal(a["grad_norm"], b["grad_norm"])
+        for n, p in params.items():
+            assert torch.equal(p, runs[0][1][n]), n
+
+
+@pytest.mark.gpu
+def test_graphed_decode_entry_points_equal_eager(cuda):
+    """``t5_generate_from_encoder`` (greedy and sampled),
+    ``llama_generate_from_embeds`` (with a stop sequence) and
+    ``generate_instructblip`` called directly, as the SF pseudo pass and
+    the QA CLI call them: every graphed call equals the eager function."""
+    model, _, _, batch = _tiny_requests(cuda, "blip2")
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    enc = torch.randn((2, 9, model.config.blip2.t5.d_model), generator=gen,
+                      device=cuda)
+    mask = torch.ones((2, 9), device=cuda)
+    mask[1, 6:] = 0
+    for sample in (False, True):
+        dcfg = DecodeConfig(max_new_tokens=13, do_sample=sample)
+        outs, ref, _, _ = _three_calls_and_eager(
+            V.t5_generate_from_encoder, lambda dcfg=dcfg: (
+                (model, enc, mask, dcfg),
+                {"generator": torch.Generator(device=cuda).manual_seed(8)}))
+        assert all(torch.equal(o, ref) for o in outs)
+
+    vmodel, frames, _, vbatch = _tiny_requests(cuda, "instructblip")
+    llm = vmodel.config.instructblip.llm
+    d = llm.hidden_size
+    embeds = torch.randn((2, 7, d), generator=gen, device=cuda)
+    emask = torch.ones((2, 7), device=cuda)
+    emask[0, 5:] = 0
+    dcfg = DecodeConfig(max_new_tokens=10, eos_token_id=llm.eos_token_id,
+                        pad_token_id=llm.pad_token_id)
+    outs, ref, _, _ = _three_calls_and_eager(
+        V.llama_generate_from_embeds, lambda: (
+            (vmodel, embeds, emask, dcfg), {"stop_sequences": ((5, 6),)}))
+    assert all(torch.equal(o, ref) for o in outs)
+    mean = torch.tensor((0.48145466, 0.4578275, 0.40821073), device=cuda)
+    std = torch.tensor((0.26862954, 0.26130258, 0.27577711), device=cuda)
+    fs = vmodel.config.tgb.flow_size
+    full = dict(vbatch, frames=(frames.float() / 255.0 - mean) / std,
+                flow=torch.randn((2, 3, fs, fs, 2), generator=gen,
+                                 device=cuda))
+    outs, ref, replayed, eager = _three_calls_and_eager(
+        V.generate_instructblip, lambda: ((vmodel, full, dcfg), {
+            "generator": torch.Generator(device=cuda).manual_seed(9)}))
+    for tokens, cand in outs:
+        assert torch.equal(tokens, ref[0]) and torch.equal(cand, ref[1])
+    assert replayed == eager

@@ -108,7 +108,10 @@ def test_llama_without_caches_matches_jax(pair):
 
 def test_llama_with_caches_matches_jax(pair):
     """A prefill at S = 6 into a 10-slot buffer, then 3 single-token steps:
-    the logits and every layer's written K/V after each call."""
+    the logits and every layer's written K/V after each call; the same
+    calls with the cache index a 0-dim tensor (the graphed decode's device
+    index: the cache write, the positions and the mask from it) give the
+    same logits and caches bit for bit."""
     cfg = pair.jcfg.instructblip.llm
     b, s, slots = 2, 6, 10
     rng = np.random.default_rng(2)
@@ -120,6 +123,7 @@ def test_llama_with_caches_matches_jax(pair):
                 "v": jnp.zeros((b, cfg.num_heads, slots, cfg.head_dim))}
                for _ in range(cfg.num_layers)]
     tcaches = _llm(pair).init_caches(b, slots)
+    dcaches = _llm(pair).init_caches(b, slots)
 
     def step(m, caches, index, valid, pos, embeds=None, tokens=None):
         return m.model.language_model(
@@ -137,10 +141,15 @@ def test_llama_with_caches_matches_jax(pair):
         got, tcaches = _llm(pair)(
             inputs_embeds=t(embeds), positions=t(positions).long(),
             caches=tcaches, cache_index=0, cache_positions_valid=t(valid))
+        got_d, dcaches = _llm(pair)(
+            inputs_embeds=t(embeds), positions=t(positions).long(),
+            caches=dcaches, cache_index=torch.tensor(0),
+            cache_positions_valid=t(valid))
     def snapshot(caches):  # the port writes its buffers in place
         return [{n: c[n].clone() for n in c} for c in caches]
 
     calls = [(got, want, snapshot(tcaches), jcaches)]
+    device = [(got_d, snapshot(dcaches))]
     for i in range(3):
         tokens = rng.integers(3, cfg.vocab_size, (b, 1)).astype(np.int32)
         pos = (lengths + i)[:, None]
@@ -152,12 +161,20 @@ def test_llama_with_caches_matches_jax(pair):
                 input_ids=t(tokens).long(), positions=t(pos).long(),
                 caches=tcaches, cache_index=s + i,
                 cache_positions_valid=t(valid))
+            got_d, dcaches = _llm(pair)(
+                input_ids=t(tokens).long(), positions=t(pos).long(),
+                caches=dcaches, cache_index=torch.tensor(s + i),
+                cache_positions_valid=t(valid))
         calls.append((got, want, snapshot(tcaches), jcaches))
-    for got, want, tc, jc in calls:
+        device.append((got_d, snapshot(dcaches)))
+    for (got, want, tc, jc), (got_d, dc) in zip(calls, device):
         close(got, want)
-        for tl, jl in zip(tc, jc):
+        assert torch.equal(got_d, got)
+        for tl, jl, dl in zip(tc, jc, dc):
             close(tl["k"], jl["k"])
             close(tl["v"], jl["v"])
+            assert torch.equal(dl["k"], tl["k"])
+            assert torch.equal(dl["v"], tl["v"])
 
 
 # ----------------------------------------------------------- InstructBLIP

@@ -227,11 +227,15 @@ def test_t5_encoder_hands_the_flash_kernels_a_contiguous_bias(monkeypatch):
 
 def test_t5_cached_decode_matches_jax(pair):
     """Prefill (token 0 + cross K/V) then two cached steps: logits equal
-    the JAX decoder's at every step."""
+    the JAX decoder's at every step, with the cache index a host int and,
+    for the steps after the prefill, a 0-dim tensor (the graphed decode's
+    device index: positions, relative-position bias and mask computed from
+    it), the two routes bit for bit."""
     embeds, mask = _enc_inputs(7)
     lm = pair.tmodel.model.language_model
     enc = lm.encode(t(embeds), t(mask))
     caches_t = pair.tmodel.init_t5_caches(2, 4, 7)
+    caches_d = pair.tmodel.init_t5_caches(2, 4, 7)
     enc_j = jnp.asarray(enc.numpy())
     caches_j = pair.japply(lambda m: m.init_t5_caches(2, 4, 7))
     tokens = np.array([[0, 0], [12, 40], [7, 3]], np.int32)
@@ -245,6 +249,10 @@ def test_t5_cached_decode_matches_jax(pair):
             t(tokens[i][:, None]).long(), enc, t(mask), caches_t, i,
             t(valid), cross_prefill=i == 0)
         close(logits_t, logits_j)
+        logits_d, caches_d = pair.tmodel.t5_decode_step(
+            t(tokens[i][:, None]).long(), enc, t(mask), caches_d,
+            torch.tensor(i) if i else 0, t(valid), cross_prefill=i == 0)
+        assert torch.equal(logits_d, logits_t)
 
 
 def test_t5_teacher_forced_matches_jax(pair):

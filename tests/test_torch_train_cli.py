@@ -728,16 +728,13 @@ def test_without_trainer_cpu_the_cli_wants_the_card(tmp_path):
 
 
 # The ids are historical: they keep the names these cases had when ROADMAP.md
-# numbered the parallel layouts queue 1 item 7 and CUDA graphs item 2. The
-# match strings carry today's numbers.
+# numbered the parallel layouts queue 1 item 7. The match strings carry
+# today's numbers.
 @pytest.mark.parametrize("overrides,match", [
     pytest.param(["experiment=smoke_tg_synthetic", "trainer.tp=2"],
                  "queue 1 item 4", id="overrides5-queue 1 item 7"),
     pytest.param(["experiment=smoke_tg_synthetic", "trainer=ddp_sim"],
                  "queue 1 item 4", id="overrides6-queue 1 item 7"),
-    pytest.param(["experiment=smoke_tg_synthetic",
-                  "+trainer.steps_per_dispatch=2"],
-                 "queue 1 item 2", id="overrides7-queue 1 item 2"),
 ])
 def test_unported_recipes_layouts_and_options_raise(tmp_path, overrides,
                                                     match):
@@ -747,6 +744,30 @@ def test_unported_recipes_layouts_and_options_raise(tmp_path, overrides,
     assert cfg.trainer.platform == "cpu"
     with pytest.raises(NotImplementedError, match=match):
         TT.train(cfg)
+
+
+def test_steps_per_dispatch_trains_as_one_step_a_batch(tmp_path):
+    """``+trainer.steps_per_dispatch=2`` trains through the CLI: 3 steps as
+    a window of 2 (logged once, at its last step) and a single step at the
+    horizon, with the K = 1 run's losses at the steps both log and its
+    final parameters bit for bit."""
+    runs = {}
+    for k in (1, 2):
+        out = str(tmp_path / f"k{k}")
+        TT.main(["experiment=smoke_tg_synthetic", "trainer.max_steps=3",
+                 "trainer.log_every=1", f"+trainer.steps_per_dispatch={k}",
+                 f"paths.output_dir={out}"] + CPU)
+        losses = {r["step"]: r["loss"] for r in _rows(out) if r["loss"]}
+        mgr = TCK.CheckpointManager(TCK.CheckpointConfig(
+            directory=f"{out}/checkpoints"))
+        assert mgr.latest_step() == 3
+        runs[k] = (losses, mgr.restore(3, items=["params"])["params"])
+    assert list(runs[1][0]) == ["1", "2", "3"]
+    assert list(runs[2][0]) == ["2", "3"]
+    assert all(runs[2][0][s] == runs[1][0][s] for s in ("2", "3"))
+    assert runs[1][1].keys() == runs[2][1].keys()
+    for name, value in runs[1][1].items():
+        assert torch.equal(value, runs[2][1][name]), name
 
 
 def test_sf_refuses_accumulated_micro_batches(tmp_path):

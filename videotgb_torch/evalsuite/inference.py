@@ -12,7 +12,11 @@ Samples are decoded by a host thread pool, one batch ahead of the device,
 and run in fixed-size batches through ``generate_blip2`` (flow -> TGB ->
 select -> ViT -> Q-Former -> T5 decode; --backbone blip2 and
 instructblip_t5) or ``generate_instructblip`` (the same through an
-instruction-aware Q-Former into Vicuna; --backbone instructblip). Flow
+instruction-aware Q-Former into Vicuna; --backbone instructblip). On the
+card the flow and the generate calls are CUDA-graph programs (the JAX CLI's
+three ``jax.jit`` functions; ``utils/graphs.py``): the last batch is padded
+to the batch size, and each bucketed flow length is a signature of its
+own. Flow
 sampling defaults to the reference's whole-timeline ~1 fps mode
 (duration-bucketed flow lengths); --flow_mode=fixed takes flow_frames+1 of
 the 32 candidates.
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from videotgb_torch.device import step_generator
+from videotgb_torch.utils.graphs import graphed
 
 VIDEO_FORMATS = (".mp4", ".avi", ".mov", ".mkv")
 FLOW_BUCKETS = (8, 16, 32, 64)
@@ -285,13 +290,27 @@ def decode_sample_timeline(video_path: str, num_frames: int,
     return frames, flow_raw, length
 
 
+@graphed
+def flow_of(model, flow_rgb):
+    """``model.flow_features`` as a CUDA-graph program on the card (the JAX
+    CLI's jitted ``flow_of``)."""
+    return model.flow_features(flow_rgb)
+
+
+@graphed
+def flow_of_timeline(model, flow_rgb, valid):
+    """``model.flow_features_timeline`` as a CUDA-graph program on the
+    card; each bucketed flow length is a signature of its own."""
+    return model.flow_features_timeline(flow_rgb, valid)
+
+
 def _flow_batch(model, decoded, timeline, bsz, flow_frames, max_flow_frames,
                 fs):
     """The flow tensors of one batch: (flow, flow_mask, video_length)."""
     dev = model.device
     if not timeline:
         flow_rgb = torch.from_numpy(np.stack([d[1] for d in decoded]))
-        return (model.flow_features(flow_rgb.to(dev)),
+        return (flow_of(model, flow_rgb.to(dev)),
                 torch.ones((bsz, flow_frames + 2), device=dev),
                 torch.full((bsz,), flow_frames, dtype=torch.int32,
                            device=dev))
@@ -309,8 +328,8 @@ def _flow_batch(model, decoded, timeline, bsz, flow_frames, max_flow_frames,
         valid[i, :ln] = 1.0
         flow_mask[i, : ln + 2] = 1.0
         lengths[i] = ln
-    flow = model.flow_features_timeline(torch.from_numpy(flow_rgb).to(dev),
-                                        torch.from_numpy(valid).to(dev))
+    flow = flow_of_timeline(model, torch.from_numpy(flow_rgb).to(dev),
+                            torch.from_numpy(valid).to(dev))
     return (flow, torch.from_numpy(flow_mask).to(dev),
             torch.from_numpy(lengths).to(dev))
 

@@ -13,7 +13,8 @@ Attention is one module reused by all towers (ViT, Q-Former, T5, TGB) with
 hooks for a cross-attention K/V source, RoPE, an additive bias, T5's
 unscaled scores, and a KV cache written in place at ``cache_index`` (a
 ``{"k", "v"}`` dict of (B, H, S_max, D) tensors; updating in place saves
-the copy the functional JAX cache makes).
+the copy the functional JAX cache makes; the index may be a device tensor,
+as inside a CUDA-graphed decode).
 """
 
 from __future__ import annotations
@@ -163,6 +164,31 @@ def init_kv_cache(batch, heads, max_len, head_dim, dtype, device):
     }
 
 
+def cache_start(cache_index):
+    """The first position a cached forward writes: 0 for None, a host int,
+    or a 0-dim int64 device tensor (no host read)."""
+    if torch.is_tensor(cache_index):
+        return cache_index.long()
+    return 0 if cache_index is None else int(cache_index)
+
+
+def write_cache(cache, k, v, cache_index=None):
+    """Write the new K/V (B, H, S, D) into the cache buffers at positions
+    [cache_index : +S] in place (the JAX package's
+    ``dynamic_update_slice``). ``cache_index`` is None (0), a host int, or
+    a 0-dim int tensor on the cache's device, which keeps the write free of
+    host reads (a CUDA-graph capture)."""
+    s = k.shape[2]
+    start = cache_start(cache_index)
+    if not torch.is_tensor(start):
+        cache["k"][:, :, start:start + s] = k
+        cache["v"][:, :, start:start + s] = v
+        return
+    pos = start + torch.arange(s, device=k.device)
+    cache["k"].index_copy_(2, pos, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, pos, v.to(cache["v"].dtype))
+
+
 class MultiHeadAttention(nn.Module):
     """Attention used by every tower. ``kv_features`` is the width of the
     cross-attention source (the query stream's width by default).
@@ -235,10 +261,7 @@ class MultiHeadAttention(nn.Module):
                 k = rope_k(k)
             new_cache = None
             if cache is not None:
-                idx = 0 if cache_index is None else int(cache_index)
-                s = k.shape[2]
-                cache["k"][:, :, idx:idx + s] = k
-                cache["v"][:, :, idx:idx + s] = v
+                write_cache(cache, k, v, cache_index)
                 new_cache = cache
                 k, v = cache["k"], cache["v"]
             elif return_kv:

@@ -34,6 +34,7 @@ from videotgb_torch.models.common import (
     Embed,
     MultiHeadAttention,
     RMSNorm,
+    cache_start,
     init_kv_cache,
 )
 from videotgb_torch.ops.attention import NEG_INF, make_causal_bias, make_padding_bias
@@ -127,13 +128,15 @@ class LlamaModel(nn.Module):
                 cache_positions_valid=None):
         """Returns (logits (B, S, V) f32, caches or None). ``positions``
         (B, S) default to ``cache_index`` (0 without caches) + arange(S);
-        ``cache_index`` is a host integer."""
+        ``cache_index`` is a host integer or a 0-dim device tensor, from
+        which the cache write, the positions and the mask are computed on
+        the device."""
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         x = inputs_embeds.to(self.config.dtype)
         b, s = x.shape[:2]
         dev = x.device
-        start = 0 if cache_index is None else int(cache_index)
+        start = cache_start(cache_index)
         if positions is None:
             positions = (start + torch.arange(s, device=dev))[None].expand(
                 b, s)

@@ -6,8 +6,10 @@ separate lm_head. ``lora_rank`` > 0 puts LoRA deltas on the q and v
 projections of every attention (encoder self, decoder self and cross).
 
 Decoder caches are a list of per-layer ``{"self": {k, v}, "cross": {k, v}}``
-dicts; the self K/V are written in place at ``cache_index``, the cross K/V
-are computed once by the first cached call (``cross_prefill=True``).
+dicts; the self K/V are written in place at ``cache_index`` (a host int, or
+a 0-dim device tensor from which the positions, the relative-position bias
+and the causal mask are computed on the device), the cross K/V are
+computed once by the first cached call (``cross_prefill=True``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from videotgb_torch.models.common import (
     RMSNorm,
     _fill_normal,
     _param,
+    cache_start,
     init_kv_cache,
 )
 from videotgb_torch.ops.attention import NEG_INF, make_causal_bias, make_padding_bias
@@ -207,7 +210,7 @@ class T5Model(nn.Module):
             new_caches = None
         else:
             s_max = caches[0]["self"]["k"].shape[-2]
-            q_pos = int(cache_index) + torch.arange(s, device=dev)
+            q_pos = cache_start(cache_index) + torch.arange(s, device=dev)
             k_pos = torch.arange(s_max, device=dev)
             causal = torch.where(k_pos[None, :] <= q_pos[:, None], 0.0,
                                  NEG_INF).float()[None, None]

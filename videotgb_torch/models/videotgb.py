@@ -18,10 +18,16 @@ The T5 backbones select in TGB "fusion" mode with the "minus1" rule, Vicuna
 in "multi_modal" mode with the "ratio" rule, as in the JAX package.
 
 Entry points run on the CUDA device unless the model was built with
-``device="cpu"``. Selection noise comes from a ``torch.Generator`` (on the
-card, as the seed of kernel D's Philox draw), or from an explicit ``noise``
-tensor (top_k, 2, B, L), which is how tests share the JAX package's Gumbel
-draws.
+``device="cpu"``. On the card, ``select_phase_blip2``, the two answer
+phases, ``generate_blip2`` / ``generate_instructblip`` and the two decode
+entry points are CUDA-graph programs (``utils/graphs.py``, the JAX
+package's ``jax.jit``): captured at the second call of a signature and
+replayed after, the decode as a prefix graph and a chunk graph the host
+replays until every row has finished; beam search and the W8A8 ViT-g
+stay eager. Each one's ``.eager`` is the plain function. Selection noise
+comes from a ``torch.Generator`` (on the card, as the seed of kernel D's
+Philox draw), or from an explicit ``noise`` tensor (top_k, 2, B, L),
+which is how tests share the JAX package's Gumbel draws.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from videotgb_torch.models.vit import ViTConfig
 from videotgb_torch.ops.decode import DecodeConfig, beam_search, decode
 from videotgb_torch.ops.select import select_frames
 from videotgb_torch.ops.select_pallas import draw_seed, select_frames_cuda
+from videotgb_torch.utils.graphs import graphed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,7 +340,20 @@ def _on(model, batch):
             for k, v in batch.items()}
 
 
+def _uses_beams(arguments) -> bool:
+    """Beam search stays eager: the host steers its loop every step."""
+    return arguments["decode_config"].num_beams > 1
+
+
+def _eager_route(arguments) -> bool:
+    """Beam search, and the W8A8 ViT-g (kernel H encodes its TMA
+    descriptors on the host at every call), stay eager."""
+    return (_uses_beams(arguments)
+            or arguments["model"].config.vit.quant == "int8")
+
+
 # ----------------------------------------------------------------- generate
+@graphed(eager_when=_eager_route)
 @torch.no_grad()
 def generate_blip2(model: VideoTGB, batch, decode_config: DecodeConfig,
                    generator=None, stop_sequences=(), noise=None):
@@ -356,6 +376,7 @@ def generate_blip2(model: VideoTGB, batch, decode_config: DecodeConfig,
     return out, cand
 
 
+@graphed(eager_when=_uses_beams)
 @torch.no_grad()
 def t5_generate_from_encoder(model: VideoTGB, enc_hidden, enc_mask,
                              decode_config: DecodeConfig, generator=None,
@@ -379,9 +400,11 @@ def t5_generate_from_encoder(model: VideoTGB, enc_hidden, enc_mask,
     steps = torch.arange(max_new, device=dev)
 
     def step_fn(tokens, caches, index):
+        # ``index``: a host int (step 0, beams) or a device tensor (decode)
         valid = (steps[None] <= index).float().expand(bk, max_new)
+        prefill = not torch.is_tensor(index) and index == 0
         return model.t5_decode_step(tokens, enc_hidden, enc_mask, caches,
-                                    index, valid, cross_prefill=index == 0)
+                                    index, valid, cross_prefill=prefill)
 
     if beams > 1:
         return beam_search(step_fn, caches, start, decode_config)
@@ -390,6 +413,7 @@ def t5_generate_from_encoder(model: VideoTGB, enc_hidden, enc_mask,
 
 
 # ------------------------------------------- two-phase (bandwidth-aware) mode
+@graphed
 @torch.no_grad()
 def select_phase_blip2(model: VideoTGB, flow_rgb_u8, batch, generator=None,
                        noise=None, mode="fusion", rescale="minus1"):
@@ -407,13 +431,25 @@ def select_phase_blip2(model: VideoTGB, flow_rgb_u8, batch, generator=None,
                                noise=noise)
 
 
+_CLIP: dict = {}
+
+
+def _clip_constants(device):
+    """CLIP's mean and std (3,) f32 on ``device``, made once per device (a
+    graphed phase copies nothing from the host)."""
+    key = str(device)
+    if key not in _CLIP:
+        _CLIP[key] = tuple(torch.tensor(c, dtype=torch.float32, device=device)
+                           for c in (CLIP_MEAN, CLIP_STD))
+    return _CLIP[key]
+
+
 def _encode_selected_u8(model: VideoTGB, selected_frames_u8, batch):
     """CLIP normalization on the device, then ViT -> Q-Former (reading the
     batch's ``qformer_input_ids`` where the config is instruction-aware) ->
     projection, mean-pooled over each request's frames -> (B, Q, d)."""
     dev = model.device
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
-    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
+    mean, std = _clip_constants(dev)
     frames = (selected_frames_u8.to(dev).float() / 255.0 - mean) / std
     b, nf = frames.shape[:2]
     qf_ids = qf_mask = None
@@ -429,6 +465,7 @@ def _encode_selected_u8(model: VideoTGB, selected_frames_u8, batch):
         qformer_input_ids=qf_ids, qformer_attention_mask=qf_mask)
 
 
+@graphed(eager_when=_eager_route)
 @torch.no_grad()
 def answer_phase_blip2(model: VideoTGB, selected_frames_u8, batch,
                        decode_config: DecodeConfig, generator=None):
@@ -443,6 +480,7 @@ def answer_phase_blip2(model: VideoTGB, selected_frames_u8, batch,
                                     generator)
 
 
+@graphed(eager_when=_eager_route)
 @torch.no_grad()
 def answer_phase_instructblip(model: VideoTGB, selected_frames_u8, batch,
                               decode_config: DecodeConfig, generator=None,
@@ -458,6 +496,7 @@ def answer_phase_instructblip(model: VideoTGB, selected_frames_u8, batch,
                                       generator, stop_sequences)
 
 
+@graphed(eager_when=_eager_route)
 @torch.no_grad()
 def generate_instructblip(model: VideoTGB, batch, decode_config: DecodeConfig,
                           generator=None, stop_sequences=(), noise=None):
@@ -519,6 +558,7 @@ def generate_iv(model: VideoTGB, batch, decode_config: DecodeConfig,
                                       generator, stop_sequences)
 
 
+@graphed(eager_when=_uses_beams)
 @torch.no_grad()
 def llama_generate_from_embeds(model: VideoTGB, embeds, mask,
                                decode_config: DecodeConfig, generator=None,
@@ -554,13 +594,17 @@ def llama_generate_from_embeds(model: VideoTGB, embeds, mask,
     first_logits = logits[torch.arange(b, device=dev), lengths - 1]
 
     def step_fn(tokens, caches, t):
-        if t == 0:
+        # ``t``: a host int (step 0, beams) or a device tensor (decode)
+        if not torch.is_tensor(t) and t == 0:
             return first_logits, caches
-        valid[:, s + t - 1] = 1.0
+        slot = s + t - 1
+        if torch.is_tensor(slot):
+            valid.index_fill_(1, slot.view(1), 1.0)
+        else:
+            valid[:, slot] = 1.0
         logits, caches = model.llama_step(
             tokens=tokens, positions=(lengths + t - 1)[:, None],
-            caches=caches, cache_index=s + t - 1,
-            cache_positions_valid=valid)
+            caches=caches, cache_index=slot, cache_positions_valid=valid)
         return logits[:, -1], caches
 
     start = torch.zeros((b_orig,), dtype=torch.long, device=dev)

@@ -6,10 +6,10 @@ repetition penalty and per-sequence early stop on EOS or stop sequences
 Model-agnostic: the caller passes ``step_fn(tokens (B, 1), caches, index)``
 -> (logits (B, V), caches); caches are nested lists / dicts of tensors
 whose axis 0 is the batch, which beam search reorders every step. The
-output buffer is (B, max_new_tokens) padded with pad_token_id after EOS. A
-Python loop replaces the JAX package's ``lax.while_loop``; it stops once
-every sequence (every sample, for beams) has finished, with one host sync
-a step.
+output buffer is (B, max_new_tokens) padded with pad_token_id after EOS.
+:func:`decode` steps on a device index in chunks that a CUDA graph captures
+(``utils/graphs.py``), with one host read a chunk; beam search keeps a
+Python loop with a host index and one host read a step.
 """
 
 from __future__ import annotations
@@ -58,52 +58,118 @@ def top_p_filter(logits, top_p: float):
                        torch.full_like(logits, NEG_INF))
 
 
-def check_stop_sequences(tokens, t: int, stop_sequences):
-    """True where a stop sequence is a suffix of tokens[:, :t+1]."""
-    hit = torch.zeros(tokens.shape[0], dtype=torch.bool, device=tokens.device)
+def check_stop_sequences(tokens, t, stop_sequences):
+    """True where a stop sequence is a suffix of tokens[:, :t+1]. ``t`` is
+    a host int or a 0-dim int64 device tensor (the window is then gathered
+    at the device index, as the JAX package's ``dynamic_slice``)."""
+    b = tokens.shape[0]
+    hit = torch.zeros(b, dtype=torch.bool, device=tokens.device)
     for seq in stop_sequences:
         n = len(seq)
-        if t < n - 1:
-            continue
-        window = tokens[:, t - n + 1:t + 1]
-        seq_t = torch.tensor(seq, dtype=tokens.dtype, device=tokens.device)
-        hit = hit | torch.all(window == seq_t[None, :], dim=-1)
+        if not torch.is_tensor(t):
+            if t < n - 1:
+                continue
+            window = tokens[:, t - n + 1:t + 1]
+            match = torch.ones_like(hit)
+        else:
+            pos = (t - n + 1 + torch.arange(n, device=tokens.device)
+                   ).clamp(min=0)
+            window = torch.gather(tokens, 1, pos[None].expand(b, n))
+            match = (t >= n - 1).expand(b)
+        for j, tok in enumerate(seq):  # ints: no host-to-device copy
+            match = match & (window[:, j] == tok)
+        hit = hit | match
     return hit
+
+
+# decode steps per captured chunk: on the card one CUDA graph of CHUNK
+# steps serves every chunk of a call, and the host tests the finish flag
+# once a chunk
+CHUNK = 8
+
+
+def _next_token(logits, tokens, cfg: DecodeConfig, generator):
+    """The next ids (B,) from step logits: repetition penalty, then argmax,
+    or temperature, top-p and a draw. The draw is ``torch.multinomial``'s
+    own for one sample (argmax of p / q, q ~ Exp(1) from ``generator``),
+    without its host-side checks of the probabilities: the same ids for the
+    same generator state, and nothing a CUDA-graph capture refuses."""
+    logits = apply_repetition_penalty(logits.float(), tokens,
+                                      cfg.repetition_penalty)
+    if not cfg.do_sample:
+        return torch.argmax(logits, dim=-1)
+    scaled = logits / max(cfg.temperature, 1e-6)
+    scaled = top_p_filter(scaled, cfg.top_p)
+    probs = torch.softmax(scaled, dim=-1)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
+def _buffers(x) -> list:
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _buffers(v)]
+    return []
 
 
 def decode(step_fn, caches, start_tokens, config: DecodeConfig,
            generator=None, stop_sequences=()):
-    """Greedy / sampling decode. Returns (B, max_new_tokens) int64 ids of
-    the tokens after ``start_tokens``, pad after each sequence finishes."""
+    """Greedy / sampling decode (the JAX package's ``lax.while_loop``).
+    Returns (B, max_new_tokens) int64 ids of the tokens after
+    ``start_tokens``, pad after each sequence finishes.
+
+    Step 0 calls ``step_fn`` with the host int 0 (the T5 cross prefill, the
+    LLaMA prefill's logits); the later steps run in chunks of ``CHUNK`` (or
+    of the steps left, when fewer) through ``utils.graphs.loop``, their
+    index a 0-dim int64 device tensor advanced on the device, and
+    ``step_fn`` must write its caches in place. Once every row has
+    finished, or the horizon is reached, the loop stops after its chunk: a
+    finished row writes pad, and steps past the horizon write columns and a
+    cache slot (the last) that nothing reads, so the ids equal a
+    step-by-step loop's for any ``CHUNK``."""
+    from videotgb_torch.utils.graphs import loop
+
     cfg = config
     b = start_tokens.shape[0]
     dev = start_tokens.device
-    tokens = torch.full((b, cfg.max_new_tokens), cfg.pad_token_id,
+    n = cfg.max_new_tokens
+    k = max(min(CHUNK, n - 1), 1)  # a short decode takes one short chunk
+    chunks = -(-(n - 1) // k)
+    tokens = torch.full((b, 1 + chunks * k), cfg.pad_token_id,
                         dtype=torch.long, device=dev)
-    finished = torch.zeros(b, dtype=torch.bool, device=dev)
-    cur = start_tokens.long()
-    for t in range(cfg.max_new_tokens):
-        logits, caches = step_fn(cur[:, None], caches, t)
-        logits = apply_repetition_penalty(logits.float(), tokens,
-                                          cfg.repetition_penalty)
-        if cfg.do_sample:
-            scaled = logits / max(cfg.temperature, 1e-6)
-            scaled = top_p_filter(scaled, cfg.top_p)
-            probs = torch.softmax(scaled, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        else:
-            nxt = torch.argmax(logits, dim=-1)
-        nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id), nxt)
-        tokens[:, t] = nxt
-        newly_done = nxt == cfg.eos_token_id
-        if stop_sequences:
-            newly_done = newly_done | check_stop_sequences(tokens, t,
-                                                           stop_sequences)
-        finished = finished | newly_done
-        cur = nxt
-        if bool(finished.all()):
-            break
-    return tokens
+    logits, caches = step_fn(start_tokens.long()[:, None], caches, 0)
+    cur = _next_token(logits, tokens, cfg, generator)
+    tokens[:, 0] = cur
+    finished = cur == cfg.eos_token_id
+    if stop_sequences:
+        finished = finished | check_stop_sequences(tokens, 0, stop_sequences)
+    t = torch.ones((), dtype=torch.long, device=dev)
+    held = _buffers(caches)
+
+    def chunk():
+        for _ in range(k):
+            logits, new_caches = step_fn(cur[:, None], caches,
+                                         t.clamp(max=n - 1))
+            if any(x is not y for x, y in zip(_buffers(new_caches), held)):
+                raise ValueError("decode: step_fn must write its caches in "
+                                 "place after step 0")
+            nxt = _next_token(logits, tokens, cfg, generator)
+            nxt = torch.where(finished, cfg.pad_token_id, nxt)
+            tokens.scatter_(1, t.expand(b, 1), nxt[:, None])
+            done = nxt == cfg.eos_token_id
+            if stop_sequences:
+                done = done | check_stop_sequences(tokens, t, stop_sequences)
+            finished.logical_or_(done)
+            cur.copy_(nxt)
+            t.add_(1)
+        return finished.all()
+
+    if chunks:
+        loop(chunk, chunks)
+    return tokens[:, :n]
 
 
 def _insert_hypothesis(d_scores, d_tokens, d_count, accept, score, hyp, k):

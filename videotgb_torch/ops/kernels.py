@@ -22,10 +22,17 @@ The serving engine launches from two threads at once, so the counts and
 the first-use builds of :func:`library` are guarded by one lock, ``LOCK``:
 a read-modify-write of a shared count is not atomic across threads, and
 two threads must not build one library at the same time.
+
+Under CUDA-graph capture (``utils/graphs.py``) a launch only records: while
+a stream captures, :func:`count` on that stream (from the capturing thread
+or from autograd's, which runs the backward on the forward's stream) adds
+to the graph's tally instead of the counts, and :func:`replayed` adds the
+tally at each replay, so the counts stay those of the launches that ran.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -55,6 +62,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: dict[str, ctypes.CDLL] = {}
 LOCK = threading.RLock()
 _BODY_COUNTS = {"mma": MMA_LAUNCHES, "tile": TILE_LAUNCHES}
+# the raw handle of each capturing stream -> its graph's tally of launches,
+# (name, body) -> n
+_CAPTURING: dict[int, collections.Counter] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -169,12 +179,44 @@ def library(name: str) -> ctypes.CDLL:
 def count(name: str, body: str | None = None) -> None:
     """Add one launch of kernel ``name``; ``body`` "mma" or "tile" also
     adds it to ``MMA_LAUNCHES`` or ``TILE_LAUNCHES`` (any other body, or
-    None, to neither)."""
+    None, to neither). On a capturing stream the launch goes to the
+    graph's tally instead."""
+    if _CAPTURING:
+        import torch
+
+        tally = _CAPTURING.get(torch.cuda.current_stream().cuda_stream)
+        if tally is not None:
+            with LOCK:
+                tally[(name, body)] += 1
+            return
     with LOCK:
-        LAUNCHES[name] += 1
-        per_body = _BODY_COUNTS.get(body)
-        if per_body is not None:
-            per_body[name] += 1
+        _add(name, body, 1)
+
+
+def _add(name: str, body: str | None, n: int) -> None:
+    LAUNCHES[name] += n
+    per_body = _BODY_COUNTS.get(body)
+    if per_body is not None:
+        per_body[name] += n
+
+
+def begin_capture(stream: int, tally: collections.Counter) -> None:
+    """Record the launches on the raw CUDA stream ``stream`` into
+    ``tally`` until :func:`end_capture`."""
+    with LOCK:
+        _CAPTURING[stream] = tally
+
+
+def end_capture(stream: int) -> None:
+    with LOCK:
+        _CAPTURING.pop(stream, None)
+
+
+def replayed(tally: collections.Counter) -> None:
+    """Add a captured graph's launches once: it has just been replayed."""
+    with LOCK:
+        for (name, body), n in tally.items():
+            _add(name, body, n)
 
 
 def reset_launches() -> None:

@@ -17,8 +17,9 @@ def roformer_sincos_table(max_len: int, dim: int, base: float = 10000.0,
     with inv_freq_k = base^(-2k/dim)."""
     half = dim // 2
     exponent = -2.0 * torch.arange(half, dtype=torch.float32, device=device) / dim
-    inv_freq = torch.pow(torch.tensor(base, dtype=torch.float32, device=device),
-                         exponent)
+    # the base filled on the device (no host copy: CUDA-graph safe)
+    inv_freq = torch.pow(torch.full((), base, dtype=torch.float32,
+                                    device=device), exponent)
     angles = (torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
               * inv_freq[None, :])
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)

@@ -17,7 +17,11 @@ with the LLM's own eos / pad ids. The two workers are joined by a depth-1
 queue, so select(N+1) can overlap answer(N).
 
 On the card each worker issues its work on a CUDA stream of its own (on
-the legacy default stream the two would serialise). What crosses from the
+the legacy default stream the two would serialise), and each phase is a
+CUDA-graph program (``utils/graphs.py``): the constructor runs both phases
+twice on a blank padded batch, so the graphs are captured before the
+workers start and a worker only replays (a capture must not overlap the
+other worker's eager work). What crosses from the
 select stream to the answer stream (the uploaded frames and the question
 tensors) is fenced by an event recorded on the select stream and waited on
 by the answer stream, and handed to the caching allocator with
@@ -148,6 +152,7 @@ class ServingEngine:
         if dev.type == "cuda":
             self._select_stream = torch.cuda.Stream(dev)
             self._answer_stream = torch.cuda.Stream(dev)
+            self._capture_phases()
         else:
             self._select_stream = self._answer_stream = None
         self._queue: "queue.Queue[_Request | None]" = queue.Queue()
@@ -165,6 +170,39 @@ class ServingEngine:
         self._answer_worker = threading.Thread(target=self._run_answer,
                                                daemon=True)
         self._answer_worker.start()
+
+    def _answer(self):
+        return (answer_phase_instructblip if self.decoder_only
+                else answer_phase_blip2)
+
+    def _capture_phases(self):
+        """On the card, before the workers start: each phase twice, on its
+        worker's stream, on a batch of blank requests (the eager first call,
+        then the capture of its CUDA graphs: ``utils/graphs.py``). Batches
+        are padded to ``batch_size`` and questions to ``text_len``, so the
+        workers only replay: no capture overlaps the other worker's work."""
+        cfg, dev = self.cfg, self.device
+        image, fs = cfg.vit.image_size, cfg.tgb.flow_size
+        blank = _Request(
+            np.zeros((cfg.num_frames, image, image, 3), np.uint8),
+            np.zeros((self.flow_frames + 1, fs, fs, 3), np.uint8), "",
+            Future(), 0.0)
+        padded = [blank] * self.batch_size
+        with torch.inference_mode(), torch.cuda.device(dev):
+            for _ in range(2):
+                gen = step_generator(self.seed, 0, dev)
+                with torch.cuda.stream(self._select_stream):
+                    flow_u8, bd = self.host_batch(padded)
+                    select_phase_blip2(self.model, flow_u8, bd,
+                                       generator=gen, **self.select_kw)
+                    sel = torch.zeros((self.batch_size, cfg.nframe, image,
+                                       image, 3), dtype=torch.uint8,
+                                      device=dev)
+                self._answer_stream.wait_stream(self._select_stream)
+                with torch.cuda.stream(self._answer_stream):
+                    self._answer()(self.model, sel, bd, self.decode_config,
+                                   generator=gen)
+            torch.cuda.synchronize(dev)
 
     def stats(self) -> dict:
         """Served counts, queue depth, latency percentiles over the last
@@ -353,9 +391,7 @@ class ServingEngine:
                         self._answer_stream.wait_event(ready)
                         for x in (sel_dev, *bd.values()):
                             x.record_stream(self._answer_stream)
-                    answer = (answer_phase_instructblip if self.decoder_only
-                              else answer_phase_blip2)
-                    tokens = answer(self.model, sel_dev, bd,
+                    tokens = self._answer()(self.model, sel_dev, bd,
                                     self.decode_config,
                                     generator=gen).cpu().numpy()
                     t1 = time.perf_counter()

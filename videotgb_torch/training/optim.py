@@ -7,9 +7,10 @@ state. Here the frozen parameters get ``requires_grad=False`` and no state,
 and :func:`optimizer_step` does the optax chain's arithmetic on the
 trainable ones with PyTorch's own pieces: ``clip_grad_norm_`` over their
 gradients, then the fused ``torch.optim.AdamW`` (bias-corrected moments, eps
-after the square root, decoupled weight decay) at the learning rate the
-caller takes from the schedule at the step count before the update (so step
-0 of a warmup from 0 moves nothing). Parameters are updated in place.
+after the square root, decoupled weight decay; ``capturable`` on the card,
+its step count a device tensor) at the learning rate the caller takes from
+the schedule at the step count before the update (so step 0 of a warmup
+from 0 moves nothing). Parameters are updated in place.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from videotgb_torch.utils.graphs import invalidate
 
 def cosine_warmup_schedule(lr: float, total_steps: int,
                            warmup_ratio: float = 0.05) -> Callable[[int], float]:
@@ -90,22 +92,40 @@ def make_optimizer(model: torch.nn.Module, weight_decay: float = 0.0,
         if train:
             names.append(name)
             params.append(p)
+    on_card = bool(params) and all(p.is_cuda for p in params)
     optimizer = torch.optim.AdamW(params, lr=0.0, betas=(B1, B2), eps=EPS,
-                                  weight_decay=weight_decay, fused=True)
+                                  weight_decay=weight_decay, fused=True,
+                                  capturable=on_card)
+    # a restore makes new state tensors: a captured step would update the
+    # old ones
+    optimizer.register_load_state_dict_post_hook(invalidate)
     return optimizer, names
 
 
 @torch.no_grad()
-def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
+def optimizer_step(optimizer: torch.optim.Optimizer,
+                   lr: float | torch.Tensor,
                    max_grad_norm: float | None = 1.0) -> torch.Tensor:
     """Clip by the global norm, then one AdamW update at ``lr``; returns the
     global norm of the gradients before clipping and clears them. A
     parameter left without a gradient counts as a zero gradient, as JAX's
-    gradient of an unused leaf is zero."""
+    gradient of an unused leaf is zero.
+
+    On the card (``capturable``, for the CUDA-graphed train step) ``lr`` is
+    a 0-dim f32 device tensor the caller fills before each step or replay,
+    not a host number a graph would keep; the zeros of the unused
+    parameters are allocated once, at the first (eager) step, and zeroed
+    in each step."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    zeros = optimizer.__dict__.setdefault("_unused_grads", {})
     for p in params:
         if p.grad is None:
-            p.grad = torch.zeros_like(p)
+            z = zeros.get(p)
+            if z is None:
+                z = zeros[p] = torch.zeros_like(p)
+            else:
+                z.zero_()
+            p.grad = z
     norm = torch.nn.utils.clip_grad_norm_(
         params, float("inf") if max_grad_norm is None else max_grad_norm)
     for group in optimizer.param_groups:

@@ -136,6 +136,21 @@ def uniform_candidates(num_frames: int, nframe: int) -> list[int]:
     return [(intv[x] + intv[x + 1] - 1) // 2 for x in range(nframe)]
 
 
+_UNIFORM: dict = {}
+
+
+def _uniform_index(num_frames: int, nframe: int, device) -> torch.Tensor:
+    """:func:`uniform_candidates` as a (nframe,) int64 tensor on ``device``,
+    made once per device (a step captured in a CUDA graph copies nothing
+    from the host)."""
+    key = (num_frames, nframe, str(device))
+    idx = _UNIFORM.get(key)
+    if idx is None:
+        idx = _UNIFORM[key] = torch.tensor(
+            uniform_candidates(num_frames, nframe), device=device)
+    return idx
+
+
 @dataclasses.dataclass(frozen=True)
 class E2ERecipe:
     """``selection="tgb"``: Gumbel spans of the current TGB scored against
@@ -160,8 +175,8 @@ class E2ERecipe:
         frames = batch["frames"]
         b = frames.shape[0]
         if self.selection == "uniform":
-            idx = uniform_candidates(cfg.num_frames, cfg.nframe)
-            cand = torch.tensor(idx, device=frames.device).expand(b, -1)
+            cand = _uniform_index(cfg.num_frames, cfg.nframe,
+                                  frames.device).expand(b, -1)
             start_logits = end_logits = None
         else:
             _, start_logits, end_logits = model.span_logits(

@@ -10,6 +10,19 @@ for a frozen tower that no trainable output depends on, and the clip and
 the gradient norm count trainable parameters only. Each step draws its
 dropout masks and Gumbel noise from one generator seeded from
 ``(seed, step)``.
+
+On the card the step is a CUDA-graph program per batch signature (the JAX
+trainer's jitted ``_train_step``): the forward, the backward, the
+accumulation over micro-batches, the clip and the AdamW update, captured at
+the second step and replayed after, its generator reseeded from
+``(seed, step)`` and its learning rate filled into a device tensor before
+each replay. ``train_step_multi`` takes a window of K batches stacked on a
+new first axis (the JAX trainer's ``lax.scan`` of K steps): on the card one
+upload and K replays of the step's graph, substep i reading slice i, each
+computing what the i-th of K ``train_step`` calls computes. ``fit`` groups
+the batches into such windows when ``steps_per_dispatch`` K > 1 and no
+``batch_transform`` runs between steps (SF's pseudo-label pass needs the
+current parameters every step), never stepping past ``max_steps``.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ from videotgb_torch.training.optim import (
     make_optimizer,
     optimizer_step,
 )
+from videotgb_torch.utils.graphs import graphed
 from videotgb_torch.utils.logging import get_logger
 
 log = get_logger("videotgb_torch.trainer")
@@ -38,8 +52,9 @@ class TrainerConfig:
     warmup_ratio: float = 0.05
     accumulate_grad_batches: int = 1
     max_grad_norm: float | None = 1.0
-    # K train steps per dispatch is the JAX trainer's lax.scan window; its
-    # counterpart here is a CUDA-graphed step (ROADMAP.md queue 1 item 2)
+    # K train steps per dispatch (``train_step_multi`` over a stacked window
+    # of K batches: one upload, K replays of the step's CUDA graph); 1 = one
+    # step a batch. fit() takes 1 while a batch_transform runs (SF).
     steps_per_dispatch: int = 1
     log_every: int = 50
     eval_every: int = 500
@@ -92,11 +107,6 @@ class Trainer:
                  filter_fn: Callable[[str], bool] | None = None):
         """``loss_fn(model, batch, generator) -> (loss, aux dict)``;
         ``filter_fn(name)`` says which parameters train (all without one)."""
-        if config.steps_per_dispatch > 1:
-            raise NotImplementedError(
-                "steps_per_dispatch > 1 (several steps per dispatch) is the "
-                "CUDA-graphed train step of ROADMAP.md queue 1 item 2, not "
-                "ported yet")
         self.config = config
         self.loss_fn = loss_fn
         self.filter_fn = filter_fn
@@ -105,6 +115,7 @@ class Trainer:
                                                config.warmup_ratio)
         self._best = None
         self._stale_evals = 0
+        self._step = graphed(self._step_body)
 
     def init_state(self, model: torch.nn.Module) -> TrainState:
         optimizer, self.trainable = make_optimizer(
@@ -131,12 +142,23 @@ class Trainer:
         entry of ``batch`` is stacked (A, B/A, ...) and the gradients, the
         loss and the scalar aux are averaged over the A micro-batches.
         Returns the state and the metrics ``loss``, ``grad_norm``, ``lr``
-        and the recipe's scalar aux."""
+        and the recipe's scalar aux. On the card the step replays its CUDA
+        graph from the second call of a batch signature on."""
         model = state.model
         dev = next(model.parameters()).device
         batch = {k: (v.to(dev) if torch.is_tensor(v) else v)
                  for k, v in batch.items()}
-        gen = self.generator(state.step, dev)
+        lr = self.schedule(state.step)
+        lr_arg = (lr if dev.type == "cpu" else
+                  torch.full((), lr, dtype=torch.float32, device=dev))
+        metrics = self._step(model, state.optimizer, batch,
+                             self.generator(state.step, dev), lr_arg)
+        metrics["lr"] = lr
+        return TrainState(model, state.optimizer, state.step + 1), metrics
+
+    def _step_body(self, model, optimizer, batch, gen, lr):
+        """The step as one program: every micro-batch's forward and
+        backward, the average, the clip and the update."""
         accum = self.config.accumulate_grad_batches
         micro = ([batch] if accum == 1 else
                  [{k: v[i] for k, v in batch.items()} for i in range(accum)])
@@ -150,18 +172,66 @@ class Trainer:
                     aux_sums[k] = aux_sums.get(k, 0.0) + v.detach()
         if accum > 1:
             with torch.no_grad():
-                for group in state.optimizer.param_groups:
+                for group in optimizer.param_groups:
                     for p in group["params"]:
                         if p.grad is not None:
                             p.grad /= accum
-        lr = self.schedule(state.step)
-        grad_norm = optimizer_step(state.optimizer, lr,
-                                   self.config.max_grad_norm)
-        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm,
-                   "lr": lr}
+        grad_norm = optimizer_step(optimizer, lr, self.config.max_grad_norm)
+        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm}
         metrics.update({k: v / accum for k, v in aux_sums.items()
-                        if k not in metrics})
-        return TrainState(model, state.optimizer, state.step + 1), metrics
+                        if k not in metrics and k != "lr"})
+        return metrics
+
+    def train_step_multi(self, state: TrainState, window: dict
+                         ) -> tuple[TrainState, dict]:
+        """K train steps on ``window``, whose tensors are stacked (K, ...)
+        over K batches (the JAX trainer's ``train_step_multi``). Substep i
+        computes exactly what the i-th of K ``train_step`` calls computes;
+        the window is moved to the device once, and on the card each
+        substep replays the step's graph on slice i. Returns the metrics
+        stacked (K,) per key."""
+        dev = next(state.model.parameters()).device
+        window = {k: (v.to(dev) if torch.is_tensor(v) else v)
+                  for k, v in window.items()}
+        k_steps = next(v for v in window.values()
+                       if torch.is_tensor(v)).shape[0]
+        stacked: dict[str, list] = {}
+        for i in range(k_steps):
+            state, metrics = self.train_step(
+                state, {k: v[i] for k, v in window.items()})
+            for k, v in metrics.items():
+                stacked.setdefault(k, []).append(v)
+        out = {k: torch.stack(v) for k, v in stacked.items() if k != "lr"}
+        out["lr"] = torch.tensor(stacked["lr"], dtype=torch.float64)
+        return state, out
+
+    def _windows(self, train_iter: Iterable[dict], k: int,
+                 state: TrainState) -> Iterable:
+        """The batch stream grouped into K-step windows for
+        ``train_step_multi``: yields ``("window", stacked)`` with every
+        tensor stacked (K, ...), and single batches where the horizon is
+        nearer than a full window or the stream ends inside one, so a run
+        stops at exactly ``max_steps`` and one window shape is captured."""
+        remaining = self.config.max_steps - int(state.step)
+        buf: list[dict] = []
+        for batch in train_iter:
+            if remaining < k:
+                # the buffer is empty here: a full window leaves k or more
+                remaining -= 1
+                yield batch
+                if remaining <= 0:
+                    return
+                continue
+            buf.append(batch)
+            if len(buf) == k:
+                stacked = {key: torch.stack([b[key] for b in buf])
+                           for key in buf[0] if torch.is_tensor(buf[0][key])}
+                buf.clear()
+                remaining -= k
+                yield ("window", stacked)
+                if remaining <= 0:
+                    return
+        yield from buf  # the stream ended inside a window
 
     # ------------------------------------------------------------------ fit
     def fit(
@@ -175,19 +245,28 @@ class Trainer:
         """Train until ``max_steps`` (or the iterator ends, or early stop).
         ``batch_transform(state, batch)`` runs host-side per step with the
         CURRENT parameters (the hook of the SF pseudo-label pass). The
-        cadence is the JAX trainer's: at each step log (every
-        ``log_every``), then evaluate (every ``eval_every``), save with the
-        eval metrics and test for an early stop; between evals, save
-        without metrics every ``checkpoint_every``."""
+        cadence is the JAX trainer's: at each step or window of
+        ``steps_per_dispatch`` steps log (when a multiple of ``log_every``
+        was crossed), then evaluate (``eval_every``), save with the eval
+        metrics and test for an early stop; between evals, save without
+        metrics when the step is a multiple of ``checkpoint_every``."""
         cfg = self.config
         if state.step >= cfg.max_steps:
             return state  # resumed at/after the horizon: nothing to do
+        # K steps a dispatch only while no host pass runs between steps
+        k_dispatch = cfg.steps_per_dispatch if batch_transform is None else 1
+        feed = (self._windows(train_iter, k_dispatch, state)
+                if k_dispatch > 1 else train_iter)
         t0 = time.perf_counter()
-        for batch in train_iter:
+        for batch in feed:
             prev_step = state.step
-            if batch_transform is not None:
-                batch = batch_transform(state, batch)
-            state, metrics = self.train_step(state, batch)
+            if isinstance(batch, tuple):
+                state, stacked = self.train_step_multi(state, batch[1])
+                metrics = {k: v[-1] for k, v in stacked.items()}
+            else:
+                if batch_transform is not None:
+                    batch = batch_transform(state, batch)
+                state, metrics = self.train_step(state, batch)
             step = state.step
 
             def crossed(every):
