@@ -158,15 +158,15 @@ Phases, each fatal on failure (exit code 1):
    flagship width, f32 parameters, bf16 compute, batch 2, 32 candidate
    frames at 224², 64 flow frames, 128-token questions, 32-token answers,
    32 pseudo tokens. 16a: ``train.main`` with ``experiment=
-   smoke_sf_synthetic model.preset=flagship``, 2 steps, one eval, one save:
+   smoke_sf_synthetic model.preset=flagship``, 2 steps, one eval, one save
+   made but not written (the 40.9 GB write gives its time to phase 21):
    each step's pseudo-label pass and ``train_step`` timed and counted
    against the launches ``expected_launches`` derives from the config and
    the dispatch rule (kernel C with ds on every T5 encoder layer, two
    passes), the scores in [0, 1] and the spans inside each row's flow
    length, ViT-g and RAFT bit-identical, T5, TGB and Q-Former tensors
    moved, finite ``loss``, ``lm_loss`` and ``mrc_loss``; the memory the
-   optimizer step adds; the save's time and bytes (it needs 1.1 x 40.9 GB
-   of free disk under ``build/``); the T5 relative-position bias's
+   optimizer step adds; the T5 relative-position bias's
    gradient on kernel C against its plain version. 16b:
    ``SFRecipe(online_flow=True)`` on InstructBLIP-Flan-T5
    (``LSTP_SF_small``), 2 library steps with ``flow_frames`` (2, 65, 224,
@@ -196,7 +196,8 @@ Phases, each fatal on failure (exit code 1):
    D + 39 A each, identical frames and tokens; ``evaluate.main`` on the
    checkpoint gives the run's val/score. 17c: ``train.main`` with
    ``experiment=LSTP_instructblipvicuna7b_ivinstruct`` (batch 2, no
-   accumulation, 2 steps, one eval, one save; ``llama-vendored`` where
+   accumulation, 2 steps, one eval, one save made but not written (the
+   33.7 GB write gives its time to phase 21); ``llama-vendored`` where
    ``transformers`` imports, else ``data.tokenizer=byte``, said on a line
    of its own): launches as derived (kernel C at head dim 128 on two
    passes), the frozen parameters bit-identical, the Q-Former moved,
@@ -235,6 +236,34 @@ Phases, each fatal on failure (exit code 1):
    ``utils.sweep.run_sweep`` on the card (``<sweep dir>/0`` and ``/1``
    under ``build/phase19/``); ``evalsuite.debug`` on a written file.
 
+20. the CUDA-graph programs (``graph_paths``) against their eager
+   functions;
+21. data-parallel and fully sharded training (``parallel_paths``) at
+   flagship width, E2E at a global batch of 8: a world-1 reference in this
+   process, then two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device; gloo carries CUDA tensors through the host), each
+   confirming gloo's ``all_reduce``, ``all_gather_into_tensor`` and
+   ``reduce_scatter_tensor`` on CUDA tensors first: 21a the dp route, a
+   uniform step then a ``selection=tgb`` step, 63 A + 24 C a step a rank
+   and 1 D on the tgb step, all on the tensor-core bodies, each rank's
+   loss and grad norm within 1e-2 relative of world 1's, D's frames equal
+   to world 1's (the Philox counter starts at the rank's first global
+   row), trainable parameters bit-identical across the ranks (an
+   all-reduce of their bits' minimum and maximum), every frozen tensor's
+   fingerprint unchanged, each rank's step wall, peak memory and the
+   all-reduces' share of the step; 21b the fsdp route as ``train.py``
+   takes it (the model handed unsharded to ``Trainer.init_state``, which
+   applies FSDP2 over an fsdp=2 mesh), one E2E step at step 1 (lr > 0)
+   against the dp route's step with FSDP2's grouping of each unit's input
+   gradients (``P21Grouping``): its gradients (each leaf gathered whole
+   before the update) bit-identical, its loss equal, its grad norm within
+   1e-5 and each updated trainable entry within one last bit of itself
+   plus four of lr's (the clip reads the shards' norm); its loss and grad
+   norm within 1e-2 of the unwrapped world-1 step's, and the gradient gaps
+   leaf by leaf to the world-1 step, the plain dp step and the grouped dp
+   step printed; 21c a tiny world-2 FSDP checkpoint restored in this
+   process with equal parameters and Adam moments.
+
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
 of B and E the tile body (``kernels.TILE_LAUNCHES``): the paths hand them
@@ -246,6 +275,7 @@ Needs one CUDA card; exits non-zero without one, or without the package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2855,6 +2885,9 @@ class CliProbe:
     def __init__(self):
         self.frozen = self.moving = None
         self.snapshot_device = None  # None: frozen snapshots on the host
+        # a save made but not written, recorded with 0 bytes: the 40.9 GB
+        # SF and 33.7 GB Vicuna IV saves give their time to phase 21
+        self.skip_saves = False
         self.clear()
         self._undo = []
 
@@ -2968,6 +3001,10 @@ class CliProbe:
 
         def save(orig):
             def timed(mgr, step, state, metrics=None):
+                if probe.skip_saves:
+                    probe.saves.append({"step": step, "bytes": 0, "s": 0.0,
+                                        "skipped": True})
+                    return
                 written, real = [], torch.save
 
                 def counting(obj, path, *args, **kwargs):
@@ -3201,7 +3238,9 @@ def cli_run(name, probe, drive, step_want, eval_want, card,
         log(f"  {name} save of step {r['step']}: {r['bytes'] / 1e9:.3f} GB "
             f"in {r['s']:.2f} s"
             + (f" ({r['bytes'] / 1e9 / r['s']:.2f} GB/s)" if r["bytes"]
-               else " (nothing written: not above the newest kept step)"))
+               else " (not written: the phase skips this save)"
+               if r.get("skipped") else
+               " (nothing written: not above the newest kept step)"))
     for r in probe.restores:
         log(f"  {name} restore of step {r['step']} {r['items']}: "
             f"{r['bytes'] / 1e9:.3f} GB in {r['s']:.2f} s (open + load into "
@@ -3418,7 +3457,6 @@ def cli_paths(card: str) -> dict:
 
 
 # ---------------------------- phase 16: SF and the InstructBLIP training paths
-SF_CKPT_GB = 40.9  # a flagship SF save: f32 parameters + the Adam moments
 SF_SHAPES = ["data.batch_size=2", "data.max_flow_len=64",
              "data.flow_len_range=[8,64]", "data.max_txt_len=128",
              "data.answer_len=32", "extras.print_config=false"]
@@ -3689,14 +3727,6 @@ def sf_paths(card: str) -> dict:
     root = os.path.join(HERE, "build", "phase16")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    free = shutil.disk_usage(root).free
-    need = 1.1 * SF_CKPT_GB * 1e9
-    log(f"  free disk under {root}: {free / 1e9:.1f} GB (need "
-        f"{need / 1e9:.1f} GB: one {SF_CKPT_GB} GB SF checkpoint and room)")
-    if free < need:
-        fail(f"phase 16 needs {need / 1e9:.1f} GB of free disk for one "
-             f"{SF_CKPT_GB} GB flagship SF checkpoint; {free / 1e9:.1f} GB "
-             f"is free under {root}")
     probe = CliProbe()
     probe.install()
     t16 = time.perf_counter()
@@ -3717,11 +3747,13 @@ def sf_paths(card: str) -> dict:
                  "model.language_model.encoder_blocks.0.",
                  "temporal_encoder.mrc_head", "model.qformer.layers.0.")
         probe.moving = lambda n: n.startswith(watch)
+        probe.skip_saves = True  # not written: phase 21 takes its time
         final, got = cli_run("SF train.main", probe, lambda: T.main(args),
                              step_want, eval_want, card,
                              pseudo_want=pseudo_want)
         add(got)
         probe.frozen = probe.moving = None
+        probe.skip_saves = False
         if len(probe.steps) != 2 or len(probe.pseudo) != 2:
             fail(f"SF: {len(probe.steps)} steps and {len(probe.pseudo)} "
                  "pseudo passes, not 2 and 2")
@@ -3765,8 +3797,8 @@ def sf_paths(card: str) -> dict:
                 f"{r['add'] / 2 ** 30:.2f} GiB at their peak on {card}")
         if set(final) != {"val/score"}:
             fail(f"SF: final metrics {final}, want val/score alone")
-        if len(probe.saves) != 1 or not probe.saves[0]["bytes"]:
-            fail(f"SF: saves {probe.saves}, want one")
+        if len(probe.saves) != 1 or not probe.saves[0].get("skipped"):
+            fail(f"SF: saves {probe.saves}, want one, not written")
 
         # kernel C's ds through autograd: one backward on kernel C keeps
         # every call's inputs; each call's ds against C's plain version on
@@ -3963,7 +3995,7 @@ def sf_paths(card: str) -> dict:
 
 # ----------------------- phase 17: stage 3 (IV, IVT) and its checkpoint served
 S3_TEXT, S3_ANSWER, S3_NEW = 128, 32, 16
-S3_CKPT_GB = 32.3  # the largest save of the phase: Vicuna-7B's f32 params
+S3_CKPT_GB = 17.2  # the phase's one written save, IVT's (17c's is not)
 S3_CLI = ["model.preset=flagship", "data.num_workers=4",
           f"data.max_txt_len={S3_TEXT}", f"data.answer_len={S3_ANSWER}",
           f"model.eval_max_new={S3_NEW}", "trainer.max_steps=2",
@@ -4379,6 +4411,7 @@ def stage3_paths(card: str) -> tuple:
         probe.snapshot_device = "cpu"  # 8B frozen parameters: the host
         probe.moving = lambda n: n.startswith(("model.qformer.layers.0.",
                                                "model.query_tokens"))
+        probe.skip_saves = True  # not written: phase 21 takes its time
         vfinal, got = cli_run("Vicuna IV train.main", probe,
                               lambda: T.main(vargs), step_c, eval_c, card)
         add(got)
@@ -5510,6 +5543,632 @@ def graph_paths(card: str) -> dict:
     return totals
 
 
+# ------------------------------------- phase 21: data-parallel and FSDP
+P21_DIR = os.path.join(HERE, "build", "phase21")
+# four last bits of phase 21's learning rate, 5e-5 (f32): how far an Adam
+# update may move when its clip coefficient moves by one last bit
+P21_UPDATE_BITS = 4 * 2.0 ** (math.floor(math.log2(5e-5)) - 23)
+
+
+def p21_batch(cfg, dev) -> dict:
+    """The global E2E batch of 8 (``e2e_batch``) with 64 flow frames and
+    24-token sampler questions for the tgb selection, made from a seed on
+    the card: every process makes the same one."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    batch = e2e_batch(cfg, dev, gen)
+    b, flow_len, text_len, fs = 8, 64, 24, cfg.tgb.flow_size
+    vocab = min(cfg.tgb.vocab_size, 5000)
+    batch.update(
+        flow=torch.randn((b, flow_len, fs, fs, 2), generator=gen, device=dev),
+        flow_mask=torch.ones((b, flow_len + 2), device=dev),
+        video_length=torch.full((b,), flow_len, device=dev),
+        sampler_question_ids=torch.randint(100, vocab, (b, text_len),
+                                           generator=gen, device=dev),
+        sampler_question_mask=torch.ones((b, text_len), device=dev))
+    return batch
+
+
+def p21_tiny_batch(cfg, dev) -> dict:
+    """A global E2E batch of 8 at the tiny preset (its small vocabularies),
+    made from a seed on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    b, img, vocab = 8, cfg.blip2.vit.image_size, cfg.blip2.t5.vocab_size
+    return {"frames": torch.randn((b, cfg.num_frames, img, img, 3),
+                                  generator=gen, device=dev),
+            "question_ids": torch.randint(4, vocab, (b, 6), generator=gen,
+                                          device=dev),
+            "question_mask": torch.ones((b, 6), device=dev),
+            "answer_ids": torch.randint(2, vocab, (b, 4), generator=gen,
+                                        device=dev)}
+
+
+class P21Loss:
+    """The E2E loss (``LSTP_blip2_e2e``: multi_modal TGB, dropout on) with
+    the selection switched between steps; keeps the frames of the last
+    tgb step."""
+
+    def __init__(self):
+        from videotgb_torch import train as T
+
+        self.recipes = {s: T.build_recipe({"recipe": "e2e",
+                                           "tgb_mode": "multi_modal",
+                                           "selection": s})
+                        for s in ("uniform", "tgb")}
+        self.selection, self.cand = "uniform", None
+        self.filter_fn = self.recipes["uniform"].filter_fn
+
+    def __call__(self, model, batch, gen):
+        loss, aux = self.recipes[self.selection].loss_fn(model, batch, gen)
+        if self.selection == "tgb":
+            self.cand = aux["cand"]
+        return loss, aux
+
+
+def p21_expected(tgb: bool) -> dict:
+    """A flagship E2E step's launches: ViT-g's 39 and the T5-xl encoder's
+    24 flash forwards, its 24 flash backwards, and D once on a tgb step."""
+    from videotgb_torch.ops import kernels
+
+    return {**dict.fromkeys(kernels.LAUNCHES, 0), "flash_fwd": 39 + 24,
+            "flash_bwd": 24, "select_frames": int(tgb)}
+
+
+def p21_step(name, trainer, state, batch, tgb, timer=None):
+    """One counted, synchronised ``train_step``: (state, record)."""
+    import torch
+
+    from videotgb_torch.ops import kernels
+
+    kernels.reset_launches()
+    if timer is not None:
+        timer.update(ms=0.0, calls=0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, m = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    want = p21_expected(tgb)
+    if launches != want:
+        fail(f"{name}: launches {launches} != {want}")
+    check_bodies(name, launches)
+    rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "wall_ms": wall, "launches": launches}
+    if timer is not None:
+        rec.update(allreduce_ms=timer["ms"], allreduce_calls=timer["calls"])
+    if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+        fail(f"{name}: non-finite loss or grad norm {rec}")
+    return state, rec
+
+
+def p21_fingerprint(params: dict, names) -> "torch.Tensor":
+    """Per tensor, the sum and the sum of squares of its bit patterns as
+    int64 (wrapping): a change of any value changes them but for a
+    vanishing share of changes."""
+    import torch
+
+    rows = []
+    for n in names:
+        p = params[n].detach().reshape(-1)
+        bits = (p.view(torch.int32) if p.element_size() == 4 else
+                p.view(torch.int16)).long()
+        rows.append(torch.stack([bits.sum(), (bits * bits).sum()]))
+    return torch.stack(rows)
+
+
+class P21Gradients:
+    """While entered, keeps a copy of each trainable parameter's gradient
+    as the update reads it (summed over the ranks, before the clip): on
+    the FSDP2 route each rank's shard, made whole by :meth:`whole` after
+    the step."""
+
+    def __init__(self, trainer, model):
+        self.trainer, self.model, self.grads = trainer, model, {}
+
+    def __enter__(self):
+        from videotgb_torch.training import trainer as TR
+
+        self.real = real = TR.optimizer_step
+        params = dict(self.model.named_parameters())
+
+        def spy(optimizer, lr, max_grad_norm):
+            for n in self.trainer.trainable:
+                if params[n].grad is not None:
+                    self.grads[n] = params[n].grad.detach().clone()
+            return real(optimizer, lr, max_grad_norm)
+
+        TR.optimizer_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        from videotgb_torch.training import trainer as TR
+
+        TR.optimizer_step = self.real
+
+    def whole(self) -> dict:
+        from videotgb_torch.parallel.sharding import full_tensor
+
+        return {n: full_tensor(g) for n, g in self.grads.items()}
+
+
+class P21Grouping:
+    """While entered, each FSDP2 unit of ``model`` (``fsdp_units``) passes
+    the inputs it takes with a gradient through one identity autograd node,
+    as FSDP2's ``RegisterPostBackwardFunction`` does: the unit's gradient
+    contributions to such an input (a T5 decoder block's K and V
+    projections of the encoder output) are summed in that node before they
+    join the other units'. An unwrapped model so hooked computes the FSDP2
+    route's gradients; bf16 sums grouped otherwise round otherwise."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        import torch
+        from torch.utils._pytree import tree_flatten, tree_unflatten
+
+        from videotgb_torch.parallel.sharding import fsdp_units
+
+        class Identity(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *xs):
+                return xs
+
+            @staticmethod
+            def backward(ctx, *grads):
+                return grads
+
+        def pre(module, args, kwargs):
+            leaves, spec = tree_flatten((args, kwargs))
+            at = [i for i, x in enumerate(leaves)
+                  if torch.is_tensor(x) and x.requires_grad]
+            if not at or not torch.is_grad_enabled():
+                return None
+            for i, x in zip(at, Identity.apply(*[leaves[i] for i in at])):
+                leaves[i] = x
+            return tree_unflatten(leaves, spec)
+
+        self.hooks = [u.register_forward_pre_hook(pre, with_kwargs=True)
+                      for u in fsdp_units(self.model)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+
+def p21_gap(got: dict, want: dict, slack: float = 0.0) -> dict:
+    """``got`` against ``want`` (name -> tensor, a leaf missing on one side
+    read as zeros): the leaves and entries not bit-identical, the largest
+    difference of an entry in units of ``want``'s last bit (f32) plus
+    ``slack``, the relative gap of the whole (all leaves as one vector)
+    and the largest relative gap of a leaf among those holding at least
+    1e-4 of the whole's norm, with its name."""
+    import torch
+
+    diff2 = ref2 = ulps = 0.0
+    unequal = entries = 0
+    norms = {}
+    for n in want.keys() | got.keys():  # a leaf missing on one side: zeros
+        like = got[n] if n in got else want[n]
+        g, w = (x.to(like.device).float() if x is not None else
+                torch.zeros(like.shape, device=like.device)
+                for x in (got.get(n), want.get(n)))
+        d = g - w
+        entries += int((d != 0).sum())
+        unequal += int(not torch.equal(g, w))
+        if entries:  # the largest difference in steps of w's last bit
+            ulp = torch.maximum(
+                torch.nextafter(w, torch.full_like(w, math.inf)) - w,
+                w - torch.nextafter(w, torch.full_like(w, -math.inf)))
+            ulps = max(ulps, float((d.abs() / (ulp + slack)).max()))
+        norms[n] = (float(d.norm()), float(w.norm()))
+        diff2 += norms[n][0] ** 2
+        ref2 += norms[n][1] ** 2
+    floor = 1e-4 * math.sqrt(ref2)
+    worst, leaf = max(((d / r, n) for n, (d, r) in norms.items()
+                       if r >= floor), default=(0.0, None))
+    return {"unequal": unequal, "leaves": len(norms), "entries": entries,
+            "rel": math.sqrt(diff2 / ref2) if ref2 else 0.0,
+            "worst": worst, "leaf": leaf, "ulps": ulps}
+
+
+def p21_gap_text(g: dict) -> str:
+    return (f"{g['unequal']} of {g['leaves']} leaves ({g['entries']} "
+            f"entries) not bit-identical, at most {g['ulps']:.3g} last "
+            f"bits, whole {g['rel']:.3e} relative, worst leaf {g['leaf']} "
+            f"{g['worst']:.3e}")
+
+
+def p21_rank() -> list:
+    """One rank of phase 21 (two ranks on the one card over gloo)."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from videotgb_torch import train as T
+    from videotgb_torch.parallel.distributed import (
+        barrier, gather_objects, process_index)
+    from videotgb_torch.parallel.mesh import MeshConfig, create_mesh
+    from videotgb_torch.parallel.sharding import (full_tensor, is_sharded,
+                                                  shard_batch)
+    from videotgb_torch.training.checkpoint import (
+        CheckpointConfig, CheckpointManager, train_state_items)
+    from videotgb_torch.training.trainer import Trainer, TrainerConfig
+
+    faulthandler.enable()  # a rank that dies prints its stack
+    rank, dev = process_index(), torch.device("cuda", 0)
+    tag = f"  21 rank {rank}"
+
+    # gloo's collectives on CUDA tensors, before anything is built on them
+    x = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(x)
+    g = torch.empty(8, device=dev)
+    dist.all_gather_into_tensor(g, torch.full((4,), float(rank), device=dev))
+    r = torch.empty(2, device=dev)
+    dist.reduce_scatter_tensor(r, torch.arange(4.0, device=dev))
+    if not (x.tolist() == [3.0] * 4
+            and g.tolist() == [0.0] * 4 + [1.0] * 4
+            and r.tolist() == [4.0 * rank, 4.0 * rank + 2.0]):
+        fail(f"{tag}: gloo on CUDA tensors gave {x.tolist()}, "
+             f"{g.tolist()}, {r.tolist()}")
+    log(f"{tag}: gloo's all_reduce, all_gather_into_tensor and "
+        f"reduce_scatter_tensor on CUDA tensors agree with their sums")
+
+    timer = {"ms": 0.0, "calls": 0}
+    real_all_reduce = dist.all_reduce
+
+    def timed_all_reduce(t, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_all_reduce(t, *args, **kwargs)
+        torch.cuda.synchronize()
+        timer["ms"] += (time.perf_counter() - t0) * 1e3
+        timer["calls"] += 1
+        return out
+
+    out = {"rank": rank}
+    # ---- 21a: dp=2, a uniform step then a tgb step
+    mesh = create_mesh(MeshConfig(dp=2), device_type="cuda")
+    model, cfg = T.build_model({"preset": "flagship"}, device=dev, seed=0)
+    rows = shard_batch(p21_batch(cfg, dev), mesh)
+    loss = P21Loss()
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                      loss.filter_fn, mesh=mesh)
+    state = trainer.init_state(model)
+    params = dict(model.named_parameters())
+    trainable = set(trainer.trainable)
+    frozen = [n for n in params if n not in trainable]
+    before = p21_fingerprint(params, frozen)
+    # 21b's references first, not counted: the uniform step at step 1 (lr >
+    # 0) on the dp route with FSDP2's grouping of the units' input
+    # gradients and without it, each from the start with a new optimizer
+    start = {n: params[n].detach().clone() for n in trainable}
+    refs = {}
+    for key in ("grouped", "dp"):
+        with torch.no_grad():
+            for n in trainable:
+                params[n].copy_(start[n])
+        trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                          loss.filter_fn, mesh=mesh)
+        state = trainer.init_state(model)
+        state.step = 1
+        with (P21Grouping(model) if key == "grouped"
+              else contextlib.nullcontext()), \
+                P21Gradients(trainer, model) as spy:
+            state, m = trainer.train_step(state, rows)
+        refs[key] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "grads": {n: g.cpu() for n, g in spy.grads.items()},
+                     "params": {n: params[n].detach().cpu()
+                                for n in trainable}}
+    with torch.no_grad():
+        for n in trainable:
+            params[n].copy_(start[n])
+    del start, spy
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                      loss.filter_fn, mesh=mesh)
+    state = trainer.init_state(model)
+    torch.cuda.reset_peak_memory_stats()
+    dist.all_reduce = timed_all_reduce
+    steps = []
+    try:
+        for sel in ("uniform", "tgb"):
+            loss.selection = sel
+            state, rec = p21_step(f"21a rank {rank} {sel} step", trainer,
+                                  state, rows, sel == "tgb", timer)
+            steps.append(rec)
+    finally:
+        dist.all_reduce = real_all_reduce
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cand = torch.cat(gather_objects(loss.cand.cpu()))
+    flat = torch.cat([params[n].detach().reshape(-1).view(torch.int32)
+                      for n in trainer.trainable])
+    lo, hi = flat.clone(), flat
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    log(f"{tag}: 21a steps {[(r['loss'], r['grad_norm']) for r in steps]}")
+    out["ddp"] = {"steps": steps, "peak_gib": peak, "cand": cand,
+                  "route": trainer.route, "step_route": trainer.step_route,
+                  "identical": bool(torch.equal(lo, hi)),
+                  "frozen_same": bool(torch.equal(
+                      before, p21_fingerprint(params, frozen))),
+                  "n_trainable": len(trainable), "n_frozen": len(frozen)}
+    del model, trainer, state, params, flat, lo, hi, before, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 21b: fsdp=2, the model handed unsharded to Trainer.init_state as
+    # train.py hands it; one uniform step at step 1
+    mesh = create_mesh(MeshConfig(dp=1, fsdp=2), device_type="cuda")
+    model, cfg = T.build_model({"preset": "flagship"}, device=dev, seed=0)
+    loss = P21Loss()
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                      loss.filter_fn, mesh=mesh)
+    t = time.perf_counter()
+    state = trainer.init_state(model)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t
+    if trainer.route != "fsdp" or not is_sharded(model):
+        fail(f"21b rank {rank}: init_state took the route {trainer.route}")
+    state.step = 1
+    torch.cuda.reset_peak_memory_stats()
+    with P21Gradients(trainer, model) as spy:
+        state, rec = p21_step(f"21b rank {rank} fsdp step", trainer, state,
+                              shard_batch(p21_batch(cfg, dev), mesh), False)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag}: 21b step {rec['loss']:.6f} {rec['grad_norm']:.6f} "
+        f"{rec['wall_ms']:.2f} ms; gathering the gradients and parameters")
+    grads = spy.whole()
+    params = dict(model.named_parameters())
+    full = {n: full_tensor(params[n]) for n in trainer.trainable}
+    grouped = refs["grouped"]
+    fsdp = {**rec, "peak_gib": peak, "shard_s": shard_s,
+            "route": trainer.route, "step_route": trainer.step_route,
+            "grouped_loss": grouped["loss"],
+            "grouped_grad_norm": grouped["grad_norm"],
+            "vs_grouped": p21_gap(grads, grouped["grads"]),
+            "params_vs_grouped": p21_gap(full, grouped["params"],
+                                         slack=P21_UPDATE_BITS),
+            "vs_dp": p21_gap(grads, refs["dp"]["grads"]),
+            "grouped_vs_dp": p21_gap(grouped["grads"], refs["dp"]["grads"]),
+            "dp_loss": refs["dp"]["loss"],
+            "dp_grad_norm": refs["dp"]["grad_norm"]}
+    if rank == 0:
+        want = torch.load(os.path.join(P21_DIR, "ref.pt"))
+        fsdp.update(
+            vs_world1=p21_gap(grads, want["grads"]),
+            dp_vs_world1=p21_gap(refs["dp"]["grads"], want["grads"]),
+            grouped_vs_world1=p21_gap(grouped["grads"], want["grads"]),
+            params_vs_world1=p21_gap(full, want["params"]))
+        del want
+        for key in [k for k in fsdp if "vs_" in k]:
+            log(f"{tag}: 21b {key}: {p21_gap_text(fsdp[key])}")
+    out["fsdp"] = fsdp
+    del model, trainer, state, params, full, grads, grouped, refs, spy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 21c: a tiny world-2 FSDP checkpoint for a world-1 restore
+    log(f"{tag}: 21c")
+    model, cfg = T.build_model({"preset": "tiny"}, device=dev, seed=0)
+    loss = P21Loss()
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-3), loss,
+                      loss.filter_fn, mesh=mesh)
+    state = trainer.init_state(model)
+    tiny = shard_batch(p21_tiny_batch(cfg, dev), mesh)
+    for _ in range(2):
+        state, _ = trainer.train_step(state, tiny)
+    params = dict(model.named_parameters())
+    held = {"params": {n: full_tensor(params[n]).cpu()
+                       for n in trainer.trainable},
+            "moments": {n: {k: full_tensor(
+                state.optimizer.state[params[n]][k]).cpu()
+                for k in ("exp_avg", "exp_avg_sq")}
+                for n in trainer.trainable}}
+    items = train_state_items(state)
+    if rank == 0:
+        CheckpointManager(CheckpointConfig(
+            directory=os.path.join(P21_DIR, "ckpt"))).save(state.step, items)
+        out["held"] = held
+    barrier()
+    return gather_objects(out)
+
+
+def parallel_paths(card: str) -> dict:
+    """Phase 21 (see the module's docstring)."""
+    import shutil
+
+    import torch
+
+    from videotgb_torch import train as T
+    from videotgb_torch.parallel.distributed import spawn
+    from videotgb_torch.training.checkpoint import (
+        CheckpointConfig, CheckpointManager, restore_into)
+    from videotgb_torch.training.trainer import Trainer, TrainerConfig
+
+    shutil.rmtree(P21_DIR, ignore_errors=True)
+    os.makedirs(P21_DIR)
+    dev = torch.device("cuda")
+    totals: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # ---- the world-1 references, in this process, eager (the reference's
+    # tgb step would otherwise be captured without an eager run of its own):
+    # 21b's, the uniform step at step 1 (lr > 0) from the start, its
+    # gradients and updated trainable parameters saved; then 21a's, a
+    # uniform step then a tgb step from the start with a new optimizer
+    model, cfg = T.build_model({"preset": "flagship"}, device=dev, seed=0)
+    batch = p21_batch(cfg, dev)
+    loss = P21Loss()
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                      loss.filter_fn)
+    trainer._step = trainer._step.eager
+    state = trainer.init_state(model)
+    params = dict(model.named_parameters())
+    start = {n: params[n].detach().clone() for n in trainer.trainable}
+    state.step = 1
+    with P21Gradients(trainer, model) as spy:
+        state, ref_b = p21_step("21 world-1 step at step 1", trainer, state,
+                                batch, False)
+    add(ref_b["launches"])
+    torch.save({"grads": {n: g.cpu() for n, g in spy.grads.items()},
+                "params": {n: params[n].detach().cpu()
+                           for n in trainer.trainable}},
+               os.path.join(P21_DIR, "ref.pt"))
+    log(f"  21 world 1 from the start at step 1: loss {ref_b['loss']:.6f}, "
+        f"grad_norm {ref_b['grad_norm']:.6f}")
+    with torch.no_grad():
+        for n in trainer.trainable:
+            params[n].copy_(start[n])
+    del start, spy
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                      loss.filter_fn)
+    trainer._step = trainer._step.eager
+    state = trainer.init_state(model)
+    ref_a = []
+    for sel in ("uniform", "tgb"):
+        loss.selection = sel
+        state, rec = p21_step(f"21 world-1 {sel} step", trainer, state,
+                              batch, sel == "tgb")
+        ref_a.append(rec)
+        add(rec["launches"])
+        log(f"  21 world 1, {sel} step: loss {rec['loss']:.6f}, grad_norm "
+            f"{rec['grad_norm']:.6f}, {rec['wall_ms']:.2f} ms (eager)")
+    cand_a = loss.cand.clone().cpu()
+    del model, trainer, state, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the two ranks
+    t = time.perf_counter()
+    try:
+        ranks = spawn(p21_rank, 2, "gloo", device_type="cuda",
+                      device_ids=[0, 0], timeout_s=600)
+    except Exception as e:  # noqa: BLE001 - a rank's failure fails the phase
+        fail(f"phase 21: the ranks failed: {type(e).__name__}: {e}")
+    log(f"  21: two gloo ranks on the one card ran in "
+        f"{time.perf_counter() - t:.1f} s (start, builds and steps)")
+
+    # 21a
+    for r in ranks:
+        d = r["ddp"]
+        for i, (rec, want) in enumerate(zip(d["steps"], ref_a)):
+            add(rec["launches"])
+            for key in ("loss", "grad_norm"):
+                rel = abs(rec[key] - want[key]) / abs(want[key])
+                if rel > 1e-2:
+                    fail(f"21a rank {r['rank']} step {i}: {key} "
+                         f"{rec[key]} vs world 1 {want[key]} ({rel:.2e})")
+            log(f"  21a rank {r['rank']} step {i}: loss {rec['loss']:.6f} "
+                f"(world 1 {want['loss']:.6f}), grad_norm "
+                f"{rec['grad_norm']:.6f} (world 1 {want['grad_norm']:.6f}); "
+                f"launches {rec['launches']}; wall {rec['wall_ms']:.2f} ms, "
+                f"{rec['allreduce_calls']} all-reduces {rec['allreduce_ms']:.2f}"
+                f" ms ({rec['allreduce_ms'] / rec['wall_ms']:.1%} of the "
+                f"step) on {card}")
+        if not d["identical"]:
+            fail(f"21a: trainable parameters differ across the ranks")
+        if not d["frozen_same"]:
+            fail(f"21a rank {r['rank']}: a frozen parameter changed")
+        log(f"  21a rank {r['rank']}: route {d['route']} ({d['step_route']}); "
+            f"peak memory {d['peak_gib']:.2f} GiB; {d['n_trainable']} "
+            f"trainable tensors bit-identical across the ranks; "
+            f"{d['n_frozen']} frozen tensors' fingerprints unchanged")
+    cand = ranks[0]["ddp"]["cand"]
+    if not torch.equal(cand, cand_a):
+        fail(f"21a: D's frames at world 2 {cand.tolist()} != world 1's "
+             f"{cand_a.tolist()}")
+    log(f"  21a: D's frames at world 2 equal world 1's: {cand.tolist()}")
+
+    # 21b
+    for r in ranks:
+        f = r["fsdp"]
+        add(f["launches"])
+        log(f"  21b rank {r['rank']}: route {f['route']} ({f['step_route']})"
+            f"; not captured; init_state sharded the model in "
+            f"{f['shard_s']:.2f} s; loss {f['loss']:.6f}, grad_norm "
+            f"{f['grad_norm']:.6f}; launches {f['launches']}; wall "
+            f"{f['wall_ms']:.2f} ms; peak memory {f['peak_gib']:.2f} GiB on "
+            f"{card}")
+        log(f"  21b rank {r['rank']}: gradients against the dp route's with "
+            f"FSDP2's grouping: {p21_gap_text(f['vs_grouped'])}; updated "
+            f"parameters (last bits of the entry plus four of lr): "
+            f"{p21_gap_text(f['params_vs_grouped'])}; loss "
+            f"{f['loss']!r} vs {f['grouped_loss']!r}, grad_norm "
+            f"{f['grad_norm']!r} vs {f['grouped_grad_norm']!r}")
+        log(f"  21b rank {r['rank']}: gradients against the plain dp "
+            f"route's (loss {f['dp_loss']!r}, grad_norm "
+            f"{f['dp_grad_norm']!r}): FSDP2 {p21_gap_text(f['vs_dp'])}; the "
+            f"dp route with FSDP2's grouping "
+            f"{p21_gap_text(f['grouped_vs_dp'])}")
+        if f["route"] != "fsdp":
+            fail(f"21b rank {r['rank']}: route {f['route']}")
+        # the clip reads the norm of FSDP2's shards, summed in another
+        # order: its last bit may differ, and with it the last bits of an
+        # update (|update| <= lr) and the last bit of the updated entry
+        if f["vs_grouped"]["unequal"] or f["params_vs_grouped"]["ulps"] > 1:
+            fail(f"21b rank {r['rank']}: the FSDP2 step's gradients or "
+                 f"updated parameters differ from the dp route's with "
+                 f"FSDP2's grouping")
+        if f["loss"] != f["grouped_loss"]:
+            fail(f"21b rank {r['rank']}: loss {f['loss']!r} vs "
+                 f"{f['grouped_loss']!r}")
+        rel = (abs(f["grad_norm"] - f["grouped_grad_norm"])
+               / f["grouped_grad_norm"])
+        if rel > 1e-5:
+            fail(f"21b rank {r['rank']}: grad_norm {f['grad_norm']!r} vs "
+                 f"{f['grouped_grad_norm']!r} ({rel:.2e})")
+        for key in ("loss", "grad_norm"):
+            rel = abs(f[key] - ref_b[key]) / abs(ref_b[key])
+            if rel > 1e-2:
+                fail(f"21b rank {r['rank']}: {key} {f[key]} vs the unwrapped "
+                     f"step's {ref_b[key]} ({rel:.2e})")
+    f = ranks[0]["fsdp"]
+    log(f"  21b against the unwrapped world-1 step: loss {f['loss']:.6f} vs "
+        f"{ref_b['loss']:.6f}, grad_norm {f['grad_norm']:.6f} vs "
+        f"{ref_b['grad_norm']:.6f}; gradients: FSDP2 "
+        f"{p21_gap_text(f['vs_world1'])}; the dp route "
+        f"{p21_gap_text(f['dp_vs_world1'])}; the dp route with FSDP2's "
+        f"grouping {p21_gap_text(f['grouped_vs_world1'])}; updated "
+        f"parameters: {p21_gap_text(f['params_vs_world1'])} (Adam's first "
+        f"update moves an entry by about lr whatever its gradient's size)")
+
+    # 21c
+    held = ranks[0]["held"]
+    model, cfg = T.build_model({"preset": "tiny"}, device=dev, seed=1)
+    loss = P21Loss()
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-3), loss,
+                      loss.filter_fn)
+    state = trainer.init_state(model)
+    step = restore_into(CheckpointManager(CheckpointConfig(
+        directory=os.path.join(P21_DIR, "ckpt"))).restore(), model,
+        state.optimizer)
+    params = dict(model.named_parameters())
+    bad = [n for n in trainer.trainable
+           if not torch.equal(params[n].detach().cpu(), held["params"][n])]
+    bad += [f"{n}:{k}" for n in trainer.trainable for k in held["moments"][n]
+            if not torch.equal(state.optimizer.state[params[n]][k].cpu(),
+                               held["moments"][n][k])]
+    if step != 2 or bad:
+        fail(f"21c: restored step {step}; differ {bad[:5]}")
+    log(f"  21c: a tiny world-2 FSDP checkpoint restored at world 1 (step "
+        f"{step}): {len(trainer.trainable)} trainable parameters and their "
+        f"Adam moments equal to what the ranks held")
+    shutil.rmtree(P21_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> None:
     try:
         import torch
@@ -5650,13 +6309,21 @@ def main() -> None:
     graphs_run = graph_paths(card)
     for kern in (flash, flash_bwd, lookup, select):
         kern["launches"] += graphs_run.get(kern["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    log("phase 21: data-parallel and fully sharded training (two gloo "
+        "ranks on the one card; world-1 references in this process)")
+    parallel = parallel_paths(card)
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += parallel.get(kern["name"], 0)
     done = time.perf_counter()
-    log(f"phases 1-20 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-21 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
         f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
         f"{t17 - t16:.1f} s, phase 17 in {t18 - t17:.1f} s, phase 18 in "
         f"{t19 - t18:.1f} s, phase 19 in {t20 - t19:.1f} s, phase 20 in "
-        f"{done - t20:.1f} s")
+        f"{t21 - t20:.1f} s, phase 21 in {done - t21:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

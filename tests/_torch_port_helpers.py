@@ -75,6 +75,82 @@ def make_inputs(cfg, seed=0):
     }
 
 
+def unequal_answer_batch(cfg, inputs, seed=5):
+    """A numpy training batch of ``B`` = 2 rows with TG and E2E entries,
+    whose answers hold 3 and 5 tokens (``cfg`` either package's tiny
+    config, ``inputs`` its :func:`make_inputs`)."""
+    rng = np.random.default_rng(seed)
+    img, fs = cfg.blip2.vit.image_size, cfg.tgb.flow_size
+    answers = rng.integers(2, 60, (B, 5)).astype(np.int32)
+    answers[0, 3:] = cfg.blip2.t5.pad_token_id
+    return {
+        "frames": rng.standard_normal((B, cfg.num_frames, img, img, 3)
+                                      ).astype(np.float32),
+        "flow": rng.standard_normal((B, L_FLOW, fs, fs, 2)).astype(np.float32),
+        "flow_mask": inputs["flow_mask"],
+        "video_length": inputs["video_length"],
+        "sampler_question_ids": rng.integers(4, 60, (B, 5)).astype(np.int32),
+        "sampler_question_mask": inputs["sampler_question_mask"],
+        "question_ids": rng.integers(4, 60, (B, 6)).astype(np.int32),
+        "question_mask": inputs["question_mask"],
+        "answer_ids": answers,
+        "starts": np.array([0, 1], np.int32),
+        "ends": np.array([2, L_FLOW], np.int32),  # L_FLOW: the ignore index
+    }
+
+
+def handed_gumbel(cfg, seed=11):
+    """Gumbel noise (top_k, 2, B, L_FLOW) that a test hands both packages'
+    selections."""
+    rng = np.random.default_rng(seed)
+    return rng.gumbel(size=(cfg.top_k, 2, B, L_FLOW)).astype(np.float32)
+
+
+def jax_two_steps(jmodel, tree, case, batch, noise, settings):
+    """The JAX trainer's first two steps of ``case`` ("tg" on a dp=2 mesh,
+    "e2e_tgb" on an fsdp=2 mesh, over the first two CPU devices) on the
+    global ``batch``, dropout off, the "tgb" selection reading the handed
+    ``noise``. Returns (per-step metrics, the flat parameter tree after
+    them). Only the subtrees the recipe's loss reads are given to the
+    trainer (flax applies a method on the parameters it uses): TG reads
+    the TGB alone, E2E with precomputed flow all but RAFT; the others
+    would only pass through the optimizer's frozen mask."""
+    import unittest.mock as mock
+
+    from flax.traverse_util import flatten_dict
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from videotgb_tpu.parallel.mesh import MeshConfig
+    from videotgb_tpu.training import recipes as JR
+    from videotgb_tpu.training import trainer as JTR
+
+    jrecipe = (JR.TGRecipe() if case == "tg" else
+               JR.E2ERecipe(selection="tgb"))
+    mesh = MeshConfig(dp=2) if case == "tg" else MeshConfig(dp=1, fsdp=2)
+    noise = jnp.asarray(noise)
+
+    def loss_fn(p, b, k):
+        with mock.patch.object(jax.random, "gumbel",
+                               lambda key, shape, dtype=None: noise):
+            return jrecipe.loss_fn(jmodel, p, b, k, deterministic=True)
+
+    trainer = JTR.Trainer(JTR.TrainerConfig(**settings, mesh=mesh), loss_fn,
+                          filter_fn=jrecipe.filter_fn)
+    used = (("temporal_encoder",) if case == "tg" else
+            tuple(k for k in tree if k != "of_extractor"))
+    state = trainer.init_state({k: jax.tree.map(jnp.array, tree[k])
+                                for k in used})
+    rep = NamedSharding(trainer.mesh, PartitionSpec())
+    state = JTR.TrainState(*(jax.device_put(x, rep) for x in (
+        state.params, state.opt_state, state.step)))
+    steps = []
+    for _ in range(2):
+        state, metrics = trainer.train_step(
+            state, {k: jnp.asarray(v) for k, v in batch.items()})
+        steps.append({k: float(v) for k, v in metrics.items()})
+    return steps, flatten_dict(jax.tree.map(np.array, state.params))
+
+
 def random_tree(shapes, seed=0):
     """numpy weights for a flax shape tree: O(1) activations (lecun-scaled
     kernels), norms near identity, positive batch-norm variances."""
@@ -262,19 +338,23 @@ def run_once(fn, *args):
     return jax.jit(fn).lower(*args).compile(CHEAP_COMPILE)(*args)
 
 
-def grads_against_jax(pair, jloss, tloss, filters, batch):
+def grads_against_jax(pair, jloss, tloss, filters, batch, unread=()):
     """``jloss(params, batch) -> (loss, aux)`` under ``jax.value_and_grad``
     with the JAX trainer's freeze (stop_gradient on frozen leaves) against
     ``tloss(model, batch) -> (loss, aux)`` backpropagated in a fresh port
     model: the loss and the gradient of every trainable parameter at 2e-4,
     no gradient on a frozen one. ``filters`` is the (JAX, port) pair of
-    freeze filters. Returns (the port's trainable names, JAX aux, port
+    freeze filters. ``unread`` names top-level subtrees the JAX loss does
+    not read (flax applies a method on the parameters it uses, and raises
+    on one it lacks): its program leaves them out, which only saves
+    compile time. Returns (the port's trainable names, JAX aux, port
     aux)."""
     from videotgb_torch.convert import flax_to_state_dict
     from videotgb_torch.training import optim as TO
     from videotgb_tpu.training import optim as JO
 
-    params = pair.params["params"]
+    params = {k: v for k, v in pair.params["params"].items()
+              if k not in unread}
     mask = JO.trainable_mask(params, filters[0])
 
     def frozen(p, b):

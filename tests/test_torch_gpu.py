@@ -1965,3 +1965,108 @@ def test_graphed_decode_entry_points_equal_eager(cuda):
     for tokens, cand in outs:
         assert torch.equal(tokens, ref[0]) and torch.equal(cand, ref[1])
     assert replayed == eager
+
+
+# -------------------------------------------------- data-parallel training
+class _RankOf:
+    """The coordinate interface of a (dp, fsdp) DeviceMesh: rank ``r`` of
+    ``n`` on the dp dim."""
+
+    def __init__(self, r, n):
+        self.r, self.n = r, n
+
+    def get_coordinate(self):
+        return [self.r, 0]
+
+    def size(self, dim=None):
+        return 1 if dim == 1 else self.n
+
+
+@pytest.mark.gpu
+def test_select_kernel_row_offset_draws_the_global_rows(cuda):
+    """Kernel D on rows [o, o + 4) of a global batch of 8 with
+    ``row_offset=o`` selects what one launch on all 8 rows selects for
+    them; so does ``VideoTGB.select_frames`` under a 2-rank split (the
+    seed drawn from the same generator state on each rank)."""
+    from videotgb_torch.parallel.sharding import batch_split
+
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    sl, el = torch.randn((8, 66, 2), generator=gen, device=cuda).unbind(-1)
+    vl = torch.full((8,), 64, device=cuda)
+    kw = dict(num_frames=32, nframe=4, top_k=2, noise_scale=1.0,
+              inclusive_end=False, rescale="ratio", out_dtype=torch.int64)
+    whole = select_frames_cuda(sl, el, vl, 1234, **kw)
+    for o in (0, 4):
+        part = select_frames_cuda(sl[o:o + 4], el[o:o + 4], vl[o:o + 4],
+                                  1234, row_offset=o, **kw)
+        assert torch.equal(part, whole[o:o + 4]), o
+    shifted = select_frames_cuda(sl[4:], el[4:], vl[4:], 1234, **kw)
+    assert not torch.equal(shifted, whole[4:])  # the offset is what moves
+    model = V.VideoTGB(V.VideoTGBConfig.tiny(), device=cuda, seed=0)
+    want = model.select_frames(sl, el, vl, torch.Generator(
+        device=cuda).manual_seed(5), inclusive_end=False, rescale="ratio")
+    for r in range(2):
+        with batch_split(_RankOf(r, 2)):
+            got = model.select_frames(
+                sl[4 * r:4 * r + 4], el[4 * r:4 * r + 4], vl[4 * r:4 * r + 4],
+                torch.Generator(device=cuda).manual_seed(5),
+                inclusive_end=False, rescale="ratio")
+        assert torch.equal(got, want[4 * r:4 * r + 4]), r
+
+
+@pytest.mark.gpu
+def test_dp_step_on_a_one_rank_nccl_group_equals_the_unwrapped_step(cuda):
+    """The dp route on a 1-rank NCCL group (its all-reduces of the counts,
+    the gradients and the metrics captured in the step's CUDA graph:
+    call 1 eager, call 2 captured, call 3 replayed) against the trainer
+    without a mesh: the same losses, gradient norms and trainable
+    parameters, bit for bit."""
+    import torch.distributed as dist
+
+    from videotgb_torch import train as T
+    from videotgb_torch.parallel.distributed import free_port
+    from videotgb_torch.parallel.mesh import MeshConfig, create_mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=cuda if cuda.index is not None
+                            else torch.device("cuda", 0))
+    try:
+        recipe = T.build_recipe({"recipe": "e2e", "tgb_mode": "multi_modal",
+                                 "selection": "uniform"})
+        runs = []
+        for mesh in (None, create_mesh(MeshConfig(dp=1),
+                                       device_type="cuda")):
+            model, cfg = T.build_model({"preset": "tiny"}, device=cuda,
+                                       seed=0)
+            trainer = Trainer(TrainerConfig(max_steps=6, lr=1e-3),
+                              recipe.loss_fn, recipe.filter_fn, mesh=mesh)
+            state = trainer.init_state(model)
+            assert (trainer.route, trainer.step_route) == (
+                ("single" if mesh is None else "dp"), "graph")
+            gen = torch.Generator(device=cuda).manual_seed(2)
+            img = cfg.vit.image_size
+            batch = {"frames": torch.randn((2, cfg.num_frames, img, img, 3),
+                                           generator=gen, device=cuda),
+                     "question_ids": torch.randint(4, 60, (2, 6),
+                                                   generator=gen, device=cuda),
+                     "question_mask": torch.ones((2, 6), device=cuda),
+                     "answer_ids": torch.randint(4, 60, (2, 5), generator=gen,
+                                                 device=cuda)}
+            metrics = []
+            for _ in range(3):
+                state, m = trainer.train_step(state, batch)
+                metrics.append(m)
+            runs.append((metrics, {n: p.detach().clone() for n, p in
+                                   model.named_parameters()
+                                   if n in set(trainer.trainable)}))
+        (m0, p0), (m1, p1) = runs
+        for a, b in zip(m0, m1):
+            assert torch.equal(a["loss"], b["loss"])
+            assert torch.equal(a["grad_norm"], b["grad_norm"])
+        for n, p in p0.items():
+            assert torch.equal(p, p1[n]), n
+    finally:
+        dist.destroy_process_group()

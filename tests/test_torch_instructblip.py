@@ -319,8 +319,8 @@ def test_flash_plain_matches_pallas_at_the_prefill_shape_class():
 def test_what_the_vicuna_port_lacks_raises():
     cfg = TV.VideoTGBConfig.tiny("instructblip")
     llm = cfg.instructblip.llm
-    for change, match in ((dict(scan_layers=True), "item 4"),
-                          (dict(remat=True), "item 4")):
+    for change, match in ((dict(scan_layers=True), "item 5"),
+                          (dict(remat=True), "item 5")):
         bad = dataclasses.replace(cfg, instructblip=dataclasses.replace(
             cfg.instructblip, llm=dataclasses.replace(llm, **change)))
         with pytest.raises(NotImplementedError, match=match):

@@ -212,6 +212,18 @@ def test_ctypes_signature_matches_the_c_declaration(name):
         f"{name}: ctypes {kernels._SIGNATURES[name]} vs C {types}")
 
 
+def test_select_frames_takes_the_rank_row_offset():
+    """Kernel D's C entry takes ``row_offset`` (the global index of a
+    data-parallel rank's first row, which keys the Philox counter) right
+    after ``B``, as an int."""
+    path = kernels.CSRC / kernels.SOURCES["select_frames"]
+    args = dict(_EXTERN.findall(path.read_text()))["select_frames"]
+    names = [" ".join(a.split()).split()[-1] for a in args.split(",")]
+    i = names.index("B")
+    assert names[i + 1] == "row_offset"
+    assert kernels._SIGNATURES["select_frames"][i + 1] is ctypes.c_int
+
+
 def test_every_c_entry_has_a_signature():
     assert set(_declarations()) == set(kernels._SIGNATURES) == set(
         kernels.SOURCES)

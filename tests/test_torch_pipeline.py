@@ -59,22 +59,23 @@ def test_generate_blip2_matches_jax(pair):
     jb, tb = _batches(pair)
     key = jax.random.key(0)
     sel_key, _ = jax.random.split(key)
-    want_tokens, want_cand = jax.jit(
-        lambda p, b, k: JV.generate_blip2(pair.jmodel, p, b,
-                                          JDecode(**DECODE), k))(
-        pair.params, jb, key)
+    names = ("frames", "flow", "flow_mask", "video_length",
+             "sampler_question_ids", "sampler_question_mask", "question_ids",
+             "question_mask")
+    # generate_blip2 and the encoder state its decode starts from, in one
+    # JAX program: the encoder path compiles once
+    (want_tokens, want_cand), (enc_j, mask_j, _) = jax.jit(
+        lambda p, b, k: (
+            JV.generate_blip2(pair.jmodel, p, b, JDecode(**DECODE), k),
+            pair.jmodel.apply(p, *(b[n] for n in names),
+                              jax.random.split(k)[0],
+                              method=lambda m, *a: m.prepare_t5_inference(
+                                  *a))))(pair.params, jb, key)
     got_tokens, got_cand = TV.generate_blip2(pair.tmodel, tb,
                                              TDecode(**DECODE),
                                              noise=_noise(pair, sel_key))
     np.testing.assert_array_equal(got_cand.numpy(), np.asarray(want_cand))
     np.testing.assert_array_equal(got_tokens.numpy(), np.asarray(want_tokens))
-
-    # the encoder state the decode starts from
-    args = [jb[k] for k in ("frames", "flow", "flow_mask", "video_length",
-                            "sampler_question_ids", "sampler_question_mask",
-                            "question_ids", "question_mask")]
-    enc_j, mask_j, _ = pair.japply(
-        lambda m, *a: m.prepare_t5_inference(*a), *args, sel_key)
     with torch.no_grad():
         enc_t, mask_t, _ = pair.tmodel.prepare_t5_inference(
             *[tb[k] for k in ("frames", "flow", "flow_mask", "video_length",

@@ -194,8 +194,11 @@ def test_launch_args_read_the_logits_where_they_lie():
     assert args[8:11] == (None, None, 9)  # Philox, seed by value
     assert args[11] == out.data_ptr() and args[12] == 1
     assert out.dtype == torch.int64 and tuple(out.shape) == (3, 4)
-    assert args[13:] == (3, 7, 32, 4, 2, 1.0, 1, 1)
+    assert args[13:] == (3, 0, 7, 32, 4, 2, 1.0, 1, 1)  # row offset 0
     assert keep[0] is sl and keep[1] is el
+    # a data-parallel rank's rows: the global index of its first row
+    assert S.select_launch_args(sl, el, vl, 9, 32, 4, 2, 1.0, True, "ratio",
+                                row_offset=6)[1][13:15] == (3, 6)
     seed = torch.tensor([5], dtype=torch.int32)
     noise = torch.zeros((2, 2, 3, 7), dtype=torch.float64)
     for lengths, code in ((vl.int(), 0), (vl.float(), 0),
@@ -217,6 +220,9 @@ def test_launch_args_read_the_logits_where_they_lie():
     with pytest.raises(ValueError, match="video_length"):
         S.select_launch_args(sl, el, vl[:2], 0, 32, 4, 2, 1.0, False,
                              "minus1")
+    with pytest.raises(ValueError, match="row_offset"):
+        S.select_launch_args(sl, el, vl, 0, 32, 4, 2, 1.0, False, "minus1",
+                             row_offset=-1)
 
 
 def test_videotgb_select_frames_on_the_cpu_launches_nothing():

@@ -385,23 +385,22 @@ def test_bf16_raft_matches_the_jax_load_model(tmp_path):
     rng = np.random.default_rng(3)
     fs = jcfg.tgb.flow_size
     flow_u8 = rng.integers(0, 255, (2, 4, fs, fs, 3), np.uint8)
-    jflow = jax.jit(lambda p, f: jmodel.apply(
-        p, f, method=jmodel.flow_features))(jparams,
-                                            jnp.asarray(flow_u8, jnp.float32))
-    with torch.no_grad():
-        tflow = model.flow_features(t(flow_u8).float())
-    np.testing.assert_allclose(tflow.numpy(), np.asarray(jflow), **TOL)
-
     batch = {"flow_mask": np.ones((2, 5), np.float32),
              "video_length": np.full((2,), 3, np.int32),
              "sampler_question_ids": rng.integers(4, 60, (2, 5)).astype(
                  np.int32),
              "sampler_question_mask": np.ones((2, 5), np.float32)}
     key = jax.random.key(8)
-    jcand = jax.jit(lambda p, f, b, k: JV.select_phase_blip2(
-        jmodel, p, f, b, k))(jparams, jnp.asarray(flow_u8),
-                             {k: jnp.asarray(v) for k, v in batch.items()},
-                             key)
+    # the flow and the select phase in one JAX program: one compile of RAFT
+    jflow, jcand = jax.jit(lambda p, f, b, k: (
+        jmodel.apply(p, f.astype(jnp.float32), method=jmodel.flow_features),
+        JV.select_phase_blip2(jmodel, p, f, b, k)))(
+            jparams, jnp.asarray(flow_u8),
+            {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    with torch.no_grad():
+        tflow = model.flow_features(t(flow_u8).float())
+    np.testing.assert_allclose(tflow.numpy(), np.asarray(jflow), **TOL)
+
     tb = {k: t(v) for k, v in batch.items()}
     tb["sampler_question_ids"] = tb["sampler_question_ids"].long()
     noise = gumbel_like(key, torch.zeros((2, 3)), jcfg.top_k)

@@ -46,7 +46,10 @@
 //     masked reduction over (B, nframe, F)), there for what Mosaic lacks,
 //     are not needed;
 //   * the noise is Philox4x32-10 keyed by the seed, with the counter
-//     (position, row, 2*draw + start/end); u = bits * 2^-32 clipped to
+//     (position, row_offset + row, 2*draw + start/end), row_offset being
+//     the global index of the call's first row: a data-parallel rank that
+//     holds rows [o, o + B) of a global batch draws what one process draws
+//     for those rows; u = bits * 2^-32 clipped to
 //     [1e-7, 1 - 1e-7] as in the TPU kernel, g = -log(-log(u)). It matches
 //     the TPU's hardware generator and torch's only in distribution;
 //   * IEEE division and rounding throughout (no --use_fast_math; __fdiv_rn,
@@ -73,7 +76,7 @@ struct Params {
   const int* seed;     // device int32, or null: seed_value
   uint32_t seed_value;
   void* out;  // int32 or int64: the kernel's template type
-  int B, L, F, nframe, top_k;
+  int B, row_offset, L, F, nframe, top_k;
   float noise_scale;
   int inclusive_end, rescale;
 };
@@ -125,7 +128,8 @@ __device__ int warp_argmax(const float* row, long long col, const Params& p,
   for (int j = lane; j < p.L; j += 32) {
     float v = row[j * col];
     if (p.noise_scale != 0.f) {
-      const float g = noise ? noise[j] : gumbel(seed, b, draw, which, j);
+      const float g =
+          noise ? noise[j] : gumbel(seed, p.row_offset + b, draw, which, j);
       v = __fadd_rn(v, __fmul_rn(p.noise_scale, g));
     }
     if (before(v, j, bv, bi)) {
@@ -304,10 +308,11 @@ extern "C" int select_frames(const void* start, const void* end,
                              const void* video_length, int length_dtype,
                              const void* noise, const void* seed,
                              uint32_t seed_value, void* out, int out_dtype,
-                             int B, int L, int num_frames, int nframe,
+                             int B, int row_offset, int L, int num_frames,
+                             int nframe,
                              int top_k, float noise_scale, int inclusive_end,
                              int rescale, void* stream) {
-  if (B <= 0 || L <= 0 || num_frames <= 0 || num_frames > kMaxFrames ||
+  if (B <= 0 || row_offset < 0 || L <= 0 || num_frames <= 0 || num_frames > kMaxFrames ||
       nframe <= 0 || nframe > kMaxSlots || top_k <= 0 ||
       (rescale != 0 && rescale != 1) || (length_dtype != 0 &&
       length_dtype != 1) || (out_dtype != 0 && out_dtype != 1))
@@ -326,6 +331,7 @@ extern "C" int select_frames(const void* start, const void* end,
   p.seed_value = seed_value;
   p.out = out;
   p.B = B;
+  p.row_offset = row_offset;
   p.L = L;
   p.F = num_frames;
   p.nframe = nframe;

@@ -7,6 +7,13 @@ thread-pool sample fetcher + a bounded prefetch queue: video decode is
 GIL-releasing (cv2/numpy), so threads overlap decode with the device's
 steps — the decode-bound reference pipeline (19.3 s/video, BASELINE.md) is
 the motivation for prefetch depth > 1.
+
+In a data-parallel run each rank passes its ``(rank, world)``: the global
+batches keep the order the seed gives them at every world size, each of
+``batch_size`` rows (the global batch, as the JAX CLI's ``data.batch_size``
+is), and a rank loads and yields its contiguous ``batch_size / world`` rows
+of each, the placement of ``parallel.sharding.shard_batch``. ``len()`` is
+the number of global batches, the same on every rank.
 """
 
 from __future__ import annotations
@@ -31,7 +38,12 @@ class PrefetchLoader:
         prefetch: int = 4,
         seed: int = 0,
         drop_last: bool = True,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world or not 0 <= rank < world:
+            raise ValueError(f"a global batch of {batch_size} rows does not "
+                             f"split over {world} ranks (rank {rank})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -40,6 +52,7 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.drop_last = drop_last
+        self.rank, self.world = rank, world
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -54,7 +67,9 @@ class PrefetchLoader:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
         cut = (len(idx) // self.batch_size) * self.batch_size if self.drop_last else len(idx)
         idx = idx[:cut]
-        return [idx[i : i + self.batch_size].tolist()
+        rows = self.batch_size // self.world
+        lo = self.rank * rows
+        return [idx[i : i + self.batch_size][lo : lo + rows].tolist()
                 for i in range(0, len(idx), self.batch_size)]
 
     def __iter__(self) -> Iterator[dict]:

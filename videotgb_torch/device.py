@@ -3,8 +3,19 @@ entry point."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+
+def local_rank() -> int | None:
+    """``LOCAL_RANK`` of a multi-process run's environment (this rank's
+    card); None in a single process."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    value = os.environ.get("LOCAL_RANK")
+    return None if value is None else int(value)
 
 
 def configure_precision() -> None:
@@ -20,14 +31,17 @@ def configure_precision() -> None:
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means the CUDA device; without one this raises instead of
-    falling back to the CPU. Pass ``device="cpu"`` to run on the CPU."""
+    """``None`` means the CUDA device: ``cuda:{LOCAL_RANK}`` inside a rank
+    of a multi-process run (``torchrun``, ``parallel.distributed.spawn``),
+    else the current one; without one this raises instead of falling back
+    to the CPU. Pass ``device="cpu"`` to run on the CPU."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "videotgb_torch runs on a CUDA device and none is available; "
                 "pass device='cpu' to run the plain PyTorch path on the CPU")
-        device = "cuda"
+        rank = local_rank()
+        device = "cuda" if rank is None else f"cuda:{rank}"
     device = torch.device(device)
     if device.type == "cuda":
         configure_precision()

@@ -19,6 +19,7 @@ from videotgb_torch.models.common import Dense, _fill_normal, _param
 from videotgb_torch.models.qformer import QFormerConfig, QFormerModel
 from videotgb_torch.models.t5 import T5Config, T5Model
 from videotgb_torch.models.vit import ViTConfig, ViTModel
+from videotgb_torch.parallel.sharding import global_count
 
 IGNORE_INDEX = -100
 
@@ -124,10 +125,12 @@ class Blip2Model(nn.Module):
 
 def cross_entropy_ignore(logits, labels):
     """Mean CE over labels != -100 (torch CrossEntropyLoss semantics), in
-    f32; 0 when every label is ignored."""
+    f32; 0 when every label is ignored. The mean is over the valid labels
+    of the global batch under a data-parallel split
+    (``parallel.sharding.global_count``)."""
     valid = labels != IGNORE_INDEX
     logp = F.log_softmax(logits.float(), dim=-1)
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     return (torch.where(valid, nll, torch.zeros_like(nll)).sum()
-            / valid.sum().clamp(min=1))
+            / global_count(valid.sum()).clamp(min=1))

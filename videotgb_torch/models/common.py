@@ -25,6 +25,7 @@ from torch import nn
 
 from videotgb_torch.ops.attention import dot_product_attention, flash_attention
 from videotgb_torch.ops.quant import int8_matmul
+from videotgb_torch.parallel.sharding import global_draw
 
 
 # ------------------------------------------------------------ initialisation
@@ -283,11 +284,15 @@ class MultiHeadAttention(nn.Module):
 def dropout(x, rate, generator=None, deterministic=True):
     """flax ``nn.Dropout``: keep each entry with probability 1 - rate and
     scale it by 1 / (1 - rate), the mask drawn from ``generator``; the
-    identity when ``deterministic`` or ``rate == 0``."""
+    identity when ``deterministic`` or ``rate == 0``. ``x`` leads with
+    batch rows: under a data-parallel split the mask is this rank's rows of
+    the global batch's (``parallel.sharding.global_draw``)."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = global_draw(
+        lambda shape: torch.rand(shape, generator=generator, device=x.device),
+        x.shape) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

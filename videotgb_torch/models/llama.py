@@ -110,7 +110,7 @@ class LlamaModel(nn.Module):
         if cfg.scan_layers or cfg.remat:
             raise NotImplementedError(
                 "scan_layers / remat (stacked layers, the pipeline forward) "
-                "are not ported: ROADMAP.md queue 1 item 4")
+                "are not ported: ROADMAP.md queue 1 item 5")
         self.config = cfg
         kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, **kw)

@@ -51,6 +51,7 @@ from videotgb_torch.models.vit import ViTConfig
 from videotgb_torch.ops.decode import DecodeConfig, beam_search, decode
 from videotgb_torch.ops.select import select_frames
 from videotgb_torch.ops.select_pallas import draw_seed, select_frames_cuda
+from videotgb_torch.parallel.sharding import local_rows, row_offset
 from videotgb_torch.utils.graphs import graphed
 
 
@@ -235,7 +236,10 @@ class VideoTGB(nn.Module):
         On CUDA logits this is kernel D, one launch after a seed drawn on
         the device from ``generator`` (none with ``noise``, which gives the
         CPU route's indices bit for bit); on CPU logits the plain version.
-        Either returns (B, nframe) int64."""
+        Either returns (B, nframe) int64. Under a data-parallel split the
+        rows are this rank's of the global batch, and select what they
+        select at world 1 (D's Philox counter starts at the rank's first
+        global row; handed ``noise`` may hold the global batch)."""
         cfg = self.config
         if start_logits.device.type == "cpu":
             return select_frames(start_logits, end_logits, video_length,
@@ -243,12 +247,15 @@ class VideoTGB(nn.Module):
                                  cfg.top_k, cfg.gumbel_tau,
                                  inclusive_end=inclusive_end,
                                  rescale=rescale, noise=noise)
+        rows = start_logits.shape[0]
+        if noise is not None:
+            noise = local_rows(noise, rows, axis=2)
         seed = 0 if noise is not None else draw_seed(generator,
                                                      start_logits.device)
         return select_frames_cuda(
             start_logits, end_logits, video_length, seed, cfg.num_frames,
             cfg.nframe, cfg.top_k, 1.0, inclusive_end, rescale, noise=noise,
-            out_dtype=torch.int64)
+            out_dtype=torch.int64, row_offset=row_offset(rows))
 
     # ------------------------------------------------- backbone entry points
     def encode_selected(self, frames, cand_index, qformer_input_ids=None,

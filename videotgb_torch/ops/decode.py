@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from videotgb_torch.ops.attention import NEG_INF
+from videotgb_torch.parallel.sharding import all_ranks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,7 +298,7 @@ def beam_search(step_fn, caches, start_tokens, config: DecodeConfig,
         best_possible = new_scores[:, 0] / pen
         b_done = b_done | ((d_count >= k)
                            & (d_scores.min(dim=1).values >= best_possible))
-        if bool(b_done.all()):
+        if bool(all_ranks(b_done.all())):
             break
 
     # hitting the horizon stops inside the last step, so the live beams

@@ -87,10 +87,11 @@ _SIGNATURES = {
                     _P],
     # select_frames(start, end, start strides (row, col), end strides (row,
     # col), video_length, length_dtype, noise, seed*, seed_value, out,
-    # out_dtype, B, L, num_frames, nframe, top_k, noise_scale, inclusive_end,
-    # rescale, stream) -> cudaError_t
+    # out_dtype, B, row_offset, L, num_frames, nframe, top_k, noise_scale,
+    # inclusive_end, rescale, stream) -> cudaError_t
     "select_frames": [_P, _P, _L, _L, _L, _L, _P, _I, _P, _P, ctypes.c_uint32,
-                      _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+                      _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+                      _P],
     # corr_lookup_blocked(levels*, hl*, wl*, n_levels, coords, out, P, Q,
     # radius, qb, skip, stage_bytes, dtype, stream) -> as corr_lookup
     "corr_lookup_blocked": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,

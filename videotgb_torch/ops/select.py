@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from videotgb_torch.parallel.sharding import global_draw, local_rows
+
 
 def gumbel_noise(shape, generator=None, device=None):
     """Standard Gumbel samples, -log(-log(U)), f32."""
@@ -33,11 +35,14 @@ def gumbel_span_sample(start_logits, end_logits, generator=None,
 
     ``noise`` (top_k, 2, B, L) replaces the draw from ``generator``: torch
     cannot reproduce JAX's Threefry bits, so a test hands both versions the
-    same noise."""
+    same noise. Under a data-parallel split the noise is this rank's rows
+    of the global batch's (drawn, or handed in whole)."""
     del tau
     if noise is None:
-        noise = gumbel_noise((top_k, 2, *start_logits.shape), generator,
-                             start_logits.device)
+        noise = global_draw(
+            lambda shape: gumbel_noise(shape, generator, start_logits.device),
+            (top_k, 2, *start_logits.shape), axis=2)
+    noise = local_rows(noise, start_logits.shape[0], axis=2)
     noise = noise.to(device=start_logits.device, dtype=torch.float32)
     starts = torch.argmax(start_logits[None].float() + noise[:, 0], dim=-1)
     ends = torch.argmax(end_logits[None].float() + noise[:, 1], dim=-1)

@@ -89,7 +89,7 @@ def draw_seed(generator, device):
 def select_launch_args(start_logits, end_logits, video_length, seed,
                        num_frames: int, nframe: int, top_k: int,
                        noise_scale: float, inclusive_end: bool, rescale: str,
-                       noise=None, out_dtype=torch.int32):
+                       noise=None, out_dtype=torch.int32, row_offset: int = 0):
     """Check kernel D's inputs and allocate its output. Returns the output,
     the C entry's arguments but the stream, and the tensors its pointers
     refer to (the caller holds them through the launch).
@@ -98,7 +98,9 @@ def select_launch_args(start_logits, end_logits, video_length, seed,
     another dtype is cast once); the lengths as int32 or int64 (another
     dtype is cast to int32, truncating as the plain ``.long()`` does); the
     seed as a device int32 tensor's pointer or, given an int, by value;
-    ``noise`` (top_k, 2, B, L) as a contiguous f32 copy on the device."""
+    ``noise`` (top_k, 2, B, L) as a contiguous f32 copy on the device;
+    ``row_offset``, the global index of the first row, keys the Philox
+    draw (a data-parallel rank's rows draw what they draw at world 1)."""
     _check(rescale, num_frames)
     if start_logits.dim() != 2 or end_logits.shape != start_logits.shape:
         raise ValueError(f"select_frames: logits must be two (B, L) tensors, "
@@ -111,9 +113,11 @@ def select_launch_args(start_logits, end_logits, video_length, seed,
     if video_length.shape != (b,):
         raise ValueError(f"select_frames: video_length "
                          f"{tuple(video_length.shape)}, expected ({b},)")
-    if not 0 < nframe <= MAX_NFRAME or top_k <= 0 or b <= 0 or l <= 0:
+    if (not 0 < nframe <= MAX_NFRAME or top_k <= 0 or b <= 0 or l <= 0
+            or row_offset < 0):
         raise ValueError(f"select_frames: B {b}, L {l}, nframe {nframe} "
-                         f"(1 to {MAX_NFRAME}), top_k {top_k}")
+                         f"(1 to {MAX_NFRAME}), top_k {top_k}, row_offset "
+                         f"{row_offset}")
     if out_dtype not in _OUT_CODES:
         raise ValueError(f"select_frames: out_dtype {out_dtype}; int32 or "
                          "int64")
@@ -141,7 +145,8 @@ def select_launch_args(start_logits, end_logits, video_length, seed,
     args = (start.data_ptr(), end.data_ptr(), start.stride(0),
             start.stride(1), end.stride(0), end.stride(1), length.data_ptr(),
             _LENGTH_CODES[length.dtype], noise_ptr, seed_ptr, seed_value,
-            out.data_ptr(), _OUT_CODES[out_dtype], b, l, num_frames, nframe,
+            out.data_ptr(), _OUT_CODES[out_dtype], b, int(row_offset), l,
+            num_frames, nframe,
             top_k, float(noise_scale), int(inclusive_end),
             _RESCALE_CODES[rescale])
     return out, args, (start, end, length, noise, seed)
@@ -150,13 +155,16 @@ def select_launch_args(start_logits, end_logits, video_length, seed,
 def select_frames_cuda(start_logits, end_logits, video_length, seed,
                        num_frames: int, nframe: int, top_k: int,
                        noise_scale: float, inclusive_end: bool,
-                       rescale: str, noise=None, out_dtype=torch.int32):
+                       rescale: str, noise=None, out_dtype=torch.int32,
+                       row_offset: int = 0):
     """Launch ``select_frames`` on CUDA tensors -> (B, nframe) indices of
     ``out_dtype``. ``seed``: an int, or a device int32 tensor
-    (:func:`draw_seed`); ``noise`` replaces the Philox draw."""
+    (:func:`draw_seed`); ``noise`` replaces the Philox draw; the rows are
+    rows ``row_offset`` on of the draw."""
     out, args, _keep = select_launch_args(
         start_logits, end_logits, video_length, seed, num_frames, nframe,
-        top_k, noise_scale, inclusive_end, rescale, noise, out_dtype)
+        top_k, noise_scale, inclusive_end, rescale, noise, out_dtype,
+        row_offset)
     lib = kernels.library("select_frames")
     stream = torch.cuda.current_stream(out.device).cuda_stream
     kernels.check_launch("select_frames", lib.select_frames(*args, stream))

@@ -20,8 +20,24 @@ parameters before each step, ``sf_pseudo_scores``), E2E, and stage 3's IV
 and IVT (pre-selected frames from the image/video/text instruction mix,
 ``data.name`` iv / ivt; IVT with ``model.lora_rank`` adapters on the LLM),
 on the BLIP2-Flan-T5, InstructBLIP-Flan-T5 (``backbone: instructblip_t5``)
-and InstructBLIP-Vicuna (``backbone: instructblip``) backbones; parallel
-layouts raise ``NotImplementedError`` naming their ROADMAP.md item.
+and InstructBLIP-Vicuna (``backbone: instructblip``) backbones.
+
+Parallel layouts (the ``trainer`` group's ``dp`` and ``fsdp``; each rank is
+one process on one device, ``parallel/``): ``dp: -1`` (the default, and
+``trainer=ddp``, ``ddp_freeze``, ``ddp_spawn``) absorbs the world, the
+visible cards or ``trainer.devices`` on the CPU; ``trainer=fsdp`` shards
+the parameters over ``fsdp`` ranks (FSDP2). Under ``torchrun`` every
+process joins the launcher's group (NCCL on the card, gloo on the CPU)::
+
+    torchrun --nproc_per_node 4 -m videotgb_torch.train \
+        experiment=smoke_e2e_synthetic trainer=ddp
+
+Without a launcher a layout that wants more than one rank is spawned by
+``main`` itself (``trainer=ddp_sim``: 2 gloo processes on the CPU), and
+``main`` returns rank 0's metrics. ``data.batch_size`` is the global batch;
+each rank loads its rows of it, and a step equals the one-device step on
+the global batch up to reduction order. ``tp``, ``pp`` and ``sp`` above 1
+raise ``NotImplementedError`` naming their ROADMAP.md items.
 ``ckpt_path=<dir>`` resumes the full training state (parameters, optimizer
 moments, step) or warm-starts from parameters only.
 ``trainer.accumulate_grad_batches=A`` makes each optimizer step of A
@@ -101,19 +117,53 @@ def build_recipe(model_cfg: dict):
     return RECIPES[name](**kwargs)
 
 
+def run_layout(cfg: Config):
+    """The ``MeshConfig`` of the ``trainer`` group's axes (``dp`` defaults
+    to -1, the others to 1); ``tp``, ``pp`` or ``sp`` above 1 raise
+    ``NotImplementedError``."""
+    from videotgb_torch.parallel.mesh import MeshConfig, check_ported
+
+    tcfg = cfg.get("trainer") or Config()
+    mesh = MeshConfig(dp=tcfg.get("dp", -1), fsdp=tcfg.get("fsdp", 1),
+                      tp=tcfg.get("tp", 1), pp=tcfg.get("pp", 1),
+                      sp=tcfg.get("sp", 1))
+    check_ported(mesh)
+    return mesh
+
+
+def run_world(cfg: Config) -> int:
+    """The ranks a run takes: a launcher's ``WORLD_SIZE``; else a ``-1``
+    axis absorbs the visible cards (on the card) or ``trainer.devices``
+    (on the CPU), and a fixed layout takes dp x fsdp. Raises where the
+    layout does not fit that count, or wants more cards than are
+    visible."""
+    from videotgb_torch.parallel.distributed import env_world
+
+    mesh = run_layout(cfg)
+    tcfg = cfg.get("trainer") or Config()
+    on_card = tcfg.get("platform") in (None, "cuda", "gpu")
+    if env_world() > 1:
+        world = env_world()
+    elif -1 in (mesh.dp, mesh.fsdp):
+        world = (torch.cuda.device_count() if on_card
+                 else int(tcfg.get("devices", 1)))
+        world = max(world, 1)
+    else:
+        world = mesh.dp * mesh.fsdp
+    mesh.resolve(world)
+    if on_card and world > 1 and env_world() <= 1 and \
+            world > torch.cuda.device_count():
+        raise ValueError(f"the layout {mesh} takes {world} ranks, one a "
+                         f"card, and {torch.cuda.device_count()} are visible")
+    return world
+
+
 def run_device(cfg: Config) -> torch.device:
     """The device of a run from ``trainer.platform`` ("cpu"; unset or
-    "cuda"/"gpu" for the card, which must exist) after checking that the
-    parallel layout is one process on one device."""
+    "cuda"/"gpu" for the card, which must exist: ``cuda:{LOCAL_RANK}``
+    inside a rank) after checking the parallel layout (``run_layout``)."""
+    run_layout(cfg)
     tcfg = cfg.get("trainer") or Config()
-    layout = {k: tcfg.get(k, 1) for k in ("dp", "fsdp", "tp", "pp", "sp")}
-    if (layout["dp"] not in (-1, 1)
-            or any(layout[k] != 1 for k in ("fsdp", "tp", "pp", "sp"))
-            or int(tcfg.get("devices", 1)) > 1):
-        raise NotImplementedError(
-            f"parallel layout {layout} on {tcfg.get('devices', 1)} devices: "
-            "the port trains on one device; data, FSDP, tensor, pipeline and "
-            "sequence parallelism are ROADMAP.md queue 1 item 4")
     platform = tcfg.get("platform")
     if platform in (None, "cuda", "gpu"):
         if not torch.cuda.is_available():
@@ -165,9 +215,11 @@ def apply_callbacks(cfg: Config, tcfg) -> dict:
     return mc
 
 
-def build_data(cfg: Config, mcfg):
+def build_data(cfg: Config, mcfg, rank: int = 0, world: int = 1):
     """(train loader, val loader, tokenizer) of ``data.name`` synthetic,
-    videoinstruct, or the stage-3 mixes iv / ivt."""
+    videoinstruct, or the stage-3 mixes iv / ivt; in a data-parallel run,
+    each loader yields rank ``rank``'s rows of every global batch of
+    ``data.batch_size`` rows."""
     from videotgb_torch.data.datasets import (
         SyntheticVideoQA, VideoInstructDataset, collate_videoinstruct,
     )
@@ -188,6 +240,8 @@ def build_data(cfg: Config, mcfg):
         batch_size=dcfg.get("batch_size", 2),
         num_workers=dcfg.get("num_workers", 8),
         seed=cfg.get("seed", 0),
+        rank=rank,
+        world=world,
     )
     if kind in ("iv", "ivt"):
         return _stage3_loaders(cfg, mcfg, tok, sampler_tok, loader_kw)
@@ -265,21 +319,41 @@ def _stage3_loaders(cfg: Config, mcfg, tok, sampler_tok, loader_kw):
                            **loader_kw), tok)
 
 
+def _summed_over_ranks(losses: list) -> list:
+    """Each batch's loss summed over the ranks: the ranks' shares of a
+    global batch's loss (``global_count``) add up to it."""
+    if not losses:
+        return losses
+    total = torch.stack(losses)
+    torch.distributed.all_reduce(total)
+    return list(total)
+
+
 @torch.no_grad()
 def evaluate_tg(model, recipe, loader) -> dict[str, float]:
     """TG-stage validation: span IoU metrics, dropout off
-    (reference: LSTP_TG_blip2_module.py:397-451)."""
+    (reference: LSTP_TG_blip2_module.py:397-451). Under a data-parallel
+    split each rank scores its rows; the batch losses and the IoU state are
+    summed over the ranks, so every rank returns the world-1 metrics."""
     from videotgb_torch.data.loader import device_batch
+    from videotgb_torch.parallel.sharding import sharded_call, split
     from videotgb_torch.training import metrics as M
 
     iou_state = M.iou_init()
-    loss_state = M.mean_init()
+    losses = []
     for batch in loader:
         db = device_batch(batch, model.device)
-        loss, aux = recipe.loss_fn(model, db, None, deterministic=True)
+        loss, aux = sharded_call(model, recipe.loss_fn, db, None,
+                                 deterministic=True)
         iou_state = M.iou_update(
             iou_state, aux["start_logits"], aux["end_logits"],
             db["starts"], db["ends"])
+        losses.append(loss.float())
+    if split()[1] > 1:
+        iou_state = M.all_reduce_state(iou_state)
+        losses = _summed_over_ranks(losses)
+    loss_state = M.mean_init()
+    for loss in losses:
         loss_state = M.mean_update(loss_state, loss)
     iou, iou3, iou5 = M.iou_compute(iou_state)
     return {
@@ -302,12 +376,17 @@ def evaluate_generative(model, recipe, loader, tok,
     scores has no loss (the reference's eval never computes mrc_loss), and
     ``val/loss`` is absent when no batch had one. Every batch draws its
     selection noise from a generator seeded 0, as the JAX eval takes
-    ``jax.random.key(0)``."""
+    ``jax.random.key(0)``. Under a data-parallel split each rank answers
+    its rows; the batch losses are summed and the answers and targets
+    gathered in the global order before scoring, so every rank returns the
+    world-1 metrics."""
     from videotgb_torch.data.loader import device_batch
     from videotgb_torch.models.videotgb import (generate_blip2,
                                                 generate_instructblip,
                                                 generate_iv)
     from videotgb_torch.ops.decode import DecodeConfig
+    from videotgb_torch.parallel.distributed import gather_objects
+    from videotgb_torch.parallel.sharding import sharded_call, split
     from videotgb_torch.training import metrics as M
     from videotgb_torch.training.recipes import SFRecipe
 
@@ -326,26 +405,37 @@ def evaluate_generative(model, recipe, loader, tok,
     def generator():
         return torch.Generator(device=dev).manual_seed(0)
 
-    loss_state = M.mean_init()
-    loss_batches = 0
-    preds: list[str] = []
-    targets: list[str] = []
+    losses = []
+    preds: list[list[str]] = []  # per batch: this rank's rows
+    targets: list[list[str]] = []
     for batch in loader:
         db = device_batch(batch, dev)
         if not isinstance(recipe, SFRecipe) or "scores" in db:
-            loss, _ = recipe.loss_fn(model, db, generator(),
-                                     deterministic=True)
-            loss_state = M.mean_update(loss_state, loss)
-            loss_batches += 1
+            loss, _ = sharded_call(model, recipe.loss_fn, db, generator(),
+                                   deterministic=True)
+            losses.append(loss.float())
         if "flow" in db:
-            tokens, _ = generate(model, db, dcfg, generator())
+            tokens, _ = sharded_call(model, generate, db, dcfg, generator())
         else:  # stage 3: pre-selected frames, no selection
-            tokens = generate_iv(model, db, dcfg, generator())
-        preds.extend(tok.batch_decode(tokens.cpu().numpy(),
+            tokens = sharded_call(model, generate_iv, db, dcfg, generator())
+        preds.append(tok.batch_decode(tokens.cpu().numpy(),
                                       skip_special_tokens=True))
-        targets.extend(a.replace(" </s>", "") for a in batch["_text_answer"])
+        targets.append([a.replace(" </s>", "")
+                        for a in batch["_text_answer"]])
+    if split()[1] > 1:
+        losses = _summed_over_ranks(losses)
+        ranks = gather_objects((preds, targets))
+        preds = [[p for r in ranks for p in r[0][i]]
+                 for i in range(len(preds))]
+        targets = [[t for r in ranks for t in r[1][i]]
+                   for i in range(len(targets))]
+    loss_state = M.mean_init()
+    for loss in losses:
+        loss_state = M.mean_update(loss_state, loss)
+    preds = [p for rows in preds for p in rows]
+    targets = [t for rows in targets for t in rows]
     out = ({"val/loss": float(M.mean_compute(loss_state))}
-           if loss_batches else {})
+           if losses else {})
     if preds:
         out["val/score"] = M.bleu1(preds, targets)
     return out
@@ -360,13 +450,68 @@ def evaluate_recipe(cfg: Config, model, recipe, loader, tok
                                max_new_tokens=cfg.model.get("eval_max_new", 16))
 
 
+@contextlib.contextmanager
+def outside_the_step(mesh, model):
+    """A pass between steps (an eval, SF's pseudo-label pass) on this
+    rank's rows (``batch_split``); on a sharded model its decodes stop
+    together on every rank and its graphed calls run eagerly (FSDP2's
+    gathers, ``utils.graphs.eager``)."""
+    from videotgb_torch.parallel.sharding import batch_split, is_sharded
+    from videotgb_torch.utils.graphs import eager
+
+    sharded = is_sharded(model)
+    with batch_split(mesh, lockstep=sharded), (
+            eager() if sharded else contextlib.nullcontext()):
+        yield
+
+
+def launch(fn, cfg: Config):
+    """``fn(cfg)`` at the layout's world: where it wants more than one rank
+    and no launcher started them, in ranks spawned here (gloo on the CPU,
+    NCCL on the card), returning rank 0's result."""
+    from videotgb_torch.parallel.distributed import env_world, spawn
+    from videotgb_torch.utils.logging import job_log_paths
+
+    world = run_world(cfg)
+    if (world > 1 and env_world() <= 1
+            and not torch.distributed.is_initialized()):
+        on_cpu = (cfg.get("trainer") or Config()).get("platform") == "cpu"
+        return spawn(_in_rank, world, "gloo" if on_cpu else "nccl",
+                     args=(fn, cfg, job_log_paths()),
+                     device_type="cpu" if on_cpu else "cuda")
+    return fn(cfg)
+
+
+def _in_rank(fn, cfg: Config, job_logs):
+    """``fn(cfg)`` in a spawned rank, with the run's job log files attached
+    again (a new process has none; rank 0 writes them)."""
+    from videotgb_torch.utils.logging import (add_file_handler,
+                                              remove_file_handler)
+
+    handlers = [add_file_handler(path) for path in job_logs]
+    try:
+        return fn(cfg)
+    finally:
+        for handler in handlers:
+            remove_file_handler(handler)
+
+
 def train(cfg: Config) -> dict[str, float]:
+    """Train as ``cfg`` says and return the final metrics (rank 0's, where
+    ``launch`` spawns the ranks)."""
+    return launch(_train_rank, cfg)
+
+
+def _train_rank(cfg: Config) -> dict[str, float]:
     with torch.autograd.set_detect_anomaly(bool(cfg.get("debug_nans"))):
         return _train(cfg)
 
 
 def _train(cfg: Config) -> dict[str, float]:
     from videotgb_torch.data.loader import device_batch
+    from videotgb_torch.parallel.distributed import (
+        barrier, broadcast_object, initialize, is_coordinator)
+    from videotgb_torch.parallel.mesh import create_mesh, mesh_rank
     from videotgb_torch.training.checkpoint import (
         CheckpointConfig, CheckpointManager, resolve_ckpt_path, restore_into,
         train_state_items,
@@ -376,6 +521,9 @@ def _train(cfg: Config) -> dict[str, float]:
 
     seed = cfg.get("seed", 42)
     device = run_device(cfg)
+    initialize(device_type=device.type)  # a launcher's ranks join here
+    mesh = create_mesh(run_layout(cfg), device_type=device.type)
+    rank, world = mesh_rank(mesh)
     tcfg_raw = cfg.get("trainer", Config())
     accum = tcfg_raw.get("accumulate_grad_batches", 1)
     is_sf = cfg.model.get("recipe", "tg") == "sf"
@@ -384,7 +532,7 @@ def _train(cfg: Config) -> dict[str, float]:
                          "a step: trainer.accumulate_grad_batches must be 1")
     recipe = build_recipe(cfg.model)
     model, mcfg = build_model(cfg.model, device=device, seed=seed)
-    train_loader, val_loader, tok = build_data(cfg, mcfg)
+    train_loader, val_loader, tok = build_data(cfg, mcfg, rank, world)
     if len(train_loader) == 0:
         raise ValueError(f"the train loader has no batch: data.train_size < "
                          f"data.batch_size ({cfg.data.get('batch_size')})")
@@ -405,11 +553,14 @@ def _train(cfg: Config) -> dict[str, float]:
         seed=seed,
     )
     ckpt_overrides = apply_callbacks(cfg, tcfg)
-    trainer = Trainer(tcfg, recipe.loss_fn, recipe.filter_fn)
+    trainer = Trainer(tcfg, recipe.loss_fn, recipe.filter_fn, mesh=mesh)
     out_dir = cfg.get("paths", Config()).get("output_dir", "outputs")
     trainer.writers = build_writers(cfg.get("loggers", ["csv"]), out_dir)
     trainer.writers.log_hyperparams({"config": dict(cfg)})
     state = trainer.init_state(model)
+    if world > 1:
+        log.info("%d ranks, the %s route; train_step: %s", world,
+                 trainer.route, trainer.step_route)
 
     ckpt_dir = ckpt_overrides.get(
         "dirpath") or cfg.get("paths", Config()).get("ckpt_dir",
@@ -440,10 +591,14 @@ def _train(cfg: Config) -> dict[str, float]:
             log.info("warm-started params from %s @ step %d", root, step)
 
     def eval_fn(state):
-        return evaluate_recipe(cfg, state.model, recipe, val_loader, tok)
+        with outside_the_step(mesh, state.model):
+            return evaluate_recipe(cfg, state.model, recipe, val_loader, tok)
 
     def checkpoint_fn(state, metrics):
-        ckpt.save(state.step, train_state_items(state), metrics)
+        items = train_state_items(state)  # a collective under FSDP
+        if is_coordinator():
+            ckpt.save(state.step, items, metrics)
+        barrier()
 
     def loader_batches():
         while True:
@@ -470,9 +625,10 @@ def _train(cfg: Config) -> dict[str, float]:
     def sf_scores(cur_state, db):
         db = dict(db)
         answers = db.pop("_text_answer")
-        db["scores"] = sf_pseudo_scores(
-            cur_state.model, db, answers, tok,
-            max_new_tokens=cfg.model.get("pseudo_max_new", 16))
+        with outside_the_step(mesh, cur_state.model):
+            db["scores"] = sf_pseudo_scores(
+                cur_state.model, db, answers, tok,
+                max_new_tokens=cfg.model.get("pseudo_max_new", 16))
         return db
 
     # debug=profiler overlay (reference configs/debug/profiler.yaml:
@@ -500,9 +656,12 @@ def _train(cfg: Config) -> dict[str, float]:
         if cfg.get("test"):
             # reference: trainer.test on the best checkpoint after fit
             # (src/train.py:91-98); its parameters replace the live ones
-            best = ckpt.best_step()
+            best = broadcast_object(ckpt.best_step())
             if best is not None:
-                restore_into(ckpt.restore(best, items=["params"]), model)
+                # the saves are rank 0's: the other ranks read them from disk
+                src = ckpt if is_coordinator() else CheckpointManager(
+                    ckpt.config)
+                restore_into(src.restore(best, items=["params"]), model)
                 test_metrics = {
                     f"test{k[3:]}" if k.startswith("val") else k: v
                     for k, v in eval_fn(state).items()}
@@ -521,13 +680,15 @@ def sf_pseudo_scores(model, db, text_answers, tok,
     -> decoded on the host -> rouge_n recall against each row's gold
     answer -> scores (B, F) f32 on the host (reference:
     LSTP_SF_blip2_module.py:151-192)."""
+    from videotgb_torch.parallel.sharding import sharded_call
     from videotgb_torch.training.metrics import rouge_n
     from videotgb_torch.training.recipes import pseudo_label_generate
 
     frames = db["frames"]
     b, f = frames.shape[:2]
-    ids = pseudo_label_generate(
-        model, frames, db["question_ids"], db["question_mask"],
+    ids = sharded_call(
+        model, pseudo_label_generate, frames, db["question_ids"],
+        db["question_mask"],
         max_new_tokens=max_new_tokens,
         qformer_input_ids=db.get("qformer_input_ids"),
         qformer_attention_mask=db.get("qformer_attention_mask"))
@@ -538,12 +699,27 @@ def sf_pseudo_scores(model, db, text_answers, tok,
     return scores.reshape(b, f)
 
 
+def join_launcher(cfg: Config) -> None:
+    """Under a launcher (``WORLD_SIZE`` > 1), join its process group on
+    the run's device type before the run directory is made."""
+    from videotgb_torch.parallel.distributed import env_world, initialize
+
+    if env_world() > 1:
+        on_cpu = (cfg.get("trainer") or Config()).get("platform") == "cpu"
+        initialize(device_type="cpu" if on_cpu else "cuda")
+
+
 def main(argv: list[str] | None = None) -> dict[str, float]:
     argv = argv if argv is not None else sys.argv[1:]
     cfg = compose(CONFIG_DIR, "train", argv)
+    from videotgb_torch.parallel.distributed import (broadcast_object,
+                                                     is_coordinator)
     from videotgb_torch.utils.task import apply_extras, setup_run_dir
 
-    setup_run_dir(cfg, job_name="train", overrides=argv)
+    join_launcher(cfg)
+    if is_coordinator():  # one run directory, made by rank 0
+        setup_run_dir(cfg, job_name="train", overrides=argv)
+    cfg = broadcast_object(cfg)
     apply_extras(cfg)
     return train(cfg)
 

@@ -262,10 +262,26 @@ def resolve_ckpt_path(path: str) -> tuple[str, int | None]:
     return path, step
 
 
-def train_state_items(state: Any) -> dict:
-    """The items a full-state save holds for a ``TrainState``."""
-    return {"params": state.model.state_dict(),
-            "opt_state": state.optimizer.state_dict(), "step": state.step}
+def train_state_items(state: Any) -> dict | None:
+    """The items a full-state save holds for a ``TrainState``, in the
+    single-device format at every layout: under FSDP2 each parameter and
+    Adam moment is first gathered whole to the CPU
+    (``parallel.sharding.full_tensor``, a collective every rank joins).
+    Ranks other than the coordinator get None."""
+    from videotgb_torch.parallel.distributed import is_coordinator
+    from videotgb_torch.parallel.sharding import full_tensor
+
+    def whole(x):
+        return full_tensor(x).cpu() if hasattr(x, "to_local") else x
+
+    params = {n: whole(v) for n, v in state.model.state_dict().items()}
+    optim = state.optimizer.state_dict()
+    optim = {"state": {i: {k: whole(v) for k, v in s.items()}
+                       for i, s in optim["state"].items()},
+             "param_groups": optim["param_groups"]}
+    if not is_coordinator():
+        return None
+    return {"params": params, "opt_state": optim, "step": state.step}
 
 
 def restore_into(restored: dict, model: torch.nn.Module,
@@ -273,10 +289,26 @@ def restore_into(restored: dict, model: torch.nn.Module,
                  ) -> int | None:
     """Copy restored items into the live ``model`` (and ``optimizer``,
     where the checkpoint has its state) in place; returns the restored step
-    count, or None when the checkpoint holds none."""
-    model.load_state_dict(restored["params"])
+    count, or None when the checkpoint holds none. Every rank restores the
+    same single-device files: a parameter or Adam moment under FSDP2 takes
+    its rank's chunk of the whole tensor."""
+    from videotgb_torch.parallel.sharding import shard_like
+
+    def local(v, like):
+        return shard_like(v, like) if hasattr(like, "to_local") else v
+
+    live = model.state_dict()
+    model.load_state_dict({n: local(v, live.get(n))
+                           for n, v in restored["params"].items()})
     if optimizer is not None and "opt_state" in restored:
-        optimizer.load_state_dict(restored["opt_state"])
+        order = [p for g in optimizer.param_groups for p in g["params"]]
+        optim = restored["opt_state"]
+        optimizer.load_state_dict({
+            "state": {i: {k: (local(v, order[i])
+                              if torch.is_tensor(v) and v.dim() > 0 else v)
+                          for k, v in s.items()}
+                      for i, s in optim["state"].items()},
+            "param_groups": optim["param_groups"]})
     return int(restored["step"]) if "step" in restored else None
 
 

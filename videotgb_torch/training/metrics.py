@@ -10,8 +10,9 @@ syncs until a compute is read on the host.
   bleu1     — torchmetrics BLEUScore(n_gram=1) used as val/score
               (reference: LSTP_SF_blip2_module.py:107-119)
 
-The cross-process reduction of the states (``all_reduce_state``) comes with
-the parallel layouts (ROADMAP.md queue 1 item 4).
+In a data-parallel run each rank updates a state on its rows, and
+:func:`all_reduce_state` sums the states over the ranks before a compute
+(the JAX package's ``all_reduce_state`` under a shard_map).
 """
 
 from __future__ import annotations
@@ -44,6 +45,19 @@ def mean_update(state: State, value, weight=1.0) -> State:
 
 def mean_compute(state: State) -> torch.Tensor:
     return state["total"] / torch.clamp(state["count"], min=1.0)
+
+
+def all_reduce_state(state: State) -> State:
+    """Each entry of a metric state summed over the ranks (every rank
+    calls it); the state itself in one process."""
+    if not (torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        return state
+    keys = sorted(state)
+    total = torch.stack([torch.as_tensor(state[k], dtype=torch.float32)
+                         for k in keys])
+    torch.distributed.all_reduce(total)
+    return dict(zip(keys, total))
 
 
 # ------------------------------------------------------------------- accuracy

@@ -11,6 +11,14 @@ after the square root, decoupled weight decay; ``capturable`` on the card,
 its step count a device tensor) at the learning rate the caller takes from
 the schedule at the step count before the update (so step 0 of a warmup
 from 0 moves nothing). Parameters are updated in place.
+
+Under FSDP2 (``parallel.sharding.shard_params``) the parameters, their
+gradients and the moments are DTensors, each rank holding its shard: the
+fused, capturable AdamW takes them as they are (torch 2.11 and later), and
+the clip's norm is the global norm over every rank's shard. On the
+data-parallel route every rank holds the summed gradients whole, so the
+ranks' clips and updates are the same arithmetic on the same numbers and
+the trainable parameters stay bit-identical across the ranks.
 """
 
 from __future__ import annotations
@@ -128,6 +136,8 @@ def optimizer_step(optimizer: torch.optim.Optimizer,
             p.grad = z
     norm = torch.nn.utils.clip_grad_norm_(
         params, float("inf") if max_grad_norm is None else max_grad_norm)
+    if hasattr(norm, "full_tensor"):  # a DTensor: the norm over every shard
+        norm = norm.full_tensor()
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()

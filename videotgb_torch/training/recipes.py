@@ -30,12 +30,16 @@ import torch
 import torch.nn.functional as F
 
 from videotgb_torch.ops.span import largest_rectangle_span, rescale_index
+from videotgb_torch.parallel.sharding import global_count
 from videotgb_torch.training.optim import path_freeze_filter
 
 
 def span_ce_loss(start_logits, end_logits, start_targets, end_targets):
     """(CE(start) + CE(end)) / 2 over (B, L) logits with ignore index L:
-    targets are clamped into [0, L] and index L contributes nothing."""
+    targets are clamped into [0, L] and index L contributes nothing. Each
+    CE divides by the count of valid targets over the global batch
+    (``parallel.sharding.global_count``), as the JAX loss on a sharded
+    batch does."""
     l = start_logits.shape[1]
 
     def one(logits, targets):
@@ -45,7 +49,7 @@ def span_ce_loss(start_logits, end_logits, start_targets, end_targets):
         logp = F.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, 1, safe[:, None])[:, 0]
         return (torch.where(valid, nll, torch.zeros_like(nll)).sum()
-                / valid.sum().clamp(min=1))
+                / global_count(valid.sum()).clamp(min=1))
 
     return 0.5 * (one(start_logits, start_targets)
                   + one(end_logits, end_targets))

@@ -23,6 +23,24 @@ computing what the i-th of K ``train_step`` calls computes. ``fit`` groups
 the batches into such windows when ``steps_per_dispatch`` K > 1 and no
 ``batch_transform`` runs between steps (SF's pseudo-label pass needs the
 current parameters every step), never stepping past ``max_steps``.
+
+Given a ``mesh`` (``parallel.mesh.create_mesh``: dp x fsdp ranks, one
+process a device), each rank's batches are its rows of the global batches
+and a step computes what the JAX trainer's dp/fsdp-sharded step computes
+on the global batch (which is what one device computes), up to reduction
+order. The losses divide by the global count of valid entries
+(``parallel.sharding.global_count``) and draw the global batch's random
+numbers (``global_draw``); on the ``dp`` route (fsdp 1) every rank holds
+the whole model and the trainable gradients are summed over the ranks in
+buckets (``all_reduce_sum``) before the clip; on the ``fsdp`` route
+(``shard_params``: FSDP2 units, each rank's backward scaled by the world
+size so that FSDP2's averaging reduce-scatter leaves the sum) the clip
+takes the global norm of the sharded gradients. The loss and the aux
+scalars are summed over the ranks, so every rank logs, evaluates, saves
+and stops on the same numbers. The step is a CUDA graph only on one
+process or an NCCL group on the ``dp`` route: gloo's collectives run on
+the host and cannot be captured, and FSDP2 keeps its gather and reshard
+state on the host (``step_route`` names the route taken).
 """
 
 from __future__ import annotations
@@ -33,6 +51,14 @@ from typing import Callable, Iterable
 
 import torch
 
+from videotgb_torch.parallel.mesh import mesh_rank
+from videotgb_torch.parallel.sharding import (
+    all_reduce_sum,
+    batch_split,
+    is_sharded,
+    shard_params,
+    sharded_call,
+)
 from videotgb_torch.training.optim import (
     cosine_warmup_schedule,
     make_optimizer,
@@ -104,12 +130,19 @@ class TrainState:
 class Trainer:
     def __init__(self, config: TrainerConfig,
                  loss_fn: Callable[..., tuple[torch.Tensor, dict]],
-                 filter_fn: Callable[[str], bool] | None = None):
+                 filter_fn: Callable[[str], bool] | None = None,
+                 mesh=None):
         """``loss_fn(model, batch, generator) -> (loss, aux dict)``;
-        ``filter_fn(name)`` says which parameters train (all without one)."""
+        ``filter_fn(name)`` says which parameters train (all without one);
+        ``mesh`` the dp x fsdp mesh of a multi-rank run (None: one
+        process)."""
         self.config = config
         self.loss_fn = loss_fn
         self.filter_fn = filter_fn
+        self.mesh = mesh
+        self.world = mesh_rank(mesh)[1]
+        self.route = "single"
+        self.step_route = "graph"
         self.writers = None  # optional utils.writers.MultiWriter
         self.schedule = cosine_warmup_schedule(config.lr, config.max_steps,
                                                config.warmup_ratio)
@@ -118,6 +151,21 @@ class Trainer:
         self._step = graphed(self._step_body)
 
     def init_state(self, model: torch.nn.Module) -> TrainState:
+        """The train state of ``model``; with an fsdp extent above 1 the
+        model is first sharded in place (``shard_params``)."""
+        if (self.mesh is not None and self.mesh["fsdp"].size() > 1
+                and not is_sharded(model)):
+            shard_params(model, self.mesh)
+        self.route = ("fsdp" if is_sharded(model) else
+                      "dp" if self.mesh is not None else "single")
+        if self.route == "fsdp":
+            self.step_route = ("eager: FSDP2 gathers and reshards from the "
+                               "host")
+        elif (self.route == "dp"
+              and torch.distributed.get_backend() != "nccl"):
+            self.step_route = ("eager: gloo collectives run on the host")
+        if self.step_route != "graph":
+            self._step = self._step.eager
         optimizer, self.trainable = make_optimizer(
             model, self.config.weight_decay, self.filter_fn)
         params = dict(model.named_parameters())
@@ -151,25 +199,38 @@ class Trainer:
         lr = self.schedule(state.step)
         lr_arg = (lr if dev.type == "cpu" else
                   torch.full((), lr, dtype=torch.float32, device=dev))
-        metrics = self._step(model, state.optimizer, batch,
-                             self.generator(state.step, dev), lr_arg)
+        with batch_split(self.mesh):
+            metrics = self._step(model, state.optimizer, batch,
+                                 self.generator(state.step, dev), lr_arg)
         metrics["lr"] = lr
         return TrainState(model, state.optimizer, state.step + 1), metrics
 
     def _step_body(self, model, optimizer, batch, gen, lr):
         """The step as one program: every micro-batch's forward and
-        backward, the average, the clip and the update."""
+        backward, the average, the reduction over ranks, the clip and the
+        update."""
         accum = self.config.accumulate_grad_batches
         micro = ([batch] if accum == 1 else
                  [{k: v[i] for k, v in batch.items()} for i in range(accum)])
         loss_sum, aux_sums = 0.0, {}
         for mb in micro:
-            loss, aux = self.loss_fn(model, mb, gen)
-            loss.backward()
+            loss, aux = sharded_call(model, self.loss_fn, mb, gen)
+            (loss * self.world if self.route == "fsdp" else loss).backward()
             loss_sum = loss_sum + loss.detach()
             for k, v in aux.items():
                 if torch.is_tensor(v) and v.dim() == 0:
                     aux_sums[k] = aux_sums.get(k, 0.0) + v.detach()
+        if self.route == "dp":
+            with torch.no_grad():
+                all_reduce_sum([p.grad for group in optimizer.param_groups
+                                for p in group["params"]
+                                if p.grad is not None])
+        if self.route != "single":  # the ranks' shares of the loss and aux
+            keys = sorted(aux_sums)
+            total = torch.stack([loss_sum] + [aux_sums[k] for k in keys])
+            torch.distributed.all_reduce(total)
+            loss_sum = total[0]
+            aux_sums = dict(zip(keys, total[1:]))
         if accum > 1:
             with torch.no_grad():
                 for group in optimizer.param_groups:

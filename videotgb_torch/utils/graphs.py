@@ -62,6 +62,7 @@ import weakref
 import torch
 
 from videotgb_torch.ops import kernels
+from videotgb_torch.parallel.sharding import all_ranks
 
 _LOCK = threading.RLock()
 _STATE = threading.local()  # .depth: graphed calls open; .builder: capture
@@ -231,11 +232,13 @@ def loop(body, max_iters: int) -> None:
     whose returned 0-dim bool tensor is True (a host read each time). In a
     capture, ``body`` is captured once into a graph of its own that each
     replay of the program runs this way; ``body`` must then update its
-    state in place."""
+    state in place. Eagerly, under a lockstep data-parallel split, the loop
+    stops when every rank's flag is set (``parallel.sharding.all_ranks``):
+    a sharded model gathers its parameters at every step, on every rank."""
     builder = getattr(_STATE, "builder", None)
     if builder is None:
         for _ in range(max_iters):
-            if bool(body()):
+            if bool(all_ranks(body())):
                 break
         return
     builder.end()
@@ -289,6 +292,18 @@ def _forget(wrapper_ref, owner: int) -> None:
     wrapper = wrapper_ref()
     if wrapper is not None:
         wrapper._forget(owner)
+
+
+@contextlib.contextmanager
+def eager():
+    """Within the block every graphed call runs its eager function: a
+    model under FSDP2 gathers its parameters from the host at every unit,
+    which no program can replay."""
+    _STATE.depth = getattr(_STATE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _STATE.depth -= 1
 
 
 def invalidate(obj) -> None:

@@ -1,6 +1,6 @@
 """Run logging (the port's copy of ``videotgb_tpu/utils/logging.py``;
-reference: src/utils/pylogger.py, rich_utils.py). The port runs as one
-process on one card, so there is no process-index filter."""
+reference: src/utils/pylogger.py, rich_utils.py). In a multi-process run
+only rank 0 logs (the reference's rank_zero_only)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,18 @@ import sys
 from typing import Any, Mapping
 
 _FORMAT = "[%(asctime)s][%(name)s][%(levelname)s] %(message)s"
+
+
+def is_process_zero() -> bool:
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
+class _RankZeroFilter(logging.Filter):
+    def filter(self, record: logging.LogRecord) -> bool:
+        return is_process_zero()
 
 
 # run-scoped extra handlers (the per-run job log file, hydra
@@ -20,11 +32,12 @@ _EXTRA_HANDLERS: list[logging.Handler] = []
 
 def get_logger(name: str = "videotgb_torch") -> logging.Logger:
     """A ``videotgb_torch*`` logger writing to stderr and to the run's job log
-    (reference src/utils/pylogger.py:6-21)."""
+    on process 0 only (reference src/utils/pylogger.py:6-21)."""
     logger = logging.getLogger(name)
     if not logger.handlers:
         handler = logging.StreamHandler(sys.stderr)
         handler.setFormatter(logging.Formatter(_FORMAT, datefmt="%H:%M:%S"))
+        handler.addFilter(_RankZeroFilter())
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
         logger.propagate = False
@@ -42,12 +55,20 @@ def add_file_handler(path: str) -> logging.Handler:
     handler = logging.FileHandler(path)
     handler.setFormatter(
         logging.Formatter(_FORMAT, datefmt="%Y-%m-%d %H:%M:%S"))
+    handler.addFilter(_RankZeroFilter())
     _EXTRA_HANDLERS.append(handler)
     for name, logger in logging.Logger.manager.loggerDict.items():
         if name.startswith("videotgb_torch") and isinstance(logger, logging.Logger):
             if handler not in logger.handlers:
                 logger.addHandler(handler)
     return handler
+
+
+def job_log_paths() -> list[str]:
+    """The files the run-scoped handlers write (a spawned rank attaches
+    them again: a new process has none)."""
+    return [h.baseFilename for h in _EXTRA_HANDLERS
+            if isinstance(h, logging.FileHandler)]
 
 
 def remove_file_handler(handler: logging.Handler) -> None:

@@ -6,7 +6,8 @@ The reference wires any subset of 7 Lightning loggers via hydra
 csv, ...). Here a writer is a small object with ``log_metrics(dict, step)``
 and ``log_hyperparams(dict)``; :func:`build_writers` instantiates whatever
 the environment supports and MultiWriter fans out (the many_loggers
-analogue).
+analogue). In a multi-process run only rank 0 writes: the other ranks'
+:func:`build_writers` is an empty MultiWriter.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import time
 from typing import Any, Mapping
 
-from videotgb_torch.utils.logging import get_logger
+from videotgb_torch.utils.logging import get_logger, is_process_zero
 
 log = get_logger("videotgb_torch.writers")
 
@@ -193,7 +194,7 @@ class MultiWriter:
 
 def build_writers(names: list[str], output_dir: str, **kwargs) -> MultiWriter:
     writers = []
-    for name in names:
+    for name in (names if is_process_zero() else ()):
         try:
             if name == "csv":
                 writers.append(CSVWriter(os.path.join(output_dir, "csv")))
