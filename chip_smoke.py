@@ -152,8 +152,10 @@ Phases, each fatal on failure (exit code 1):
    ``test/score``), and the TG CLI at batch 32 and 64 flow frames (2
    steps, no kernel, ``val/iou_score``); each step's wall split into the
    data wait and ``train_step``, eval walls, save and restore walls and
-   bytes, peak memory. It needs 2.2 x 18.1 GB of free disk (two flagship
-   checkpoints at once) under ``build/`` and fails without it;
+   bytes, peak memory. Its four 18.1 GB saves are made and counted but not
+   written (their time goes to phase 22): each is a copy of its items in
+   host memory beside empty placeholder files, which the resume, the
+   library round trip and ``evaluate.main`` restore from;
 16. the self-refinement (SF) recipe and the InstructBLIP training paths at
    flagship width, f32 parameters, bf16 compute, batch 2, 32 candidate
    frames at 224², 64 flow frames, 128-token questions, 32-token answers,
@@ -262,7 +264,27 @@ Phases, each fatal on failure (exit code 1):
    norm within 1e-2 of the unwrapped world-1 step's, and the gradient gaps
    leaf by leaf to the world-1 step, the plain dp step and the grouped dp
    step printed; 21c a tiny world-2 FSDP checkpoint restored in this
-   process with equal parameters and Adam moments.
+   process with equal parameters and Adam moments;
+22. tensor-parallel serving (``tensor_parallel_paths``) at flagship width,
+   bf16 residency: world-1 references in this process, then two gloo
+   ranks on the one card at tp=2, each model sliced by
+   ``parallel.tensor.shard_tp``: 22a ``flow_features`` +
+   ``generate_blip2`` on 4 requests (64-token prompts, 4 flow pairs, 16 new
+   tokens) on the model of 22c's engine; 22c ``ServingEngine(mesh=
+   "tp=2")``, 4 requests through rank 0's ``submit``; 22b
+   InstructBLIP-Vicuna-7B, the same requests, 80 new tokens (Vicuna's
+   prefill takes kernel A from 75 on). Each run's launches exactly as
+   derived (A 39, or 71 on Vicuna, B 20, D 1 a batch, on the tensor-core
+   and tile bodies); kernel A at the shapes the ranks give it (8 of
+   ViT-g's 16 heads, 16 of Vicuna's 32) against its plain version on the
+   recorded inputs; frames equal to world 1's (22c's against direct phase
+   calls on each batch rank 0 assembled, with its step's generator); the
+   LLM's visual tokens within 1/8 of world 1's largest, and the first
+   decode step's logits too where one bf16 step on the LLM's inputs moves
+   world 1's by less; each rank's tokens bit-identical to the other's;
+   the greedy tokens' agreement with world 1, a rank's wall and the share
+   of it in the tp collectives (through the host: gloo times nothing a
+   multi-card NCCL machine would); the engine's route (eager).
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -2848,7 +2870,6 @@ def serving_engine(card: str, backbone: str = "blip2",
 
 
 # ------------------------------------------------- phase 15: the two CLIs
-CKPT_GB = 18.1  # a flagship E2E save: f32 parameters + the Adam moments
 E2E_CLI = ["experiment=smoke_e2e_synthetic", "model.preset=flagship",
            "data.batch_size=8", "data.train_size=32", "data.val_size=8",
            "data.max_flow_len=64", "data.flow_len_range=[8,64]",
@@ -2888,6 +2909,11 @@ class CliProbe:
         # a save made but not written, recorded with 0 bytes: the 40.9 GB
         # SF and 33.7 GB Vicuna IV saves give their time to phase 21
         self.skip_saves = False
+        # a save made, counted and held in host memory, not written (phase
+        # 15's four 18.1 GB saves give their time to phase 22): each file
+        # is an empty placeholder, and a restore reads the held copy
+        self.hold_saves = False
+        self.held = {}  # (root, step, item file) -> the host copy
         self.clear()
         self._undo = []
 
@@ -3011,16 +3037,33 @@ class CliProbe:
                     real(obj, path, *args, **kwargs)
                     written.append(os.path.getsize(path))
 
+                def holding(obj, path, *args, **kwargs):
+                    copy, nbytes = held_copy(obj)
+                    probe.held[held_key(path)] = (copy, nbytes)
+                    open(path, "wb").close()
+                    written.append(nbytes)
+
                 torch.cuda.synchronize()
-                torch.save = counting
+                torch.save = holding if probe.hold_saves else counting
                 t = time.perf_counter()
                 try:
                     orig(mgr, step, state, metrics)
                 finally:
                     torch.save = real
                 probe.saves.append({"step": step, "bytes": sum(written),
-                                    "s": time.perf_counter() - t})
+                                    "s": time.perf_counter() - t,
+                                    "held": probe.hold_saves})
+                for key in [k for k in probe.held if not any(
+                        os.path.exists(os.path.join(k[0], pool, k[1], k[2]))
+                        for pool in ("best", "last"))]:
+                    del probe.held[key]  # a step the manager dropped
             return timed
+
+        def load(orig):
+            def held_or_read(path, *args, **kwargs):
+                got = probe.held.get(held_key(path))
+                return orig(path, *args, **kwargs) if got is None else got[0]
+            return held_or_read
 
         def restore(orig):
             def timed(mgr, step=None, items=None):
@@ -3028,10 +3071,15 @@ class CliProbe:
                 out = orig(mgr, step, items)
                 step = step if step is not None else mgr.latest_step()
                 d = mgr.step_dir(step)
+                sizes = [probe.held.get(held_key(os.path.join(d, n + ".pt")),
+                                        (None, None))[1]
+                         for n in out]
                 probe.restores.append({
                     "step": step, "items": sorted(out),
-                    "bytes": sum(os.path.getsize(os.path.join(d, n + ".pt"))
-                                 for n in out),
+                    "bytes": sum(size if size is not None else
+                                 os.path.getsize(os.path.join(d, n + ".pt"))
+                                 for n, size in zip(out, sizes)),
+                    "held": any(size is not None for size in sizes),
                     "s": time.perf_counter() - t})
                 return out
             return timed
@@ -3143,6 +3191,7 @@ class CliProbe:
         self._patch(T, "build_model", build_model)
         self._patch(CK.CheckpointManager, "save", save)
         self._patch(CK.CheckpointManager, "restore", restore)
+        self._patch(torch, "load", load)
         self._patch(CK, "restore_into", restore_into)
         self._patch(T, "sf_pseudo_scores", pseudo)
         self._patch(attention, "flash_backward_cuda", flash_bwd)
@@ -3153,6 +3202,37 @@ class CliProbe:
         for owner, name, orig in reversed(self._undo):
             setattr(owner, name, orig)
         self._undo.clear()
+        self.held.clear()
+
+
+def held_key(path: str) -> tuple:
+    """(checkpoint root, step, item file) of a file a ``CheckpointManager``
+    writes: ``<root>/<best|last>/<step or .<step>.tmp-<pid>>/<item>.pt``."""
+    step_dir, item = os.path.split(os.path.abspath(path))
+    pool, name = os.path.split(step_dir)
+    step = name[1:].split(".tmp")[0] if name.startswith(".") else name
+    return os.path.dirname(pool), step, item
+
+
+def held_copy(obj):
+    """A host copy of a checkpoint item (tensors copied off the card,
+    containers rebuilt, other values as they are) and its tensors' bytes."""
+    import torch
+
+    total = 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+            return x.detach().to("cpu", copy=True)
+        if isinstance(x, dict):
+            return type(x)((k, walk(v)) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return x
+
+    return walk(obj), total
 
 
 def cli_run(name, probe, drive, step_want, eval_want, card,
@@ -3237,14 +3317,17 @@ def cli_run(name, probe, drive, step_want, eval_want, card,
     for r in probe.saves:
         log(f"  {name} save of step {r['step']}: {r['bytes'] / 1e9:.3f} GB "
             f"in {r['s']:.2f} s"
-            + (f" ({r['bytes'] / 1e9 / r['s']:.2f} GB/s)" if r["bytes"]
+            + (" (held in host memory, not written: the tensors' bytes)"
+               if r.get("held") and r["bytes"] else
+               f" ({r['bytes'] / 1e9 / r['s']:.2f} GB/s)" if r["bytes"]
                else " (not written: the phase skips this save)"
                if r.get("skipped") else
                " (nothing written: not above the newest kept step)"))
     for r in probe.restores:
         log(f"  {name} restore of step {r['step']} {r['items']}: "
-            f"{r['bytes'] / 1e9:.3f} GB in {r['s']:.2f} s (open + load into "
-            f"the live model)")
+            f"{r['bytes'] / 1e9:.3f} GB in {r['s']:.2f} s ("
+            + ("the held copy" if r.get("held") else "open")
+            + " + load into the live model)")
     log(f"  {name}: {wall:.2f} s for the call; peak device memory "
         f"{peak_gib:.2f} GiB on {card}")
     return result, got
@@ -3282,14 +3365,6 @@ def cli_paths(card: str) -> dict:
     root = os.path.join(HERE, "build", "phase15")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    free = shutil.disk_usage(root).free
-    need = 2.2 * CKPT_GB * 1e9
-    log(f"  free disk under {root}: {free / 1e9:.1f} GB (need "
-        f"{need / 1e9:.1f} GB: two {CKPT_GB} GB checkpoints and room)")
-    if free < need:
-        fail(f"phase 15 needs {need / 1e9:.1f} GB of free disk for two "
-             f"{CKPT_GB} GB flagship checkpoints at once; {free / 1e9:.1f} GB "
-             f"is free under {root}")
     mcfg = VideoTGBConfig.flagship()
     vit, enc = mcfg.blip2.vit.num_layers, mcfg.blip2.t5.num_encoder_layers
     e2e_step = {"flash_fwd": vit + enc, "flash_bwd": enc}
@@ -3297,6 +3372,7 @@ def cli_paths(card: str) -> dict:
     # selection; its mean-pooled 64-token T5 encoder goes plain
     e2e_eval = {"flash_fwd": 2 * vit + enc, "select_frames": 1}
     probe = CliProbe()
+    probe.hold_saves = True  # made and counted, not written: phase 22's time
     probe.install()
     launches = {}
 
@@ -3420,10 +3496,11 @@ def cli_paths(card: str) -> dict:
             f"parameters and their Adam moments bit-identical")
         for r in probe.saves:
             log(f"  library save: {r['bytes'] / 1e9:.3f} GB in {r['s']:.2f} s"
-                f" ({r['bytes'] / 1e9 / r['s']:.2f} GB/s)")
+                + (" (held in host memory, not written)" if r["held"] else
+                   f" ({r['bytes'] / 1e9 / r['s']:.2f} GB/s)"))
         for r in probe.restores:
             log(f"  library restore: {r['bytes'] / 1e9:.3f} GB in "
-                f"{r['s']:.2f} s")
+                f"{r['s']:.2f} s (the manager's restore alone)")
         del model, tb, sb, params, want_p, want_m, batch, m_b
         shutil.rmtree(os.path.join(root, "lib"))
 
@@ -6169,6 +6246,489 @@ def parallel_paths(card: str) -> dict:
     return totals
 
 
+# ------------------------------------ phase 22: tensor-parallel serving
+# new tokens of 22a (and 22c) and of 22b: Vicuna's prefill takes kernel A
+# from 75 new tokens on (96 x (96 + 75) > 128^2)
+P22_NEW = {"blip2": 16, "instructblip": 80}
+# the LLM's visual tokens and the first decode step's logits at tp=2 may
+# differ from world 1's by at most this share of world 1's largest (the
+# bound PERF.md set before the first run: bf16 sums in another order move
+# them by a few hundredths of it; a wrong slice or a missing reduction by
+# its size). The logits' bound holds only where one bf16 step on the LLM's
+# inputs moves world 1's logits by less: random-weight Flan-T5-xl's
+# unscaled attention turns bf16 rounding into O(1) logits
+P22_LOGITS_SHARE = 0.125
+P22_AGREE = 0.7  # the JAX package's own floor (test_sharded_inference.py)
+P22_ENGINE = dict(preset="flagship", batch_size=4, flow_frames=4,
+                  max_new_tokens=P22_NEW["blip2"])
+
+
+def p22_args(backbone: str):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(model_path="random:flagship", preset="flagship",
+                           backbone=backbone, bf16_params=1)
+
+
+def p22_expected(backbone: str, batches: int = 1) -> dict:
+    """Launches of one request batch: RAFT's 20 lookups and kernel D's one
+    selection, then the ViT-g's 39 flash forwards, and Vicuna's prefill's
+    32 where it takes kernel A; 0 for every other kernel."""
+    from videotgb_torch.models.videotgb import VideoTGBConfig
+    from videotgb_torch.ops import kernels
+
+    cfg = VideoTGBConfig.flagship(backbone)
+    flash = cfg.vit.num_layers
+    if backbone == "instructblip":
+        flash += cfg.instructblip.llm.num_layers
+    per = {"flash_fwd": flash, "corr_lookup": cfg.raft.iters,
+           "select_frames": 1}
+    return {**dict.fromkeys(kernels.LAUNCHES, 0),
+            **{k: v * batches for k, v in per.items()}}
+
+
+def p22_drive(model, backbone: str, timer=None) -> dict:
+    """22a / 22b on ``model``: the 4 requests of ``vicuna_requests`` (64
+    -token prompts right-padded from 40 to 64 real tokens, 4 flow pairs,
+    32 candidate frames), RAFT's flow of their flow frames, then
+    ``generate_blip2`` / ``generate_instructblip`` from a seeded generator,
+    counted (every count set to 0 just before, read just after) and timed;
+    then, not counted, the logits of the first decode step on the same
+    seed: T5's decoder on its start token, LLaMA's prefill at each row's
+    last prompt token."""
+    import torch
+
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.ops.decode import DecodeConfig
+
+    dev, cfg = model.device, model.config
+    frames_u8, flow_u8, batch = vicuna_requests(cfg, dev, seed=22)
+    llm = (cfg.instructblip.llm if backbone == "instructblip"
+           else cfg.blip2.t5)
+    dcfg = DecodeConfig(max_new_tokens=P22_NEW[backbone],
+                        eos_token_id=llm.eos_token_id,
+                        pad_token_id=llm.pad_token_id)
+    mean = torch.tensor((0.48145466, 0.4578275, 0.40821073), device=dev)
+    std = torch.tensor((0.26862954, 0.26130258, 0.27577711), device=dev)
+    gen = torch.Generator(device=dev)
+    generate = (V.generate_instructblip if backbone == "instructblip"
+                else V.generate_blip2)
+    if timer is not None:
+        timer.update(ms=0.0, calls=0)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        full = dict(batch, flow=model.flow_features(flow_u8.float()),
+                    frames=(frames_u8.float() / 255.0 - mean) / std)
+        tokens, cand = generate(model, full, dcfg,
+                                generator=gen.manual_seed(22))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    check_bodies(f"22 {backbone}", launches)
+    comm = dict(timer or {})
+    lm = model.model.language_model
+    with torch.inference_mode():
+        qf = {}
+        if cfg.instruction_aware:
+            qf = dict(qformer_input_ids=full["qformer_input_ids"],
+                      qformer_attention_mask=full["qformer_attention_mask"])
+        visual = model.encode_selected(full["frames"], cand, **qf)
+        if backbone == "instructblip":
+            embeds, mask = model.model.decoder_inputs(
+                visual, full["question_ids"], full["question_mask"])
+        else:
+            embeds, mask = model.model.encoder_inputs(
+                visual, full["question_ids"], full["question_mask"])
+
+        def first_logits(x):
+            if backbone == "instructblip":
+                logits, _ = lm(inputs_embeds=x, attention_mask=mask)
+                last = mask.sum(1).long() - 1
+                return logits[torch.arange(logits.shape[0], device=dev),
+                              last]
+            start = torch.full((x.shape[0], 1), llm.decoder_start_token_id,
+                               device=dev)
+            return lm.decode(start, lm.encode(x, mask), mask)[0][:, 0]
+
+        logits = first_logits(embeds)
+        # the LLM's inputs moved by at most one bf16 step: how far rounding
+        # alone moves these logits at world 1
+        nudged = first_logits((embeds.float() * (1 + 2 ** -8)).to(
+            embeds.dtype))
+    return {"tokens": tokens.cpu(), "cand": cand.cpu(),
+            "visual": visual.float().cpu(), "logits": logits.float().cpu(),
+            "nudged": nudged.float().cpu(), "wall_ms": wall,
+            "launches": launches, "comm_ms": comm.get("ms", 0.0),
+            "comm_calls": comm.get("calls", 0)}
+
+
+def p22_requests(cfg, n: int = 4) -> list:
+    """``n`` engine requests from a seed: (frames (32, 224, 224, 3), flow
+    frames (5, fs, fs, 3) uint8, a question)."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    img, fs = cfg.vit.image_size, cfg.tgb.flow_size
+    return [(rng.integers(0, 256, (cfg.num_frames, img, img, 3), np.uint8),
+             rng.integers(0, 256, (P22_ENGINE["flow_frames"] + 1, fs, fs, 3),
+                          np.uint8),
+             f"what happens in clip {i} and who is there?")
+            for i in range(n)]
+
+
+class P22Flash:
+    """Records the first call of ``flash_attention`` at each input
+    signature (its inputs, copied) while it is installed; ``check`` then
+    holds kernel A against its plain version on them."""
+
+    def __init__(self):
+        self.calls: dict = {}
+
+    def __enter__(self):
+        from videotgb_torch.models import common
+
+        self._orig = real = common.flash_attention
+
+        def record(q, k, v, bias=None, scale=None):
+            key = (tuple(q.shape), tuple(k.shape),
+                   None if bias is None else tuple(bias.shape), str(q.dtype))
+            if key not in self.calls:
+                self.calls[key] = [None if t is None else t.detach().clone()
+                                   for t in (q, k, v, bias)] + [scale]
+            return real(q, k, v, bias, scale)
+
+        common.flash_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        from videotgb_torch.models import common
+
+        common.flash_attention = self._orig
+
+    def check(self, tag: str) -> dict:
+        """{shape: max abs error} of kernel A against the plain version on
+        each recorded call's inputs (bf16: 2e-2 + 2e-2 |ref|, phase 2's)."""
+        from videotgb_torch.ops.attention import (dot_product_attention,
+                                                  flash_attention)
+
+        out = {}
+        for key, (q, k, v, bias, scale) in self.calls.items():
+            got = flash_attention(q, k, v, bias, scale)
+            want = dot_product_attention(q, k, v, bias, scale)
+            out[str(key[:3])] = check_close(
+                f"{tag} kernel A at {key[0]} x {key[1]} (bias {key[2]})",
+                got, want, 2e-2, 2e-2, "bf16 output rounding plus another "
+                "f32 summation order")
+        return out
+
+
+def p22_rank() -> dict:
+    """One rank of phase 22 (two gloo ranks on the one card, as phase
+    21)."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from videotgb_torch.evalsuite.inference import load_model
+    from videotgb_torch.parallel.distributed import (barrier, gather_objects,
+                                                     process_index)
+    from videotgb_torch.parallel.mesh import MeshConfig, create_mesh
+    from videotgb_torch.serve import ServingEngine
+
+    faulthandler.enable()
+    rank = process_index()
+    tag = f"  22 rank {rank}"
+    timer = {"ms": 0.0, "calls": 0}
+    real = {name: getattr(dist, name)
+            for name in ("all_reduce", "all_gather_into_tensor")}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timer["ms"] += (time.perf_counter() - t) * 1e3
+            timer["calls"] += 1
+            return out
+        return call
+
+    def drive(model, backbone):
+        for name, fn in real.items():
+            setattr(dist, name, timed(fn))
+        try:
+            with P22Flash() as flash:
+                got = p22_drive(model, backbone, timer)
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        want = p22_expected(backbone)
+        if got["launches"] != want:
+            fail(f"{tag} {backbone}: launches {got['launches']} != {want}")
+        got["kernel_a"] = flash.check(f"{tag} {backbone}")
+        got["ranks_tokens_equal"] = all(
+            torch.equal(t, got["tokens"]) for t in gather_objects(
+                got["tokens"]))
+        log(f"{tag} {backbone}: launches {got['launches']}, wall "
+            f"{got['wall_ms']:.2f} ms, {got['comm_calls']} tp collectives "
+            f"{got['comm_ms']:.2f} ms")
+        return got
+
+    out = {"rank": rank}
+    # ---- 22a and 22c on one engine's model: BLIP2-Flan-T5-xl at tp=2
+    t = time.perf_counter()
+    engine = ServingEngine("random:flagship", mesh="tp=2", **P22_ENGINE)
+    torch.cuda.synchronize()
+    out["engine_build_s"] = time.perf_counter() - t
+    out["route"] = engine.route
+    out["heads"] = engine.model.model.vision_model.layers[0].attn.num_heads
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    barrier()
+    out["blip2"] = drive(engine.model, "blip2")
+
+    batches, tokens = [], []
+    host_batch, answer = engine.host_batch, engine._answer
+
+    def record_batch(padded):
+        batches.append(list(padded))
+        return host_batch(padded)
+
+    def record_answer():
+        def run(*args, **kwargs):
+            got = answer()(*args, **kwargs)
+            tokens.append(got.cpu())
+            return got
+        return run
+
+    engine.host_batch, engine._answer = record_batch, record_answer
+    barrier()
+    from videotgb_torch.ops import kernels
+
+    kernels.reset_launches()
+    t = time.perf_counter()
+    replies = None
+    if engine.leader:
+        requests = p22_requests(engine.cfg)
+        futures = [engine.submit(*r) for r in requests]
+        replies = [f.result(timeout=600) for f in futures]
+        engine.close()
+        index = {id(r[0]): i for i, r in enumerate(requests)}
+        batches = [[index[id(r.frames_u8)] for r in padded]
+                   for padded in batches]
+    else:
+        engine.join(timeout=600)
+        batches = [len(padded) for padded in batches]
+    wall = (time.perf_counter() - t) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    check_bodies(f"22c rank {rank}", launches)
+    want = p22_expected("blip2", len(batches))
+    if launches != want:
+        fail(f"{tag} 22c: launches {launches} != {want} ({len(batches)} "
+             f"batches)")
+    out["engine"] = {
+        "batches": batches, "launches": launches, "wall_ms": wall,
+        "replies": None if replies is None else [
+            (r.answer, r.selected_frames, r.latency_ms) for r in replies],
+        "tokens": tokens,
+        "ranks_tokens_equal": all(
+            len(t) == len(tokens) and all(torch.equal(a, b)
+                                          for a, b in zip(t, tokens))
+            for t in gather_objects(tokens))}
+    log(f"{tag} 22c: {len(batches)} batch(es), launches {launches}, "
+        f"{wall:.2f} ms")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 22b: InstructBLIP-Vicuna-7B at tp=2
+    mesh = create_mesh(MeshConfig(dp=1, tp=2), serving=True)
+    t = time.perf_counter()
+    model, _ = load_model(p22_args("instructblip"), mesh=mesh)
+    torch.cuda.synchronize()
+    out["vicuna_build_s"] = time.perf_counter() - t
+    out["vicuna_heads"] = model.model.language_model.layers[0].attn.num_heads
+    barrier()
+    out["instructblip"] = drive(model, "instructblip")
+    out["vicuna_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    barrier()
+    return gather_objects(out)
+
+
+def p22_compare(name, got, want, card) -> float:
+    """Frames, logits, greedy agreement of one rank's 22a / 22b run against
+    world 1's; returns the share of greedy tokens that agree."""
+    import torch
+
+    if not torch.equal(got["cand"], want["cand"]):
+        fail(f"22 {name}: frames {got['cand'].tolist()} != world 1's "
+             f"{want['cand'].tolist()}")
+    gaps = {}
+    for key in ("visual", "logits"):
+        gaps[key] = (float((got[key] - want[key]).abs().max()),
+                     float(want[key].abs().max()))
+    vis, vis_scale = gaps["visual"]
+    if not vis <= P22_LOGITS_SHARE * vis_scale:
+        fail(f"22 {name}: the LLM's visual tokens (ViT-g, Q-Former and "
+             f"projection on the rank's slices) {vis:.4g} off world 1's, "
+             f"over {P22_LOGITS_SHARE} of its largest {vis_scale:.4g}")
+    gap, scale = gaps["logits"]
+    floor = float((want["nudged"] - want["logits"]).abs().max())
+    bound = P22_LOGITS_SHARE * scale
+    if not gap <= bound and floor < bound:
+        fail(f"22 {name}: first-step logits {gap:.4g} off world 1's, over "
+             f"{P22_LOGITS_SHARE} of its largest {scale:.4g}, where one bf16 "
+             f"step on the LLM's inputs moves world 1's by {floor:.4g}")
+    agree = float((got["tokens"] == want["tokens"]).float().mean())
+    log(f"  22 {name}: frames equal to world 1's {want['cand'].tolist()}; "
+        f"visual tokens max |tp=2 - world 1| {vis:.4g} ({vis / vis_scale:.4g}"
+        f" of the largest, {vis_scale:.4g}); first-step logits {gap:.4g} "
+        f"({gap / scale:.4g} of the largest, {scale:.4g}; bound "
+        f"{P22_LOGITS_SHARE}{' held' if gap <= bound else ' not held'}; one "
+        f"bf16 step on the LLM's inputs moves world 1's by {floor:.4g}, "
+        f"{floor / scale:.4g} of it"
+        + ("" if gap <= bound else ": rounding alone moves these logits past "
+           "the bound") + f"); greedy tokens agree on {agree:.4f} of "
+        f"{tuple(want['tokens'].shape)} (the JAX test's floor {P22_AGREE}); "
+        f"world-1 wall {want['wall_ms']:.2f} ms (eager) on {card}")
+    return agree
+
+
+def tensor_parallel_paths(card: str) -> dict:
+    """Phase 22 (see the module's docstring). Returns the launches of the
+    ranks' counted runs."""
+    import numpy as np
+    import torch
+
+    from types import SimpleNamespace
+
+    from videotgb_torch.data.tokenizer import load_tokenizer
+    from videotgb_torch.device import step_generator
+    from videotgb_torch.evalsuite.inference import load_model
+    from videotgb_torch.models import videotgb as V
+    from videotgb_torch.ops.decode import DecodeConfig
+    from videotgb_torch.parallel.distributed import spawn
+    from videotgb_torch.serve import ServingEngine
+
+    totals: dict = {}
+    refs = {}
+    # ---- the world-1 references, in this process (eager: the first call
+    # of a signature); BLIP2 stays for 22c's reference after the ranks
+    for backbone in ("instructblip", "blip2"):
+        t = time.perf_counter()
+        model, cfg = load_model(p22_args(backbone))
+        torch.cuda.synchronize()
+        log(f"  22 world 1: {backbone} built in {time.perf_counter() - t:.2f}"
+            f" s, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        refs[backbone] = p22_drive(model, backbone)
+        if refs[backbone]["launches"] != p22_expected(backbone):
+            fail(f"22 world 1 {backbone}: launches "
+                 f"{refs[backbone]['launches']}")
+        if backbone == "instructblip":
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    try:
+        ranks = spawn(p22_rank, 2, "gloo", device_type="cuda",
+                      device_ids=[0, 0], timeout_s=600)
+    except Exception as e:  # noqa: BLE001 - a rank's failure fails the phase
+        fail(f"phase 22: the ranks failed: {type(e).__name__}: {e}")
+    log(f"  22: two gloo ranks on the one card ran in "
+        f"{time.perf_counter() - t:.1f} s (start, builds, 22a-c)")
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    agree = {}
+    for r in ranks:
+        log(f"  22 rank {r['rank']}: route {r['route']!r}; ViT-g "
+            f"{r['heads']} heads a layer, Vicuna {r['vicuna_heads']}; the "
+            f"engine (its model sliced) built in {r['engine_build_s']:.2f} "
+            f"s, Vicuna in {r['vicuna_build_s']:.2f} s; peak memory "
+            f"{r['peak_gib']:.2f} / {r['vicuna_peak_gib']:.2f} GiB")
+        if not r["route"].startswith("eager"):
+            fail(f"22 rank {r['rank']}: a sliced engine took route "
+                 f"{r['route']!r}")
+        for backbone, label in (("blip2", "22a"), ("instructblip", "22b")):
+            got = r[backbone]
+            add(got["launches"])
+            if not got["ranks_tokens_equal"]:
+                fail(f"{label}: the ranks' tokens differ")
+            agree[label] = p22_compare(f"{label} rank {r['rank']}", got,
+                                       refs[backbone], card)
+            share = got["comm_ms"] / got["wall_ms"]
+            log(f"  {label} rank {r['rank']}: launches {got['launches']}; "
+                f"wall {got['wall_ms']:.2f} ms, {got['comm_calls']} tp "
+                f"collectives (gloo, through the host) {got['comm_ms']:.2f} "
+                f"ms = {share:.1%} of it; tokens bit-identical across the "
+                f"ranks; kernel A {got['kernel_a']} on {card}")
+        e = r["engine"]
+        add(e["launches"])
+        if not e["ranks_tokens_equal"]:
+            fail("22c: the ranks' tokens differ")
+        log(f"  22c rank {r['rank']}: {len(e['batches'])} batch(es), "
+            f"launches {e['launches']}, the burst in {e['wall_ms']:.2f} ms "
+            f"on {card}")
+
+    # ---- 22c against world 1: direct phase calls on each batch rank 0 saw,
+    # with its step's generator
+    e = ranks[0]["engine"]
+    requests = p22_requests(cfg)
+    tok = load_tokenizer(None)
+    host = SimpleNamespace(device=model.device, tok=tok, sampler_tok=tok,
+                           flow_frames=P22_ENGINE["flow_frames"],
+                           text_len=64)
+    dcfg = DecodeConfig(max_new_tokens=P22_NEW["blip2"],
+                        eos_token_id=cfg.blip2.t5.eos_token_id,
+                        pad_token_id=cfg.blip2.t5.pad_token_id)
+    frames_want, same, total = {}, 0, 0
+    with torch.inference_mode():
+        for step, (idx, got_tokens) in enumerate(zip(e["batches"],
+                                                     e["tokens"])):
+            padded = [SimpleNamespace(flow_u8=requests[i][1],
+                                      question=requests[i][2]) for i in idx]
+            flow_u8, bd = ServingEngine.host_batch(host, padded)
+            gen = step_generator(0, step, model.device)
+            cand = V.select_phase_blip2.eager(
+                model, flow_u8, bd, generator=gen, mode="fusion",
+                rescale="minus1").cpu()
+            sel = torch.from_numpy(np.stack([
+                requests[i][0][cand[j].numpy()] for j, i in enumerate(idx)]))
+            want_tokens = V.answer_phase_blip2.eager(
+                model, sel.to(model.device), bd, dcfg, generator=gen).cpu()
+            same += int((want_tokens == got_tokens).sum())
+            total += want_tokens.numel()
+            for j, i in enumerate(idx):
+                frames_want.setdefault(i, cand[j].tolist())
+    got_frames = {i: frames for i, (_, frames, _) in enumerate(e["replies"])}
+    if got_frames != frames_want:
+        fail(f"22c: the engine's frames {got_frames} != world 1's "
+             f"{frames_want}")
+    agree["22c"] = same / total
+    lat = [r[2] for r in e["replies"]]
+    log(f"  22c: {len(e['replies'])} replies through rank 0's submit in "
+        f"{len(e['batches'])} batch(es) {e['batches']}; frames equal to "
+        f"world 1's direct phase calls {frames_want}; greedy tokens agree "
+        f"on {agree['22c']:.4f} of {total} (the JAX test's floor "
+        f"{P22_AGREE}); latency {lat} ms on {card}")
+    log(f"  22: greedy agreement with world 1 {agree}; gloo on one card "
+        f"carries every tp collective through the host: these walls time "
+        f"nothing an NCCL machine with a card per rank would")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> None:
     try:
         import torch
@@ -6317,13 +6877,22 @@ def main() -> None:
     parallel = parallel_paths(card)
     for kern in (flash, flash_bwd, lookup, select):
         kern["launches"] += parallel.get(kern["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    log("phase 22: tensor-parallel serving (two gloo ranks on the one card "
+        "at tp=2; world-1 references in this process)")
+    tensor = tensor_parallel_paths(card)
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += tensor.get(kern["name"], 0)
     done = time.perf_counter()
-    log(f"phases 1-21 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-22 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
         f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
         f"{t17 - t16:.1f} s, phase 17 in {t18 - t17:.1f} s, phase 18 in "
         f"{t19 - t18:.1f} s, phase 19 in {t20 - t19:.1f} s, phase 20 in "
-        f"{t21 - t20:.1f} s, phase 21 in {done - t21:.1f} s")
+        f"{t21 - t20:.1f} s, phase 21 in {t22 - t21:.1f} s, phase 22 in "
+        f"{done - t22:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

@@ -6,6 +6,7 @@ model as its parameter tree and carried across to the port with
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,11 @@ from flax.traverse_util import flatten_dict, unflatten_dict
 from videotgb_torch.convert import load_flax_params
 from videotgb_torch.models import videotgb as TV
 from videotgb_tpu.models import videotgb as JV
+from videotgb_tpu.parallel.sharding import param_partition_spec
+
+# the HF models of these tests are PyTorch modules: transformers need not
+# import TensorFlow, which is installed here and takes seconds to import
+os.environ.setdefault("USE_TF", "0")
 
 TOL = dict(atol=2e-4, rtol=2e-4)  # tests/test_parity.py's f32 tolerance
 L_FLOW = 3  # flow pairs per clip in the tiny pipeline
@@ -177,6 +183,7 @@ def random_tree(shapes, seed=0):
 
 
 _PARAM_SHAPES: dict = {}
+_PARAM_SPECS: dict = {}
 
 
 def jax_params(jmodel, jcfg, seed=0):
@@ -199,8 +206,16 @@ def jax_params(jmodel, jcfg, seed=0):
             lambda k: jmodel.init(k, *args, k, method=jmodel.init_pipeline),
             jax.random.key(0))
         _PARAM_SHAPES[jcfg] = nn.meta.unbox(shapes)["params"]
+        _PARAM_SPECS[jcfg] = param_partition_spec(shapes["params"])
     tree = random_tree(_PARAM_SHAPES[jcfg], seed)
     return {"params": jax.tree.map(jnp.asarray, tree)}
+
+
+def jax_param_specs(jmodel, jcfg):
+    """The JAX package's ``PartitionSpec`` tree of ``jmodel``'s parameters
+    (``param_partition_spec`` of their annotations)."""
+    jax_params(jmodel, jcfg)
+    return _PARAM_SPECS[jcfg]
 
 
 def jax_with_lora(cfg, rank):
@@ -284,7 +299,8 @@ def jax_load_model_seeded(args, with_specs=False):
     :func:`jax_params` in place of flax's ``init``, which compiles some 800
     small programs on the CPU; under ``bf16_params`` the JAX package's own
     ``bf16_residency`` then casts every f32 leaf to bf16, as its
-    ``load_model`` does."""
+    ``load_model`` does. ``with_specs`` adds the parameters'
+    ``PartitionSpec`` tree, which a ``--mesh`` run places them by."""
     from videotgb_tpu.evalsuite.inference import bf16_residency
 
     assert args.model_path.startswith("random:")
@@ -303,7 +319,9 @@ def jax_load_model_seeded(args, with_specs=False):
     params = jax_params(model, cfg)
     if bf16:
         params = bf16_residency(params)
-    return (model, params, cfg, None) if with_specs else (model, params, cfg)
+    if with_specs:
+        return model, params, cfg, jax_param_specs(model, cfg)
+    return model, params, cfg
 
 
 def f32_tiny_presets(monkeypatch):

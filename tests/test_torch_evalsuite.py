@@ -107,8 +107,8 @@ def _cli_matches_jax(qa_assets, tmp_path, monkeypatch, mode, backbone):
     # the port: the JAX weights, and the JAX draws of the batch's key
     load = TI.load_model
 
-    def load_carried(args, device=None):
-        model, cfg = load(args, device=device)
+    def load_carried(args, device=None, mesh=None):
+        model, cfg = load(args, device=device, mesh=mesh)
         load_flax_params(model, jax.device_get(
             jax_load_model_seeded(args)[1]))
         return model, cfg
@@ -194,8 +194,10 @@ def test_load_model_honours_flags_and_refuses_what_is_not_ported(tmp_path):
         want = model.state_dict()
         assert all(torch.equal(v, want[k])
                    for k, v in restored.state_dict().items())
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TI.run_inference(SimpleNamespace(mesh="dp=2"))
+    # a mesh it does not serve raises before it wants its ranks
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        TI.run_inference(SimpleNamespace(**dict(base, mesh="sp=2",
+                                                device="cpu", batch_size=2)))
 
 
 def test_load_model_serves_an_ivt_checkpoint(qa_assets, tmp_path,

@@ -2070,3 +2070,46 @@ def test_dp_step_on_a_one_rank_nccl_group_equals_the_unwrapped_step(cuda):
             assert torch.equal(p, p1[n]), n
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_a_one_rank_nccl_engine_at_tp1_keeps_the_graphed_route(cuda):
+    """``ServingEngine(mesh="tp=1")`` on a 1-rank NCCL group slices nothing
+    and keeps the graphed route (its phases captured before it serves),
+    and answers as the engine without a mesh: the same frames and answers,
+    request by request."""
+    import torch.distributed as dist
+
+    from videotgb_torch.parallel.distributed import free_port
+    from videotgb_torch.serve import ServingEngine
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        runs = []
+        for mesh in ("", "tp=1"):
+            eng = ServingEngine("random:tiny", preset="tiny", batch_size=2,
+                                flow_frames=3, max_new_tokens=4, mesh=mesh,
+                                device=cuda)
+            try:
+                assert eng.route == "graph"
+                assert (eng.mesh is None) == (mesh == "")
+                rng = np.random.default_rng(3)
+                image, fs = eng.cfg.vit.image_size, eng.cfg.tgb.flow_size
+                replies = []
+                for i in range(3):
+                    frames = rng.integers(0, 255, (eng.cfg.num_frames, image,
+                                                   image, 3), np.uint8)
+                    flow = rng.integers(0, 255, (eng.flow_frames + 1, fs, fs,
+                                                 3), np.uint8)
+                    r = eng.submit(frames, flow, f"q{i}?").result(timeout=300)
+                    replies.append((r.answer, r.selected_frames))
+                runs.append(replies)
+            finally:
+                eng.close()
+        assert runs[0] == runs[1]
+    finally:
+        dist.destroy_process_group()

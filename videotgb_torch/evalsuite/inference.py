@@ -27,13 +27,23 @@ the 32 candidates.
 
 --model_path is ``random:<preset>`` or a checkpoint directory written by
 ``python -m videotgb_torch.train`` (with --preset naming its config and
---lora 1 for an IVT checkpoint); --mesh raises ``NotImplementedError``
-naming the ROADMAP.md item that brings it.
+--lora 1 for an IVT checkpoint).
+
+--mesh ("tp=2", "dp=2,tp=2") runs one process per device, under
+``torchrun`` (or ``parallel.distributed.spawn``): every rank loads the
+model and slices it for its ``tp`` rank (``parallel.tensor.shard_tp``),
+takes its dp x fsdp rows of each global batch (the JAX CLI's
+``shard_batch``) and runs them; rank 0 gathers the predictions and writes
+the JSONL. A sliced model runs eagerly (``utils/graphs.py``).
+
+    torchrun --nproc_per_node 2 -m videotgb_torch.evalsuite.inference \
+        --mesh tp=2 --model_path random:flagship ...
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -70,7 +80,9 @@ def parse_args(argv=None):
     p.add_argument("--backbone", default="blip2",
                    choices=["blip2", "instructblip_t5", "instructblip"])
     p.add_argument("--mesh", default="",
-                   help="mesh-sharded inference; not ported, raises")
+                   help="mesh-sharded inference over the ranks of torchrun "
+                        "(e.g. tp=2, dp=2,tp=2): heads, MLP hidden units "
+                        "and vocabularies split over tp, batch rows over dp")
     p.add_argument("--flow_size", type=int, default=None,
                    help="override cfg.tgb.flow_size")
     p.add_argument("--cache_dir", default="", required=False)
@@ -159,11 +171,39 @@ def _warn_ignored_flags(args) -> None:
                       "download cache in this pipeline)")
 
 
-def load_model(args, device=None):
+def model_config(args):
+    """The ``VideoTGBConfig`` that :func:`load_model` builds for ``args``."""
+    from videotgb_torch.models.videotgb import (
+        VideoTGBConfig,
+        bf16_param_config,
+        with_lora,
+    )
+
+    backbone = getattr(args, "backbone", "blip2")
+    random_weights = args.model_path.startswith("random:")
+    preset = (args.model_path.split(":", 1)[1] if random_weights
+              else getattr(args, "preset", "flagship"))
+    cfg = getattr(VideoTGBConfig, preset)(backbone)
+    nframe = getattr(args, "nframe", None)
+    if nframe and nframe != cfg.nframe:
+        cfg = dataclasses.replace(cfg, nframe=nframe)
+    if getattr(args, "flow_size", None):
+        cfg = dataclasses.replace(
+            cfg, tgb=dataclasses.replace(cfg.tgb, flow_size=args.flow_size))
+    if getattr(args, "lora", 0):
+        cfg = with_lora(cfg, 8)
+    if getattr(args, "bf16_params", False):
+        cfg = bf16_param_config(cfg)
+    return cfg
+
+
+def load_model(args, device=None, mesh=None):
     """Build the VideoTGB of ``backbone`` (blip2, instructblip_t5 or
     instructblip) on ``device`` (None = the CUDA device), honouring
-    ``nframe``, ``flow_size``, ``lora`` and ``bf16_params``. Returns
-    (model, cfg).
+    ``nframe``, ``flow_size``, ``lora`` and ``bf16_params``
+    (:func:`model_config`). Returns (model, cfg); with a ``mesh``
+    (``parallel.mesh.create_mesh``) the model is this rank's
+    tensor-parallel slice (``parallel.tensor.shard_tp``).
 
     ``model_path`` is ``random:<preset>`` (random weights from seed 0) or a
     checkpoint of ``training.checkpoint.CheckpointManager`` (its root, its
@@ -181,31 +221,13 @@ def load_model(args, device=None):
     f32 on them (XLA keeps the frozen batch norms' ``rsqrt(var + eps)`` in
     f32 too; JAX run op by op, as its demo runs ``flow_features``, rounds
     that one to bf16)."""
-    from videotgb_torch.models.videotgb import (
-        VideoTGB,
-        VideoTGBConfig,
-        bf16_param_config,
-        with_lora,
-    )
+    from videotgb_torch.models.videotgb import VideoTGB
+    from videotgb_torch.parallel.tensor import shard_tp
 
     _warn_ignored_flags(args)
-    backbone = getattr(args, "backbone", "blip2")
-    random_weights = args.model_path.startswith("random:")
-    preset = (args.model_path.split(":", 1)[1] if random_weights
-              else getattr(args, "preset", "flagship"))
-    cfg = getattr(VideoTGBConfig, preset)(backbone)
-    nframe = getattr(args, "nframe", None)
-    if nframe and nframe != cfg.nframe:
-        cfg = dataclasses.replace(cfg, nframe=nframe)
-    if getattr(args, "flow_size", None):
-        cfg = dataclasses.replace(
-            cfg, tgb=dataclasses.replace(cfg.tgb, flow_size=args.flow_size))
-    if getattr(args, "lora", 0):
-        cfg = with_lora(cfg, 8)
-    if getattr(args, "bf16_params", False):
-        cfg = bf16_param_config(cfg)
+    cfg = model_config(args)
     model = VideoTGB(cfg, device=device, seed=0)
-    if not random_weights:
+    if not args.model_path.startswith("random:"):
         from videotgb_torch.training.checkpoint import restore_params
 
         restore_params(model, args.model_path)
@@ -213,7 +235,25 @@ def load_model(args, device=None):
         with torch.no_grad():
             for p in model.of_extractor.parameters():
                 p.copy_(p.to(torch.bfloat16))
+    if mesh is not None:
+        shard_tp(model, mesh)
     return model, cfg
+
+
+def serving_mesh(spec: str, cfg):
+    """The mesh of a serving entry point's ``--mesh`` spec over the ranks
+    of the process group, what it refuses checked before it wants them:
+    ``pp``, ``sp``, ``fsdp`` with ``tp`` (``parallel.mesh.check_ported``)
+    and the W8A8 ViT-g of ``cfg`` under ``tp``."""
+    from videotgb_torch.parallel.mesh import (check_ported, create_mesh,
+                                              parse_mesh_spec)
+    from videotgb_torch.parallel.tensor import INT8_TP
+
+    config = parse_mesh_spec(spec, allow_pp=False)
+    check_ported(config, serving=True)
+    if config.tp != 1 and cfg.vit.quant is not None:
+        raise NotImplementedError(INT8_TP)
+    return create_mesh(config, serving=True)
 
 
 def text_batch(tok, sampler_tok, questions, text_len, device):
@@ -305,8 +345,10 @@ def flow_of_timeline(model, flow_rgb, valid):
 
 
 def _flow_batch(model, decoded, timeline, bsz, flow_frames, max_flow_frames,
-                fs):
-    """The flow tensors of one batch: (flow, flow_mask, video_length)."""
+                fs, longest):
+    """The flow tensors of one batch of ``bsz`` rows: (flow, flow_mask,
+    video_length); a timeline batch pads to the bucket of ``longest``, the
+    longest timeline of the global batch."""
     dev = model.device
     if not timeline:
         flow_rgb = torch.from_numpy(np.stack([d[1] for d in decoded]))
@@ -314,7 +356,7 @@ def _flow_batch(model, decoded, timeline, bsz, flow_frames, max_flow_frames,
                 torch.ones((bsz, flow_frames + 2), device=dev),
                 torch.full((bsz,), flow_frames, dtype=torch.int32,
                            device=dev))
-    bucket = flow_bucket(max(d[2] for d in decoded), max_flow_frames)
+    bucket = flow_bucket(longest, max_flow_frames)
     flow_rgb = np.zeros((bsz, bucket, fs, fs, 3), np.float32)
     valid = np.zeros((bsz, bucket), np.float32)
     flow_mask = np.zeros((bsz, bucket + 2), np.float32)
@@ -344,12 +386,20 @@ def run_inference(args) -> str:
         generate_instructblip,
     )
     from videotgb_torch.ops.decode import DecodeConfig
+    from videotgb_torch.parallel.distributed import (gather_objects,
+                                                     initialize,
+                                                     process_index)
+    from videotgb_torch.parallel.mesh import mesh_rank, tp_rank
+    from videotgb_torch.parallel.sharding import batch_split
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "mesh-sharded inference is not ported: ROADMAP.md queue 1 "
-            "item 4")
-    model, cfg = load_model(args, device=args.device)
+        initialize(device_type="cpu" if args.device == "cpu" else "cuda")
+        mesh = serving_mesh(args.mesh, model_config(args))
+        if args.batch_size % mesh_rank(mesh)[1]:
+            raise SystemExit(f"--batch_size {args.batch_size} must be "
+                             f"divisible by dp*fsdp={mesh_rank(mesh)[1]}")
+    model, cfg = load_model(args, device=args.device, mesh=mesh)
     tok = load_tokenizer(args.model_base)
     sampler_tok = load_tokenizer(args.sampler_base)
     image = cfg.vit.image_size
@@ -404,20 +454,30 @@ def run_inference(args) -> str:
             lambda s: decode_sample(s["path"], cfg.num_frames,
                                     args.flow_frames, image, fs), padded))
 
+    # under a mesh this rank runs its dp x fsdp rows of each global batch
+    # (the tp ranks of one position the same rows) and rank 0 writes
+    rank, split = mesh_rank(mesh)
+    rows = bsz // split
+    tp = tp_rank(mesh)[1]
+    writes = mesh is None or process_index() == 0
     written = 0
     # batch N+1 decodes on host threads while batch N runs on the device
     with ThreadPoolExecutor(args.decode_workers) as pool, \
             ThreadPoolExecutor(1) as prefetcher, \
-            open(out_path, "w") as ans_file, torch.inference_mode():
+            (open(out_path, "w") if writes else contextlib.nullcontext()) \
+            as ans_file, batch_split(mesh), torch.inference_mode():
         next_fut = (prefetcher.submit(decode_group, groups[0][2])
                     if groups else None)
         for gi, (start, group, padded) in enumerate(groups):
             decoded = next_fut.result()
             if gi + 1 < len(groups):
                 next_fut = prefetcher.submit(decode_group, groups[gi + 1][2])
+            longest = max(d[2] for d in decoded) if timeline else 0
+            mine = slice(rank * rows, (rank + 1) * rows)
+            decoded = decoded[mine]
             flow, flow_mask, video_length = _flow_batch(
-                model, decoded, timeline, bsz, args.flow_frames,
-                args.max_flow_frames, fs)
+                model, decoded, timeline, rows, args.flow_frames,
+                args.max_flow_frames, fs, longest)
             batch = {
                 "frames": torch.from_numpy(
                     np.stack([d[0] for d in decoded])).to(model.device),
@@ -425,15 +485,19 @@ def run_inference(args) -> str:
                 "flow_mask": flow_mask,
                 "video_length": video_length,
                 **text_batch(tok, sampler_tok,
-                             [s["question"] for s in padded], TEXT_LEN,
-                             model.device),
+                             [s["question"] for s in padded[mine]],
+                             TEXT_LEN, model.device),
             }
             tokens, _ = generate(
                 model, batch, dcfg,
                 generator=step_generator(0, start, model.device),
                 stop_sequences=stop_sequences)
-            preds = tok.batch_decode(tokens.cpu().numpy(),
-                                     skip_special_tokens=True)
+            tokens = tokens.cpu().numpy()
+            if mesh is not None:  # one copy of each position's rows
+                tokens = np.concatenate(gather_objects(tokens)[::tp])
+            if not writes:
+                continue
+            preds = tok.batch_decode(tokens, skip_special_tokens=True)
 
             for s, pred in zip(group, preds[: len(group)]):
                 row = {"id": s["id"], "question": s["question"],

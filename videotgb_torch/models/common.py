@@ -63,7 +63,12 @@ class Dense(nn.Module):
     and the bias is added after the dequant, in ``dtype``. The parameters,
     and so the ``state_dict``, are the same either way. ``use_kernel`` (an
     attribute, True) lets the int8 product take kernel H; set it False to
-    run its plain version on any device."""
+    run its plain version on any device.
+
+    Under tensor parallelism (``parallel.tensor.shard_tp``) a row-parallel
+    layer (``tp_reduce``, a ``TPGroup``) sums its product over the ``tp``
+    ranks before it adds its bias, and a vocabulary-parallel ``lm_head``
+    (``tp_gather``) gathers its outputs along the last dim."""
 
     def __init__(self, in_features, out_features, use_bias=True,
                  dtype=torch.float32, param_dtype=torch.float32, device=None,
@@ -74,6 +79,7 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.quant = quant
         self.use_kernel = True
+        self.tp_reduce = self.tp_gather = None
         self.weight = _param((out_features, in_features), param_dtype, device)
         self.bias = (_param((out_features,), param_dtype, device)
                      if use_bias else None)
@@ -87,25 +93,43 @@ class Dense(nn.Module):
     def forward(self, x):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        if self.quant is None:
-            return F.linear(x.to(dt), self.weight.to(dt), bias)
-        y = int8_matmul(x.to(dt), self.weight.to(dt).T, out_dtype=dt,
-                        kernel=self.use_kernel)
-        return y if bias is None else y + bias
+        if self.quant is not None:
+            y = int8_matmul(x.to(dt), self.weight.to(dt).T, out_dtype=dt,
+                            kernel=self.use_kernel)
+            return y if bias is None else y + bias
+        if self.tp_reduce is not None:
+            y = self.tp_reduce.all_reduce(
+                F.linear(x.to(dt), self.weight.to(dt)))
+            return y if bias is None else y + bias
+        y = F.linear(x.to(dt), self.weight.to(dt), bias)
+        return y if self.tp_gather is None else self.tp_gather.all_gather(y)
 
 
 class Embed(nn.Module):
+    """Embedding table. Under tensor parallelism (``tp``, a ``TPGroup``
+    set by ``parallel.tensor.shard_tp``) the table holds this rank's
+    contiguous rows: ids outside them look up zeros, and the lookups are
+    summed over the ``tp`` ranks."""
+
     def __init__(self, num, features, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
+        self.tp = None
         self.weight = _param((num, features), param_dtype, device)
 
     def reset_parameters_from(self, gen):
         _fill_normal(self.weight, 0.02, gen)
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight).to(self.dtype)
+        if self.tp is None:
+            return F.embedding(ids, self.weight).to(self.dtype)
+        rows = self.weight.shape[0]
+        local = ids - self.tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        out = F.embedding(local.clamp(0, rows - 1), self.weight)
+        out = torch.where(mine[..., None], out, 0.0).to(self.dtype)
+        return self.tp.all_reduce(out)
 
 
 class RMSNorm(nn.Module):
@@ -198,7 +222,9 @@ class MultiHeadAttention(nn.Module):
     ("int8") routes the q/k/v/o projections through the int8 product; the
     scores and values stay in ``dtype``. ``lora_rank`` > 0 adds a LoRA
     delta (``models.lora.LoRADelta``, modules ``q_lora`` / ``v_lora``) to
-    the outputs of the projections named in ``lora_targets``."""
+    the outputs of the projections named in ``lora_targets``. Under tensor
+    parallelism (``parallel.tensor.shard_tp``) ``num_heads`` is this
+    rank's heads: q/k/v hold their rows and ``o`` their columns."""
 
     def __init__(self, features, num_heads, head_dim, kv_features=None,
                  out_features=None, use_bias=True, scale=None,

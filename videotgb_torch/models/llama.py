@@ -165,8 +165,11 @@ class LlamaModel(nn.Module):
         return self.lm_head(self.final_ln(x)).float(), new_caches
 
     def init_caches(self, batch: int, max_len: int):
+        """Caches of this rank's heads (all of them outside tensor
+        parallelism)."""
         cfg = self.config
         dev = self.embed_tokens.weight.device
-        return [init_kv_cache(batch, cfg.num_heads, max_len, cfg.head_dim,
+        heads = self.layers[0].attn.num_heads
+        return [init_kv_cache(batch, heads, max_len, cfg.head_dim,
                               cfg.dtype, dev)
                 for _ in range(cfg.num_layers)]

@@ -14,7 +14,9 @@ and ``lora_b`` (r, out), under a module named ``<q|v>_lora``; so
 ``videotgb_torch.convert`` carries them across by name and
 ``training.optim.path_freeze_filter(train_lora_only=True)`` finds them. The
 two products are plain ``torch.matmul`` in the attention's compute dtype
-(no kernel, also under the W8A8 ``quant`` path).
+(no kernel, also under the W8A8 ``quant`` path). Under tensor parallelism
+(``parallel.tensor.shard_tp``) B holds its rank's heads' columns, as the
+JAX package annotates it ``(None, "heads")``; A stays whole.
 """
 
 from __future__ import annotations

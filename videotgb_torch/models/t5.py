@@ -226,11 +226,14 @@ class T5Model(nn.Module):
         return self.lm_head(self.decoder_final_ln(x)).float(), new_caches
 
     def init_caches(self, batch, max_len, encoder_len):
+        """Caches of this rank's heads (all of them outside tensor
+        parallelism)."""
         cfg = self.config
         device = self.shared.weight.device
-        return [{"self": init_kv_cache(batch, cfg.num_heads, max_len, cfg.d_kv,
+        heads = self.decoder_blocks[0].self_attn.num_heads
+        return [{"self": init_kv_cache(batch, heads, max_len, cfg.d_kv,
                                        cfg.dtype, device),
-                 "cross": init_kv_cache(batch, cfg.num_heads, encoder_len,
+                 "cross": init_kv_cache(batch, heads, encoder_len,
                                         cfg.d_kv, cfg.dtype, device)}
                 for _ in range(cfg.num_decoder_layers)]
 

@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from videotgb_torch.ops.attention import NEG_INF
-from videotgb_torch.parallel.sharding import all_ranks
+from videotgb_torch.parallel.sharding import all_ranks, global_draw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +94,9 @@ def _next_token(logits, tokens, cfg: DecodeConfig, generator):
     or temperature, top-p and a draw. The draw is ``torch.multinomial``'s
     own for one sample (argmax of p / q, q ~ Exp(1) from ``generator``),
     without its host-side checks of the probabilities: the same ids for the
-    same generator state, and nothing a CUDA-graph capture refuses."""
+    same generator state, and nothing a CUDA-graph capture refuses. Under
+    a data-parallel split the draw is this rank's rows of the global
+    batch's (``parallel.sharding.global_draw``)."""
     logits = apply_repetition_penalty(logits.float(), tokens,
                                       cfg.repetition_penalty)
     if not cfg.do_sample:
@@ -102,7 +104,9 @@ def _next_token(logits, tokens, cfg: DecodeConfig, generator):
     scaled = logits / max(cfg.temperature, 1e-6)
     scaled = top_p_filter(scaled, cfg.top_p)
     probs = torch.softmax(scaled, dim=-1)
-    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    q = global_draw(lambda shape: torch.empty(
+        shape, device=probs.device).exponential_(1, generator=generator),
+        probs.shape)
     return torch.argmax(probs / q, dim=-1)
 
 

@@ -1,6 +1,7 @@
-"""Data-parallel and fully sharded training over ``torch.distributed``
-(counterpart of ``videotgb_tpu/parallel``: the ``dp`` and ``fsdp`` axes;
-``tp``, ``pp`` and ``sp`` raise, ROADMAP.md queue 1 items 4-6)."""
+"""Parallel layouts over ``torch.distributed`` (counterpart of
+``videotgb_tpu/parallel``): data-parallel and fully sharded training (the
+``dp`` and ``fsdp`` axes) and tensor-parallel serving (``tp``); ``pp`` and
+``sp`` raise, ROADMAP.md queue 1 items 5 and 6."""
 
 from videotgb_torch.parallel.mesh import MeshConfig, create_mesh, local_mesh
 from videotgb_torch.parallel.sharding import (
@@ -9,6 +10,7 @@ from videotgb_torch.parallel.sharding import (
     shard_batch,
     shard_params,
 )
+from videotgb_torch.parallel.tensor import shard_tp, tp_shard_state_dict
 
 __all__ = [
     "MeshConfig",
@@ -18,4 +20,6 @@ __all__ = [
     "replicate",
     "shard_batch",
     "shard_params",
+    "shard_tp",
+    "tp_shard_state_dict",
 ]

@@ -158,21 +158,23 @@ def spawn(fn, nprocs: int, backend: str, args: tuple = (),
     return pickle.loads(out)
 
 
-def broadcast_object(obj):
-    """Rank 0's ``obj`` on every rank (the object itself in one process)."""
+def broadcast_object(obj, group=None):
+    """Rank 0's ``obj`` on every rank of ``group`` (the world by default;
+    a group holding rank 0), the object itself in one process."""
     if not dist.is_initialized():
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=0, group=group)
     return box[0]
 
 
-def gather_objects(obj) -> list:
-    """Every rank's ``obj``, in rank order (``[obj]`` in one process)."""
+def gather_objects(obj, group=None) -> list:
+    """Every rank's ``obj`` of ``group`` (the world by default), in rank
+    order (``[obj]`` in one process)."""
     if not dist.is_initialized():
         return [obj]
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 

@@ -1,4 +1,4 @@
-"""The device mesh of a training run (counterpart of
+"""The device mesh of a run (counterpart of
 ``videotgb_tpu/parallel/mesh.py``).
 
 The JAX package names five mesh axes and lets GSPMD place the collectives:
@@ -11,13 +11,17 @@ The JAX package names five mesh axes and lets GSPMD place the collectives:
   sp    - sequence parallel (token-split residual streams)
 
 Here each rank is one process on one device (``torch.distributed``), and
-the mesh is a ``DeviceMesh`` over the world with dims ``("dp", "fsdp")``:
-the batch splits over both, parameters shard over ``fsdp`` and replicate
-over ``dp`` (FSDP2 / HSDP, ``parallel.sharding.shard_params``). ``tp``,
-``pp`` and ``sp`` above 1 raise ``NotImplementedError`` naming the
-ROADMAP.md item that holds them. Axis sizes multiply to the world size;
-the default layout (``dp=-1``) is data-parallel over every rank, as the
-reference trains DDP x 4.
+the mesh is a ``DeviceMesh`` over the world with dims ``("dp", "fsdp",
+"tp")``, ``tp`` innermost as in the JAX mesh: the batch splits over dp x
+fsdp (the ``tp`` ranks of one dp x fsdp position hold the same rows),
+parameters shard over ``fsdp`` and replicate over ``dp`` (FSDP2 / HSDP,
+``parallel.sharding.shard_params``), and serving slices heads, MLP hidden
+units and vocabularies over ``tp`` (``parallel.tensor.shard_tp``). ``pp``
+and ``sp`` above 1 raise ``NotImplementedError`` naming the ROADMAP.md item
+that holds them; so do ``tp`` above 1 in training and ``fsdp`` and ``tp``
+both above 1. Axis sizes multiply to the world size; the default layout
+(``dp=-1``) is data-parallel over every rank, as the reference trains DDP x
+4.
 """
 
 from __future__ import annotations
@@ -32,12 +36,17 @@ PIPELINE_AXIS = "pp"
 SEQUENCE_AXIS = "sp"
 AXIS_NAMES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, PIPELINE_AXIS, SEQUENCE_AXIS)
 
-# where the axes this port does not run yet are queued
+MESH_DIMS = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS)
+
+# where the layouts this port does not run yet are queued
 UNPORTED = {
-    TENSOR_AXIS: "tensor parallelism (tp) is ROADMAP.md queue 1 item 4",
     PIPELINE_AXIS: "pipeline parallelism (pp) is ROADMAP.md queue 1 item 5",
     SEQUENCE_AXIS: "sequence parallelism (sp) is ROADMAP.md queue 1 item 6",
 }
+TP_TRAINING = ("tensor-parallel training (tp) is ROADMAP.md queue 1 item 4; "
+               "the port serves tp layouts only")
+FSDP_TP = ("fsdp and tp together (FSDP2 over a tp-sliced model) are "
+           "ROADMAP.md queue 1 item 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,41 +111,60 @@ def parse_mesh_spec(spec: str, allow_pp: bool = True) -> MeshConfig:
     return MeshConfig(**{**{"dp": 1}, **kv})
 
 
-def check_ported(config: MeshConfig) -> None:
-    """Raise ``NotImplementedError`` for a ``tp``, ``pp`` or ``sp`` extent
-    above 1 (or -1, which could absorb devices into one of them)."""
+def check_ported(config: MeshConfig, serving: bool = False) -> None:
+    """Raise ``NotImplementedError`` for a layout the port does not run:
+    ``pp`` or ``sp`` above 1 (or -1, which could absorb devices into one
+    of them); ``tp`` above 1 outside serving (``serving=False``: training
+    and evaluation), or beside an ``fsdp`` above 1."""
     for axis, why in UNPORTED.items():
         size = getattr(config, axis)
-        if size not in (1,):
+        if size != 1:
             raise NotImplementedError(
-                f"mesh axis {axis}={size}: the port trains dp and fsdp "
-                f"layouts only; {why}")
+                f"mesh axis {axis}={size}: the port runs dp, fsdp and "
+                f"(serving) tp layouts only; {why}")
+    if config.tp != 1 and not serving:
+        raise NotImplementedError(f"mesh axis tp={config.tp}: {TP_TRAINING}")
+    if config.tp != 1 and config.fsdp != 1:
+        raise NotImplementedError(
+            f"mesh fsdp={config.fsdp}, tp={config.tp}: {FSDP_TP}")
+
+
+def mesh_layout(config: MeshConfig, world: int):
+    """The ranks of a world laid out as the mesh, an int array of shape
+    (dp, fsdp, tp): row-major, ``tp`` innermost, as the JAX package
+    reshapes its device list (``videotgb_tpu/parallel/mesh.py:104-124``)."""
+    import numpy as np
+
+    dp, fsdp, tp, _, _ = config.resolve(world)
+    return np.arange(world).reshape(dp, fsdp, tp)
 
 
 def create_mesh(config: MeshConfig | None = None,
-                device_type: str | None = None):
-    """The ``("dp", "fsdp")`` ``DeviceMesh`` over the process group's
-    world, its sizes from ``config`` resolved against the world size.
+                device_type: str | None = None, serving: bool = False):
+    """The ``("dp", "fsdp", "tp")`` ``DeviceMesh`` over the process
+    group's world (:func:`mesh_layout`), its sizes from ``config`` resolved
+    against the world size.
 
     Returns None in a single process with no process group (one device
-    needs no mesh); ``tp``, ``pp`` or ``sp`` above 1 raise.
-    ``device_type`` is where the ranks' tensors live (FSDP2 places its
-    shards there): by default "cuda" on an NCCL group, else "cpu"; a gloo
-    group also carries CUDA tensors, through the host."""
+    needs no mesh); a layout :func:`check_ported` refuses raises (``tp``
+    above 1 only where ``serving``). ``device_type`` is where the ranks'
+    tensors live (FSDP2 places its shards there): by default "cuda" on an
+    NCCL group, else "cpu"; a gloo group also carries CUDA tensors, through
+    the host."""
+    import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh
 
     config = config or MeshConfig()
-    check_ported(config)
+    check_ported(config, serving=serving)
     if not (dist.is_available() and dist.is_initialized()):
         config.resolve(1)  # a layout that wants more ranks raises here
         return None
-    world = dist.get_world_size()
-    dp, fsdp, _, _, _ = config.resolve(world)
+    layout = mesh_layout(config, dist.get_world_size())
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (dp, fsdp),
-                            mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
+    return DeviceMesh(device_type, torch.from_numpy(layout),
+                      mesh_dim_names=MESH_DIMS)
 
 
 def local_mesh(n: int | None = None, **axis_sizes: int):
@@ -154,9 +182,18 @@ def local_mesh(n: int | None = None, **axis_sizes: int):
 
 def mesh_rank(mesh) -> tuple[int, int]:
     """(this rank's index in the batch split, the split's size): the
-    row-major position over ``("dp", "fsdp")``; (0, 1) without a mesh."""
+    row-major position over ``("dp", "fsdp")``; (0, 1) without a mesh. The
+    ``tp`` ranks of one position share it: they hold the same rows."""
     if mesh is None:
         return 0, 1
-    dp_i, fsdp_i = mesh.get_coordinate()
-    fsdp = mesh.size(1)
-    return dp_i * fsdp + fsdp_i, mesh.size()
+    dp_i, fsdp_i = mesh.get_coordinate()[:2]
+    dp, fsdp = mesh.size(0), mesh.size(1)
+    return dp_i * fsdp + fsdp_i, dp * fsdp
+
+
+def tp_rank(mesh) -> tuple[int, int]:
+    """(this rank's index on the ``tp`` axis, the axis's size); (0, 1)
+    without a mesh."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_coordinate()[2], mesh.size(2)

@@ -1,4 +1,4 @@
-"""Batch and parameter placement over the ``("dp", "fsdp")`` mesh
+"""Batch and parameter placement over the dp x fsdp ranks of the mesh
 (counterpart of ``videotgb_tpu/parallel/sharding.py``).
 
 The JAX package annotates parameters with logical axis names and lets
@@ -242,7 +242,8 @@ def shard_params(model: torch.nn.Module, mesh) -> torch.nn.Module:
     if mesh is None or mesh[FSDP_AXIS].size() == 1:
         raise ValueError("shard_params needs a mesh with an fsdp extent "
                          "above 1")
-    place = mesh if mesh[DATA_AXIS].size() > 1 else mesh[FSDP_AXIS]
+    place = (mesh[DATA_AXIS, FSDP_AXIS] if mesh[DATA_AXIS].size() > 1
+             else mesh[FSDP_AXIS])
     for unit in fsdp_units(model):
         fully_shard(unit, mesh=place)
         if hasattr(unit, "consecutive"):

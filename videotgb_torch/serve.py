@@ -34,6 +34,22 @@ busy. Short batches are padded by repeating the last request (pads are
 dropped before reply). Batch ``step`` draws its selection noise from
 ``device.step_generator(seed, step, device)``.
 
+Mesh-sharded serving (``mesh="tp=2"``, ``"dp=2,tp=2"``; the JAX
+engine's ``mesh``): one engine on every rank of the process group, each
+rank one process on one device. The model is sliced for the rank's ``tp``
+index (``parallel.tensor.shard_tp``) and runs eagerly (``route``). Rank 0
+owns ``submit``, ``submit_video`` and the HTTP server; its select worker
+broadcasts each assembled batch's flow frames and questions to the other
+ranks, whose workers run the same phases on their dp x fsdp rows (the
+``tp`` ranks of one position on the same rows). The ranks' frame indices
+are gathered, rank 0 gathers the selected frames on the host and
+broadcasts them, and rank 0 gathers the answers' tokens. Each worker has
+its own process groups, made in the same order on every rank, so the two
+workers' collectives never interleave on one group. ``close()`` on rank 0
+broadcasts the stop; the other ranks wait in ``join()``. A leader with no
+requests tells the followers it is alive every ``MESH_TICK_S``, inside the
+collectives' time limit.
+
 Usage (library):
     engine = ServingEngine("random:tiny", device="cpu")
     fut = engine.submit(frames_u8, flow_u8, "what happens?")
@@ -42,6 +58,9 @@ Usage (library):
 Usage (HTTP, on the card):
     python -m videotgb_torch.serve --model_path random:small --port 8000
     POST /v1/generate  multipart(video=..., question=...)  -> JSON
+
+    torchrun --nproc_per_node 2 -m videotgb_torch.serve --mesh tp=2 ...
+    (rank 0 serves HTTP; the other ranks follow)
 """
 
 from __future__ import annotations
@@ -65,9 +84,19 @@ from videotgb_torch.models.videotgb import (
     answer_phase_instructblip,
     select_phase_blip2,
 )
+from videotgb_torch.parallel.distributed import (
+    broadcast_object,
+    gather_objects,
+    initialize,
+    process_index,
+)
+from videotgb_torch.parallel.mesh import mesh_rank, tp_rank
+from videotgb_torch.parallel.sharding import batch_split
+from videotgb_torch.parallel.tensor import is_sliced
 
 PHASES = ("queue_wait", "assembly", "host_prep", "select", "gather",
           "answer", "postprocess")
+MESH_TICK_S = 60.0  # an idle leader's word to the followers, this often
 
 
 @dataclasses.dataclass
@@ -115,22 +144,39 @@ class ServingEngine:
         its own.
         ``backbone``: "blip2", "instructblip_t5" or "instructblip".
         ``device``: None = the CUDA device (raises without one); "cpu" runs
-        the plain path. ``mesh`` raises ``NotImplementedError``."""
+        the plain path. ``mesh`` ("tp=2", "dp=2,tp=2"): this rank's engine
+        of a mesh-sharded one (see the module's docstring); ``sp``, ``pp``,
+        ``fsdp`` with ``tp`` and the W8A8 ViT-g under ``tp`` raise
+        ``NotImplementedError``, a ``batch_size`` that does not split over
+        dp x fsdp ``ValueError``."""
         from videotgb_torch.data.tokenizer import load_tokenizer
-        from videotgb_torch.evalsuite.inference import load_model
+        from videotgb_torch.evalsuite.inference import (load_model,
+                                                        model_config,
+                                                        serving_mesh)
         from videotgb_torch.ops.decode import DecodeConfig
 
+        args = SimpleNamespace(model_path=model_path, preset=preset,
+                               backbone=backbone, bf16_params=bf16_params)
+        self.mesh = None
         if mesh:
-            raise NotImplementedError(
-                f"mesh-sharded serving ({mesh!r}) is not ported: ROADMAP.md "
-                "queue 1 item 4")
-        self.model, self.cfg = load_model(SimpleNamespace(
-            model_path=model_path, preset=preset, backbone=backbone,
-            bf16_params=bf16_params), device=device)
+            kind = "cuda" if device is None else torch.device(device).type
+            initialize(device_type=kind)
+            self.mesh = serving_mesh(mesh, model_config(args))
+            if batch_size % mesh_rank(self.mesh)[1]:
+                raise ValueError(f"batch_size {batch_size} must be divisible "
+                                 f"by dp*fsdp={mesh_rank(self.mesh)[1]}")
+        self.model, self.cfg = load_model(args, device=device,
+                                          mesh=self.mesh)
         dev = self.model.device
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
+        self.leader = self.mesh is None or process_index() == 0
+        self.route = "graph"
+        if is_sliced(self.model):
+            self.route = ("eager: the model is sliced over tp, and its "
+                          "collectives run outside CUDA graphs")
+        self._groups = self._worker_groups()
         self.tok = load_tokenizer(model_base)
         self.sampler_tok = load_tokenizer(sampler_base)
         self.batch_size = batch_size
@@ -152,7 +198,8 @@ class ServingEngine:
         if dev.type == "cuda":
             self._select_stream = torch.cuda.Stream(dev)
             self._answer_stream = torch.cuda.Stream(dev)
-            self._capture_phases()
+            if self.route == "graph":
+                self._capture_phases()
         else:
             self._select_stream = self._answer_stream = None
         self._queue: "queue.Queue[_Request | None]" = queue.Queue()
@@ -164,6 +211,7 @@ class ServingEngine:
         self._phase_t: dict[str, list] = {name: [] for name in PHASES}
         self._served = 0
         self._batches = 0
+        self._failed = None  # a mesh worker's fault: the engine stops
         self._t_start = time.perf_counter()
         self._worker = threading.Thread(target=self._run_select, daemon=True)
         self._worker.start()
@@ -174,6 +222,42 @@ class ServingEngine:
     def _answer(self):
         return (answer_phase_instructblip if self.decoder_only
                 else answer_phase_blip2)
+
+    def _worker_groups(self) -> dict:
+        """Under a mesh, each worker's process groups: one over every rank
+        (the batches, indices, frames and tokens) and its ``tp`` group (the
+        model's collectives), made in the same order on every rank."""
+        import torch.distributed as dist
+
+        if self.mesh is None:
+            return {}
+        layout = self.mesh.mesh
+        tp = layout.shape[-1]
+        groups = {}
+        for worker in ("select", "answer"):
+            whole = dist.new_group(list(range(layout.numel())))
+            mine = None
+            for ranks in (layout.reshape(-1, tp).tolist() if tp > 1 else []):
+                group = dist.new_group(ranks)
+                if dist.get_rank() in ranks:
+                    mine = group
+            groups[worker] = (whole, mine)
+        return groups
+
+    def _rows(self) -> slice:
+        """This rank's rows of a global batch (all of them without a
+        mesh)."""
+        rank, split = mesh_rank(self.mesh)
+        rows = self.batch_size // split
+        return slice(rank * rows, (rank + 1) * rows)
+
+    def _one_copy(self, local: np.ndarray, worker: str) -> np.ndarray:
+        """The global batch's rows from every rank's ``local`` rows (one
+        copy of each dp x fsdp position's); ``local`` without a mesh."""
+        if self.mesh is None:
+            return local
+        every = gather_objects(local, group=self._groups[worker][0])
+        return np.concatenate(every[::tp_rank(self.mesh)[1]])
 
     def _capture_phases(self):
         """On the card, before the workers start: each phase twice, on its
@@ -187,15 +271,17 @@ class ServingEngine:
             np.zeros((cfg.num_frames, image, image, 3), np.uint8),
             np.zeros((self.flow_frames + 1, fs, fs, 3), np.uint8), "",
             Future(), 0.0)
-        padded = [blank] * self.batch_size
-        with torch.inference_mode(), torch.cuda.device(dev):
+        rows = self._rows()
+        padded = ([blank] * self.batch_size)[rows]
+        with torch.inference_mode(), torch.cuda.device(dev), \
+                batch_split(self.mesh):
             for _ in range(2):
                 gen = step_generator(self.seed, 0, dev)
                 with torch.cuda.stream(self._select_stream):
                     flow_u8, bd = self.host_batch(padded)
                     select_phase_blip2(self.model, flow_u8, bd,
                                        generator=gen, **self.select_kw)
-                    sel = torch.zeros((self.batch_size, cfg.nframe, image,
+                    sel = torch.zeros((len(padded), cfg.nframe, image,
                                        image, 3), dtype=torch.uint8,
                                       device=dev)
                 self._answer_stream.wait_stream(self._select_stream)
@@ -240,6 +326,11 @@ class ServingEngine:
                question: str) -> Future:
         """frames_u8 (num_frames, H, W, 3) uint8 at the ViT size; flow_u8
         (flow_frames+1, hf, wf, 3) uint8 at the TGB flow size."""
+        if not self.leader:
+            raise RuntimeError("a follower rank of a mesh engine takes no "
+                               "requests: submit on rank 0")
+        if self._failed is not None:
+            raise RuntimeError(f"the mesh engine stopped: {self._failed!r}")
         fut: Future = Future()
         self._queue.put(_Request(frames_u8, flow_u8, question, fut,
                                  time.perf_counter()))
@@ -285,10 +376,14 @@ class ServingEngine:
             del ts[: len(ts) - 512]
 
     @contextlib.contextmanager
-    def _worker_context(self, stream):
-        """A worker's thread-local state: inference mode, and on the card
-        the engine's device and the worker's own stream."""
-        with torch.inference_mode():
+    def _worker_context(self, stream, worker):
+        """A worker's thread-local state: inference mode; under a mesh the
+        batch split and the worker's own ``tp`` group; on the card the
+        engine's device and the worker's own stream."""
+        tp = getattr(self.model, "tp", None)
+        with torch.inference_mode(), batch_split(self.mesh), (
+                contextlib.nullcontext() if tp is None
+                else tp.using(self._groups[worker][1])):
             if stream is None:
                 yield
                 return
@@ -297,13 +392,19 @@ class ServingEngine:
                 yield
 
     def _collect(self) -> list[_Request] | None:
-        """Block for the first request, then batch adaptively.
+        """Block for the first request, then batch adaptively; None to
+        stop; "idle" under a mesh when nothing arrived for
+        ``MESH_TICK_S``.
 
         Whatever is already queued is drained for free. Beyond that, soak
         up to max_delay_ms for more arrivals only while the answer stage is
         busy (the pipe is occupied anyway, so waiting costs no latency);
         with the pipe idle, dispatch at once."""
-        first = self._queue.get()
+        try:
+            first = self._queue.get(
+                timeout=None if self.mesh is None else MESH_TICK_S)
+        except queue.Empty:
+            return "idle"
         if first is None:
             return None
         t_pop = time.perf_counter()
@@ -336,39 +437,81 @@ class ServingEngine:
         self._phase("assembly", (time.perf_counter() - t_pop) * 1000)
         return group
 
+    def _next_batch(self):
+        """(the leader's requests, None on a follower; the padded global
+        batch: anything with ``flow_u8`` and ``question``, and on the leader
+        ``frames_u8``), or None to stop. Under a mesh the leader broadcasts
+        the batch's flow frames and questions, and an idle word every
+        ``MESH_TICK_S``."""
+        while True:
+            group = self._collect() if self.leader else None
+            padded = None
+            if isinstance(group, list):
+                padded = group + [group[-1]] * (self.batch_size - len(group))
+            if self.mesh is None:
+                return None if group is None else (group, padded)
+            msg = ("stop" if group is None else "idle" if group == "idle"
+                   else [(r.flow_u8, r.question) for r in padded])
+            msg = broadcast_object(msg if self.leader else None,
+                                   group=self._groups["select"][0])
+            if msg == "stop":
+                return None
+            if msg != "idle":
+                return group, padded or [
+                    SimpleNamespace(flow_u8=f, question=q) for f, q in msg]
+
+    def _stop(self, error, group) -> None:
+        """A mesh worker's fault: the batch's futures take it, later
+        submits raise, and the worker ends (the other ranks' collectives
+        then fail on their time limit)."""
+        self._failed = error
+        for r in group or ():
+            if not r.future.done():
+                r.future.set_exception(error)
+
     def _run_select(self):
         """Stage 1: collect -> tokenize -> RAFT + TGB + selection on the
         device -> host frame gather + upload -> hand off to the answer
         stage."""
-        with self._worker_context(self._select_stream):
+        with self._worker_context(self._select_stream, "select"):
             step = 0
+            rows = self._rows()
             while True:
-                group = self._collect()
-                if group is None:
+                item = self._next_batch()
+                if item is None:
                     self._mid.put(None)  # shutdown to the answer stage
                     return
-                padded = group + [group[-1]] * (self.batch_size - len(group))
+                group, padded = item
                 try:
                     t0 = time.perf_counter()
-                    flow_u8, bd = self.host_batch(padded)
+                    flow_u8, bd = self.host_batch(padded[rows])
                     gen = step_generator(self.seed, step, self.device)
                     step += 1
                     t1 = time.perf_counter()
                     self._phase("host_prep", (t1 - t0) * 1000)
                     cand = select_phase_blip2(self.model, flow_u8, bd,
                                               generator=gen, **self.select_kw)
-                    sel_idx = cand.cpu().numpy()
+                    sel_idx = self._one_copy(cand.cpu().numpy(), "select")
                     t2 = time.perf_counter()
                     self._phase("select", (t2 - t1) * 1000)
-                    sel = np.stack([padded[i].frames_u8[sel_idx[i]]
-                                    for i in range(len(padded))])
-                    sel_dev = torch.from_numpy(sel).to(self.device)
+                    sel = None
+                    if self.leader:
+                        sel = np.stack([padded[i].frames_u8[sel_idx[i]]
+                                        for i in range(len(padded))])
+                    if self.mesh is not None:
+                        sel = broadcast_object(
+                            sel, group=self._groups["select"][0])
+                    sel_dev = torch.from_numpy(sel[rows]).to(self.device)
                     ready = None
                     if self._select_stream is not None:
                         ready = torch.cuda.Event()
                         ready.record(self._select_stream)
                     self._phase("gather", (time.perf_counter() - t2) * 1000)
                 except Exception as e:  # resolve futures even on failure
+                    if self.mesh is not None:
+                        self._stop(e, group)
+                        self._mid.put(None)
+                        return
                     for r in group:
                         if not r.future.done():
                             r.future.set_exception(e)
@@ -378,8 +521,8 @@ class ServingEngine:
 
     def _run_answer(self):
         """Stage 2: LLM decode on the device -> detokenize -> resolve
-        futures."""
-        with self._worker_context(self._answer_stream):
+        futures (on the leader)."""
+        with self._worker_context(self._answer_stream, "answer"):
             while True:
                 item = self._mid.get()
                 if item is None:
@@ -392,10 +535,13 @@ class ServingEngine:
                         for x in (sel_dev, *bd.values()):
                             x.record_stream(self._answer_stream)
                     tokens = self._answer()(self.model, sel_dev, bd,
-                                    self.decode_config,
-                                    generator=gen).cpu().numpy()
+                                            self.decode_config,
+                                            generator=gen).cpu().numpy()
+                    tokens = self._one_copy(tokens, "answer")
                     t1 = time.perf_counter()
                     self._phase("answer", (t1 - t0) * 1000)
+                    if not self.leader:
+                        continue
                     answers = self.tok.batch_decode(tokens,
                                                     skip_special_tokens=True)
                     now = time.perf_counter()
@@ -411,6 +557,9 @@ class ServingEngine:
                     self._served += len(group)
                     self._batches += 1
                 except Exception as e:
+                    if self.mesh is not None:
+                        self._stop(e, group)
+                        return
                     for r in group:
                         if not r.future.done():
                             r.future.set_exception(e)
@@ -418,10 +567,17 @@ class ServingEngine:
                     if self._mid.empty():
                         self._answer_busy.clear()
 
+    def join(self, timeout: float | None = None):
+        """Wait until both workers end: on a follower rank of a mesh
+        engine, until rank 0's ``close()``."""
+        self._worker.join(timeout=timeout)
+        self._answer_worker.join(timeout=timeout)
+
     def close(self):
-        self._queue.put(None)
-        self._worker.join(timeout=30)
-        self._answer_worker.join(timeout=30)
+        """Stop the workers (on rank 0 of a mesh engine, every rank's)."""
+        if self.leader:
+            self._queue.put(None)
+        self.join(timeout=30)
 
 
 # ------------------------------------------------------------------- HTTP
@@ -508,7 +664,8 @@ def main(argv=None):
                    help="keep f32 parameters (default bf16 for ViT, "
                         "Q-Former, the LLM and TGB)")
     p.add_argument("--mesh", default="",
-                   help="mesh-sharded serving; not ported, raises")
+                   help="mesh-sharded serving over the ranks of torchrun, "
+                        "e.g. tp=2 or dp=2,tp=2 (rank 0 serves HTTP)")
     p.add_argument("--device", default=None,
                    help="torch device; the CUDA device when not given")
     args = p.parse_args(argv)
@@ -519,10 +676,13 @@ def main(argv=None):
         max_delay_ms=args.max_delay_ms, model_base=args.model_base,
         sampler_base=args.sampler_base, backbone=args.backbone,
         bf16_params=not args.f32_params, mesh=args.mesh, device=args.device)
+    if not engine.leader:  # a follower rank: until rank 0 closes
+        engine.join()
+        return
     server = make_server(engine, port=args.port)
     print(f"VideoTGB (PyTorch) serving on http://localhost:{args.port}"
           f"/v1/generate (batch {args.batch_size}, max delay "
-          f"{args.max_delay_ms} ms, {engine.device})")
+          f"{args.max_delay_ms} ms, {engine.device}, route {engine.route})")
     try:
         server.serve_forever()
     finally:

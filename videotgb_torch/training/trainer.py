@@ -51,7 +51,7 @@ from typing import Callable, Iterable
 
 import torch
 
-from videotgb_torch.parallel.mesh import mesh_rank
+from videotgb_torch.parallel.mesh import TP_TRAINING, mesh_rank, tp_rank
 from videotgb_torch.parallel.sharding import (
     all_reduce_sum,
     batch_split,
@@ -136,6 +136,9 @@ class Trainer:
         ``filter_fn(name)`` says which parameters train (all without one);
         ``mesh`` the dp x fsdp mesh of a multi-rank run (None: one
         process)."""
+        if tp_rank(mesh)[1] > 1:
+            raise NotImplementedError(
+                f"Trainer on a mesh with tp={tp_rank(mesh)[1]}: {TP_TRAINING}")
         self.config = config
         self.loss_fn = loss_fn
         self.filter_fn = filter_fn
