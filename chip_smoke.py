@@ -284,7 +284,35 @@ Phases, each fatal on failure (exit code 1):
    world 1's by less; each rank's tokens bit-identical to the other's;
    the greedy tokens' agreement with world 1, a rank's wall and the share
    of it in the tp collectives (through the host: gloo times nothing a
-   multi-card NCCL machine would); the engine's route (eager).
+   multi-card NCCL machine would); the engine's route (eager);
+23. sequence parallelism (``sequence_parallel_paths``) at flagship width,
+   held to phases 21 and 22's world-1 references: two gloo ranks on the
+   one card at sp=2 (``parallel.sequence.shard_sp``), each first
+   confirming gloo's bf16 ``all_gather_into_tensor`` and
+   ``reduce_scatter_tensor`` on CUDA tensors: 23a E2E on
+   ``configs/trainer/sp.yaml``'s layout (dp 1 x sp 2) at a global batch of
+   8, a uniform step then a ``selection=tgb`` step, each rank's launches
+   exactly A 63 and C 24 a step (24 of each at the T5-xl encoder's split
+   (8, 32, 80, 160, 64) under an (8, 32, 80, 160) bias) and D 1 on the
+   tgb step, on the tensor-core bodies; kernels A and C against their
+   plain versions on the inputs the ranks recorded; each rank's loss and
+   grad norm within 1e-2 relative of world 1's, D's frames equal to world
+   1's, the trainable tensors bit-identical across the ranks, every frozen
+   fingerprint unchanged; 23b ``flow_features`` + ``generate_blip2`` (16
+   new tokens) and ``generate_instructblip`` (80) on phase 22's 4
+   requests, each rank's launches world 1's (A 39, or 71 with Vicuna's
+   whole cached prefill, B 20, D 1), frames equal to world 1's, the LLM's
+   visual tokens and logits under phase 22's bounds, the ranks' tokens
+   bit-identical; 23c Vicuna's forward without caches (the path of
+   ``trainer=sp`` with the InstructBLIP recipes) on 23b's split model at
+   phase 17's IV length (4 rows of 192 tokens: 23b's 32 visual tokens and
+   a right-padded 160-token prompt), forward and backward to its input
+   embeddings, each rank's launches exactly A 32 and C 32 at the split
+   (4, 32, 96, 192, 128) under the (4, 1, 96, 192) local-row causal and
+   padding bias, held against the whole forward on the rank; each rank's
+   step or answer wall and the share of it in the sp collectives (and, in
+   23a, the all-reduces); then kernels A and C at the split encoder's
+   shape timed beside the plain versions and SDPA.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -582,7 +610,6 @@ def rel_diff(a, b) -> float:
 # ------------------------------------------------------------------ kernel A
 def check_flash(card: str) -> dict:
     import torch
-    import torch.nn.functional as F
 
     from videotgb_torch.ops import kernels
     from videotgb_torch.ops.attention import NEG_INF, dot_product_attention, flash_attention
@@ -652,36 +679,7 @@ def check_flash(card: str) -> dict:
                     "the plain softmax's uniform average")
 
     def timed(name, tensors, bias):
-        """Kernel A, the plain version and SDPA at one shape, each as device
-        time per call (``graph_ms``), the kernel also per eager call; the
-        bound is q, k, v, out and the bias each moved once, or the products
-        at the bf16 peak, the larger."""
-        q, k, v = tensors
-        nb, nh, sq, dh = q.shape
-        skv = k.shape[2]
-        _, ran = body_of(q, k, v, bias)
-        if ran != "mma":
-            fail(f"flash {name}: ran the {ran} body, not mma")
-        ms = graph_ms(lambda: flash_attention(q, k, v, bias))
-        eager_ms = time_ms(lambda: flash_attention(q, k, v, bias))
-        plain_ms = graph_ms(lambda: dot_product_attention(q, k, v, bias),
-                            iters=5)
-        mask = None if bias is None else bias.to(q.dtype)
-        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=dh ** -0.5))
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-            + (0 if bias is None else bias.numel() * bias.element_size())
-        flops = 4 * nb * nh * sq * skv * dh
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        log(f"  flash {name} [{ran} body]: kernel {ms:.4f} ms ({eager_ms:.4f}"
-            f" ms a call from eager Python), plain {plain_ms:.4f} ms, SDPA "
-            f"{lib_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP) on {card}")
-        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        return flash_timed(card, name, tensors, bias)
 
     main = timed("ViT-g serving (16,16,264,88) pad bias (1,1,1,264)",
                  main_qkv, pad_bias)
@@ -722,6 +720,47 @@ def check_flash(card: str) -> dict:
             "source": "videotgb_torch/csrc/flash_fwd.cu",
             "replaces": "videotgb_tpu/ops/attention.py:54",
             "max_abs_err": err_main, **main}
+
+
+def flash_timed(card, name, tensors, bias) -> dict:
+    """Kernel A, the plain version and SDPA at one shape, each as device
+    time per call (``graph_ms``), the kernel also per eager call; the bound
+    is q, k, v, out and the bias each moved once, or the products at the
+    bf16 peak, the larger. Fails unless the launch ran the tensor-core
+    body."""
+    import torch.nn.functional as F
+
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.ops.attention import (dot_product_attention,
+                                              flash_attention)
+
+    q, k, v = tensors
+    nb, nh, sq, dh = q.shape
+    skv = k.shape[2]
+    before = kernels.MMA_LAUNCHES["flash_fwd"]
+    flash_attention(q, k, v, bias)
+    if kernels.MMA_LAUNCHES["flash_fwd"] == before:
+        fail(f"flash {name}: ran the fma body, not mma")
+    ms = graph_ms(lambda: flash_attention(q, k, v, bias))
+    eager = time_ms(lambda: flash_attention(q, k, v, bias))
+    plain_ms = graph_ms(lambda: dot_product_attention(q, k, v, bias),
+                        iters=5)
+    mask = None if bias is None else bias.to(q.dtype)
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=dh ** -0.5))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + (0 if bias is None else bias.numel() * bias.element_size())
+    flops = 4 * nb * nh * sq * skv * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    log(f"  flash {name} [mma body]: kernel {ms:.4f} ms ({eager:.4f}"
+        f" ms a call from eager Python), plain {plain_ms:.4f} ms, SDPA "
+        f"{lib_ms:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP) on {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 # ------------------------------------------------------------------ kernel B
@@ -6057,8 +6096,10 @@ def p21_rank() -> list:
     return gather_objects(out)
 
 
-def parallel_paths(card: str) -> dict:
-    """Phase 21 (see the module's docstring)."""
+def parallel_paths(card: str) -> tuple:
+    """Phase 21 (see the module's docstring). Returns the launches of its
+    counted runs and 21a's world-1 reference (its two steps' records and
+    D's frames), which phase 23 holds its ranks to."""
     import shutil
 
     import torch
@@ -6243,7 +6284,7 @@ def parallel_paths(card: str) -> dict:
     shutil.rmtree(P21_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return totals
+    return totals, {"steps": ref_a, "cand": cand_a}
 
 
 # ------------------------------------ phase 22: tensor-parallel serving
@@ -6562,12 +6603,13 @@ def p22_rank() -> dict:
 
 
 def p22_compare(name, got, want, card) -> float:
-    """Frames, logits, greedy agreement of one rank's 22a / 22b run against
-    world 1's; returns the share of greedy tokens that agree."""
+    """Frames, logits, greedy agreement of one rank's 22a / 22b (or 23b)
+    run against world 1's; returns the share of greedy tokens that
+    agree."""
     import torch
 
     if not torch.equal(got["cand"], want["cand"]):
-        fail(f"22 {name}: frames {got['cand'].tolist()} != world 1's "
+        fail(f"{name}: frames {got['cand'].tolist()} != world 1's "
              f"{want['cand'].tolist()}")
     gaps = {}
     for key in ("visual", "logits"):
@@ -6575,19 +6617,19 @@ def p22_compare(name, got, want, card) -> float:
                      float(want[key].abs().max()))
     vis, vis_scale = gaps["visual"]
     if not vis <= P22_LOGITS_SHARE * vis_scale:
-        fail(f"22 {name}: the LLM's visual tokens (ViT-g, Q-Former and "
-             f"projection on the rank's slices) {vis:.4g} off world 1's, "
-             f"over {P22_LOGITS_SHARE} of its largest {vis_scale:.4g}")
+        fail(f"{name}: the LLM's visual tokens (ViT-g, Q-Former and "
+             f"projection on the rank) {vis:.4g} off world 1's, over "
+             f"{P22_LOGITS_SHARE} of its largest {vis_scale:.4g}")
     gap, scale = gaps["logits"]
     floor = float((want["nudged"] - want["logits"]).abs().max())
     bound = P22_LOGITS_SHARE * scale
     if not gap <= bound and floor < bound:
-        fail(f"22 {name}: first-step logits {gap:.4g} off world 1's, over "
+        fail(f"{name}: first-step logits {gap:.4g} off world 1's, over "
              f"{P22_LOGITS_SHARE} of its largest {scale:.4g}, where one bf16 "
              f"step on the LLM's inputs moves world 1's by {floor:.4g}")
     agree = float((got["tokens"] == want["tokens"]).float().mean())
-    log(f"  22 {name}: frames equal to world 1's {want['cand'].tolist()}; "
-        f"visual tokens max |tp=2 - world 1| {vis:.4g} ({vis / vis_scale:.4g}"
+    log(f"  {name}: frames equal to world 1's {want['cand'].tolist()}; "
+        f"visual tokens max |rank - world 1| {vis:.4g} ({vis / vis_scale:.4g}"
         f" of the largest, {vis_scale:.4g}); first-step logits {gap:.4g} "
         f"({gap / scale:.4g} of the largest, {scale:.4g}; bound "
         f"{P22_LOGITS_SHARE}{' held' if gap <= bound else ' not held'}; one "
@@ -6600,9 +6642,10 @@ def p22_compare(name, got, want, card) -> float:
     return agree
 
 
-def tensor_parallel_paths(card: str) -> dict:
+def tensor_parallel_paths(card: str) -> tuple:
     """Phase 22 (see the module's docstring). Returns the launches of the
-    ranks' counted runs."""
+    ranks' counted runs and its world-1 ``p22_drive`` runs by backbone,
+    which phase 23 holds its ranks to."""
     import numpy as np
     import torch
 
@@ -6726,7 +6769,460 @@ def tensor_parallel_paths(card: str) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return totals
+    return totals, refs
+
+
+# ------------------------------------ phase 23: sequence parallelism
+class P23FlashBwd:
+    """Records the first call of kernel C's wrapper at each input signature
+    (its inputs, copied) while installed; ``check`` then holds kernel C
+    against its plain version on them."""
+
+    def __init__(self):
+        self.calls: dict = {}
+
+    def __enter__(self):
+        from videotgb_torch.ops import attention
+
+        self._orig = real = attention.flash_backward_cuda
+
+        def record(q, k, v, bias, g, scale, bias_needs_grad=True):
+            key = (tuple(q.shape), tuple(k.shape),
+                   None if bias is None else tuple(bias.shape),
+                   bias_needs_grad)
+            if key not in self.calls:
+                self.calls[key] = [None if t is None else t.detach().clone()
+                                   for t in (q, k, v, bias, g)] + [
+                    scale, bias_needs_grad]
+            return real(q, k, v, bias, g, scale, bias_needs_grad)
+
+        attention.flash_backward_cuda = record
+        return self
+
+    def __exit__(self, *exc):
+        from videotgb_torch.ops import attention
+
+        attention.flash_backward_cuda = self._orig
+
+    def check(self, tag: str) -> dict:
+        """{shape: max abs error} of kernel C (dq, dk, dv, and the bias's
+        gradient where asked) against its plain version on each recorded
+        call's inputs (phase 5's tolerance)."""
+        from videotgb_torch.ops.attention import (flash_backward_cuda,
+                                                  flash_backward_reference)
+
+        out = {}
+        for key, (q, k, v, bias, g, scale, need) in self.calls.items():
+            got = flash_backward_cuda(q, k, v, bias, g, scale, need)
+            want = flash_backward_reference(q, k, v, bias, g, scale, need)
+            err = 0.0
+            for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, want):
+                if y is not None:
+                    err = max(err, check_to_largest(
+                        f"{tag} kernel C {name} at {key[0]} x {key[1]} "
+                        f"(bias {key[2]})", x, y, 2e-2,
+                        "ds and the gradients rounded to bf16, sums in "
+                        "another order"))
+            out[str(key[:3])] = err
+        return out
+
+
+def p23_world1(world1: dict) -> dict:
+    """Phases 21 and 22's world-1 references, ``world1`` with what it
+    lacks (phase 23 run alone) made here: "e2e", 21a's uniform and tgb
+    steps from the start and D's frames; "serving", 22's ``p22_drive`` of
+    BLIP2-Flan-T5-xl and InstructBLIP-Vicuna-7B."""
+    import torch
+
+    from videotgb_torch import train as T
+    from videotgb_torch.evalsuite.inference import load_model
+    from videotgb_torch.training.trainer import Trainer, TrainerConfig
+
+    world1 = dict(world1)
+    dev = torch.device("cuda")
+    if "e2e" not in world1:
+        model, cfg = T.build_model({"preset": "flagship"}, device=dev, seed=0)
+        batch = p21_batch(cfg, dev)
+        loss = P21Loss()
+        trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                          loss.filter_fn)
+        trainer._step = trainer._step.eager
+        state = trainer.init_state(model)
+        steps = []
+        for sel in ("uniform", "tgb"):
+            loss.selection = sel
+            state, rec = p21_step(f"23 world-1 {sel} step", trainer, state,
+                                  batch, sel == "tgb")
+            steps.append(rec)
+        world1["e2e"] = {"steps": steps, "cand": loss.cand.clone().cpu()}
+        del model, trainer, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "serving" not in world1:
+        refs = {}
+        for backbone in ("blip2", "instructblip"):
+            model, _ = load_model(p22_args(backbone))
+            refs[backbone] = p22_drive(model, backbone)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        world1["serving"] = refs
+    return world1
+
+
+P23_TEXT = 160  # 23c's prompt: with 32 visual tokens, phase 17's IV length
+
+
+def p23_vicuna(model, visual, tag, timing, timer) -> dict:
+    """23c on the rank's split InstructBLIP-Vicuna ``model``: Vicuna's
+    forward without caches on 23b's ``visual`` tokens and a right-padded
+    160-token prompt, and the backward to its input embeddings (the
+    weights take no gradient), counted; the loss is the logits' sum
+    against a seeded vector, each rank's 1/sp of it and the embeddings'
+    gradient summed over the sp ranks, as the trainer's rule. Then on the
+    rank, its LLM's ``sp`` set aside: the same whole (the reference), and
+    whole once more on inputs moved by one bf16 step (how far rounding
+    alone moves it). Kernels A and C held against their plain versions on
+    the split run's recorded inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from videotgb_torch.ops import kernels
+
+    dev, cfg = model.device, model.config
+    lm, llm = model.model.language_model, cfg.instructblip.llm
+    sp, b = lm.sp, visual.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ids = torch.randint(100, 5000, (b, P23_TEXT), generator=gen, device=dev)
+    lengths = P23_TEXT - 20 * torch.arange(b, device=dev)
+    text_mask = (torch.arange(P23_TEXT, device=dev)[None]
+                 < lengths[:, None]).float()
+    with torch.no_grad():
+        embeds, mask = model.model.decoder_inputs(
+            visual.to(dev, torch.bfloat16), ids, text_mask)
+    w = torch.randn(llm.vocab_size, generator=gen, device=dev)
+
+    def run(x, share=1.0):
+        x = x.detach().clone().requires_grad_()
+        logits, _ = lm(inputs_embeds=x, attention_mask=mask)
+        (dx,) = torch.autograd.grad(((logits @ w) * mask).sum() * share, [x])
+        return logits.detach().float(), dx
+
+    s = embeds.shape[1]
+    local = s // sp.size
+    shapes = [str(((b, llm.num_heads, local, llm.head_dim),
+                   (b, llm.num_heads, s, llm.head_dim), (b, 1, local, s)))]
+    timer.update(ms=0.0, calls=0)
+    kernels.reset_launches()
+    with P22Flash() as fa, P23FlashBwd() as fc, timing():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, dx = run(embeds, 1.0 / sp.size)
+        dx = dx.float()
+        dist.all_reduce(dx, group=sp.group)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    check_bodies(f"{tag} 23c", launches)
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0),
+            "flash_fwd": llm.num_layers, "flash_bwd": llm.num_layers}
+    if launches != want:
+        fail(f"{tag} 23c: launches {launches} != {want}")
+    got_a = sorted(str(k[:3]) for k in fa.calls)
+    got_c = sorted(str(k[:3]) for k in fc.calls)
+    if got_a != shapes or got_c != shapes:
+        fail(f"{tag} 23c: kernels A and C saw {got_a} and {got_c}, not the "
+             f"split Vicuna's {shapes}")
+    out = {"launches": launches, "wall_ms": wall, "sp_ms": timer["ms"],
+           "sp_calls": timer["calls"], "shape": shapes[0],
+           "kernel_a": fa.check(f"{tag} 23c"),
+           "kernel_c": fc.check(f"{tag} 23c")}
+    lm.sp = None
+    try:
+        whole = run(embeds)
+        nudged = run((embeds.float() * (1 + 2 ** -8)).to(embeds.dtype))
+    finally:
+        lm.sp = sp
+    for name, got, ref, moved in (("logits", logits, whole[0], nudged[0]),
+                                  ("dx", dx, whole[1], nudged[1])):
+        gap = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        floor = float((moved.float() - ref.float()).abs().max())
+        bound = P22_LOGITS_SHARE * scale
+        if not gap <= bound and floor < bound:
+            fail(f"{tag} 23c: split {name} {gap:.4g} off the whole "
+                 f"forward's, over {P22_LOGITS_SHARE} of its largest "
+                 f"{scale:.4g}, where one bf16 step on the inputs moves it "
+                 f"by {floor:.4g}")
+        out[name] = {"gap": gap, "scale": scale, "floor": floor}
+    return out
+
+
+def p23_rank() -> dict:
+    """One rank of phase 23 (two gloo ranks on the one card at sp=2, as
+    phases 21 and 22)."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from videotgb_torch import train as T
+    from videotgb_torch.evalsuite.inference import load_model
+    from videotgb_torch.parallel.distributed import (barrier, gather_objects,
+                                                     process_index)
+    from videotgb_torch.parallel.mesh import MeshConfig, create_mesh
+    from videotgb_torch.parallel.sequence import is_split
+    from videotgb_torch.training.trainer import Trainer, TrainerConfig
+
+    faulthandler.enable()
+    rank, dev = process_index(), torch.device("cuda", 0)
+    tag = f"  23 rank {rank}"
+
+    # gloo's token collectives on bf16 CUDA tensors, before anything else
+    g = torch.empty(8, dtype=torch.bfloat16, device=dev)
+    dist.all_gather_into_tensor(g, torch.full((4,), float(rank), device=dev,
+                                              dtype=torch.bfloat16))
+    r = torch.empty(2, dtype=torch.bfloat16, device=dev)
+    dist.reduce_scatter_tensor(r, torch.arange(4.0, device=dev).to(
+        torch.bfloat16))
+    if not (g.tolist() == [0.0] * 4 + [1.0] * 4
+            and r.tolist() == [4.0 * rank, 4.0 * rank + 2.0]):
+        fail(f"{tag}: gloo on bf16 CUDA tensors gave {g.tolist()}, "
+             f"{r.tolist()}")
+
+    # the sp collectives (the token gathers and their reduce-scatters) and
+    # the all-reduces (gradients, counts, losses), each timed apart
+    timers = {"sp": {"ms": 0.0, "calls": 0}, "ar": {"ms": 0.0, "calls": 0}}
+    real = {name: getattr(dist, name) for name in (
+        "all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")}
+
+    def timed(fn, timer):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timer["ms"] += (time.perf_counter() - t) * 1e3
+            timer["calls"] += 1
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def timing():
+        for name, fn in real.items():
+            setattr(dist, name, timed(fn, timers[
+                "ar" if name == "all_reduce" else "sp"]))
+        try:
+            yield
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+
+    out = {"rank": rank}
+    # ---- 23a: E2E on configs/trainer/sp.yaml's layout at 2 ranks (dp 1,
+    # sp 2), a global batch of 8: a uniform step, then a tgb step
+    mesh = create_mesh(MeshConfig(dp=1, sp=2), device_type="cuda")
+    model, cfg = T.build_model({"preset": "flagship"}, device=dev, seed=0)
+    loss = P21Loss()
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                      loss.filter_fn, mesh=mesh)
+    state = trainer.init_state(model)
+    if not is_split(model):
+        fail(f"{tag}: Trainer.init_state did not split the model over sp")
+    params = dict(model.named_parameters())
+    trainable = set(trainer.trainable)
+    frozen = [n for n in params if n not in trainable]
+    before = p21_fingerprint(params, frozen)
+    rows = p21_batch(cfg, dev)  # dp = 1: every rank holds the 8 rows
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with P22Flash() as fa, P23FlashBwd() as fc:
+        for sel in ("uniform", "tgb"):
+            loss.selection = sel
+            for timer in timers.values():
+                timer.update(ms=0.0, calls=0)
+            with timing():
+                state, rec = p21_step(f"23a rank {rank} {sel} step",
+                                      trainer, state, rows, sel == "tgb")
+            rec.update(sp_ms=timers["sp"]["ms"], sp_calls=timers["sp"][
+                "calls"], ar_ms=timers["ar"]["ms"],
+                ar_calls=timers["ar"]["calls"])
+            steps.append(rec)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flat = torch.cat([params[n].detach().reshape(-1).view(torch.int32)
+                      for n in trainer.trainable])
+    lo, hi = flat.clone(), flat
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    out["e2e"] = {
+        "steps": steps, "peak_gib": peak, "cand": loss.cand.cpu(),
+        "route": trainer.route, "step_route": trainer.step_route,
+        "identical": bool(torch.equal(lo, hi)),
+        "frozen_same": bool(torch.equal(before,
+                                        p21_fingerprint(params, frozen))),
+        "kernel_a": fa.check(f"{tag} 23a"), "kernel_c": fc.check(
+            f"{tag} 23a"),
+        "a_shapes": sorted(str(k[:3]) for k in fa.calls),
+        "c_shapes": sorted(str(k[:3]) for k in fc.calls)}
+    log(f"{tag}: 23a steps {[(r['loss'], r['grad_norm']) for r in steps]}")
+    del model, trainer, state, params, flat, lo, hi, before, rows, fa, fc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 23b: serving at sp=2, phase 22's requests and tokens
+    mesh = create_mesh(MeshConfig(dp=1, sp=2), serving=True)
+    for backbone in ("blip2", "instructblip"):
+        model, _ = load_model(p22_args(backbone), mesh=mesh)
+        if not is_split(model):
+            fail(f"{tag}: load_model did not split {backbone} over sp")
+        barrier()
+        for timer in timers.values():
+            timer.update(ms=0.0, calls=0)
+        with P22Flash() as fa, timing():
+            got = p22_drive(model, backbone, timers["sp"])
+        want = p22_expected(backbone)
+        if got["launches"] != want:
+            fail(f"{tag} 23b {backbone}: launches {got['launches']} != "
+                 f"{want}")
+        got["kernel_a"] = fa.check(f"{tag} 23b {backbone}")
+        got["a_shapes"] = sorted(str(k[:3]) for k in fa.calls)
+        got["ranks_tokens_equal"] = all(
+            torch.equal(t, got["tokens"]) for t in gather_objects(
+                got["tokens"]))
+        out[backbone] = got
+        log(f"{tag} 23b {backbone}: launches {got['launches']}, wall "
+            f"{got['wall_ms']:.2f} ms, {got['comm_calls']} sp collectives "
+            f"{got['comm_ms']:.2f} ms")
+        if backbone == "instructblip":
+            barrier()
+            out["vicuna"] = p23_vicuna(model, got["visual"], tag, timing,
+                                       timers["sp"])
+        del model, fa
+        gc.collect()
+        torch.cuda.empty_cache()
+    barrier()
+    return gather_objects(out)
+
+
+def sequence_parallel_paths(card: str, world1: dict) -> tuple:
+    """Phase 23 (see the module's docstring), held to ``world1``, phases
+    21 and 22's references ("e2e", "serving"; :func:`p23_world1` makes
+    those missing). Returns the launches of the ranks' counted runs and
+    kernels A's and C's device times at the split T5-xl encoder's
+    shape."""
+    import torch
+
+    from videotgb_torch.ops.attention import NEG_INF
+    from videotgb_torch.parallel.distributed import spawn
+
+    world1 = p23_world1(world1)
+    totals: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    t = time.perf_counter()
+    try:
+        ranks = spawn(p23_rank, 2, "gloo", device_type="cuda",
+                      device_ids=[0, 0], timeout_s=600)
+    except Exception as e:  # noqa: BLE001 - a rank's failure fails the phase
+        fail(f"phase 23: the ranks failed: {type(e).__name__}: {e}")
+    log(f"  23: two gloo ranks on the one card at sp=2 ran in "
+        f"{time.perf_counter() - t:.1f} s (start, builds, 23a-c)")
+
+    # 23a
+    ref = world1["e2e"]
+    for r in ranks:
+        d = r["e2e"]
+        for i, (rec, want) in enumerate(zip(d["steps"], ref["steps"])):
+            add(rec["launches"])
+            for key in ("loss", "grad_norm"):
+                rel = abs(rec[key] - want[key]) / abs(want[key])
+                if rel > 1e-2:
+                    fail(f"23a rank {r['rank']} step {i}: {key} "
+                         f"{rec[key]} vs world 1 {want[key]} ({rel:.2e})")
+            log(f"  23a rank {r['rank']} step {i}: loss {rec['loss']:.6f} "
+                f"(world 1 {want['loss']:.6f}), grad_norm "
+                f"{rec['grad_norm']:.6f} (world 1 {want['grad_norm']:.6f}); "
+                f"launches {rec['launches']}; wall {rec['wall_ms']:.2f} ms, "
+                f"{rec['sp_calls']} sp collectives {rec['sp_ms']:.2f} ms "
+                f"({rec['sp_ms'] / rec['wall_ms']:.1%} of the step), "
+                f"{rec['ar_calls']} all-reduces {rec['ar_ms']:.2f} ms "
+                f"({rec['ar_ms'] / rec['wall_ms']:.1%}) on {card}")
+        if not d["identical"]:
+            fail("23a: trainable parameters differ across the ranks")
+        if not d["frozen_same"]:
+            fail(f"23a rank {r['rank']}: a frozen parameter changed")
+        if "((8, 32, 80, 64), (8, 32, 160, 64), (8, 32, 80, 160))" not in (
+                d["a_shapes"]) or d["c_shapes"] != [
+                "((8, 32, 80, 64), (8, 32, 160, 64), (8, 32, 80, 160))"]:
+            fail(f"23a rank {r['rank']}: kernels A and C saw {d['a_shapes']}"
+                 f" and {d['c_shapes']}, not the split T5-xl encoder's")
+        log(f"  23a rank {r['rank']}: route {d['route']} ({d['step_route']})"
+            f"; peak memory {d['peak_gib']:.2f} GiB; kernel A "
+            f"{d['kernel_a']}, kernel C {d['kernel_c']} on the recorded "
+            f"inputs; trainable tensors bit-identical across the ranks; "
+            f"frozen fingerprints unchanged")
+    cand = ranks[0]["e2e"]["cand"]
+    if not torch.equal(cand, ref["cand"]):
+        fail(f"23a: D's frames at sp=2 {cand.tolist()} != world 1's "
+             f"{ref['cand'].tolist()}")
+    log(f"  23a: D's frames at sp=2 equal world 1's: {cand.tolist()}")
+
+    # 23b
+    agree = {}
+    for r in ranks:
+        for backbone in ("blip2", "instructblip"):
+            got = r[backbone]
+            add(got["launches"])
+            if not got["ranks_tokens_equal"]:
+                fail(f"23b {backbone}: the ranks' tokens differ")
+            agree[backbone] = p22_compare(
+                f"23b {backbone} rank {r['rank']}", got,
+                world1["serving"][backbone], card)
+            share = got["comm_ms"] / got["wall_ms"]
+            log(f"  23b {backbone} rank {r['rank']}: launches "
+                f"{got['launches']}; wall {got['wall_ms']:.2f} ms, "
+                f"{got['comm_calls']} sp collectives (gloo, through the "
+                f"host) {got['comm_ms']:.2f} ms = {share:.1%} of it; tokens "
+                f"bit-identical across the ranks; kernel A at "
+                f"{got['a_shapes']}: {got['kernel_a']} on {card}")
+    # 23c
+    for r in ranks:
+        d = r["vicuna"]
+        add(d["launches"])
+        log(f"  23c rank {r['rank']}: Vicuna without caches, split: launches "
+            f"{d['launches']}; kernels A and C at {d['shape']}: A "
+            f"{d['kernel_a']}, C {d['kernel_c']} on the recorded inputs; "
+            + "; ".join(
+                f"{k} max |split - whole| {d[k]['gap']:.4g} ({d[k]['gap'] / d[k]['scale']:.4g} of the largest, "
+                f"{d[k]['scale']:.4g}; one bf16 step on the inputs moves the "
+                f"whole forward's by {d[k]['floor']:.4g})"
+                for k in ("logits", "dx"))
+            + f"; wall {d['wall_ms']:.2f} ms, {d['sp_calls']} sp collectives "
+            f"{d['sp_ms']:.2f} ms ({d['sp_ms'] / d['wall_ms']:.1%}) on {card}")
+    log(f"  23: greedy agreement with world 1 {agree}; gloo on one card "
+        f"carries every sp collective through the host: these walls time "
+        f"nothing an NCCL machine with a card per rank would")
+
+    # kernels A and C at the split T5-xl encoder's shape: a rank's 80
+    # queries over the 160 keys, its rows of the relative-position bias
+    # plus the padding, one (8, 32, 80, 160) f32 bias
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    keys = torch.arange(160, device=dev)
+    lens = torch.randint(120, 161, (8,), generator=gen, device=dev)
+    bias = (torch.randn((1, 32, 80, 160), generator=gen, device=dev)
+            + torch.where(keys[None] < lens[:, None], 0.0,
+                          NEG_INF).float()[:, None, None])
+    q, k, v = (torch.randn((8, s, 32, 64), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2) for s in (80, 160, 160))
+    a_row = flash_timed(card, "23 split T5-xl encoder (8,32,80,160,64) "
+                        "bias (8,32,80,160)", (q, k, v), bias)
+    c_row = c_at(card, "23 split T5-xl encoder", 8, 32, 80, 160, 64, bias,
+                 False)
+    return totals, {"a": a_row, "c": c_row}
 
 
 def main() -> None:
@@ -6874,7 +7370,7 @@ def main() -> None:
     t21 = time.perf_counter()
     log("phase 21: data-parallel and fully sharded training (two gloo "
         "ranks on the one card; world-1 references in this process)")
-    parallel = parallel_paths(card)
+    parallel, e2e_world1 = parallel_paths(card)
     for kern in (flash, flash_bwd, lookup, select):
         kern["launches"] += parallel.get(kern["name"], 0)
     gc.collect()
@@ -6882,17 +7378,26 @@ def main() -> None:
     t22 = time.perf_counter()
     log("phase 22: tensor-parallel serving (two gloo ranks on the one card "
         "at tp=2; world-1 references in this process)")
-    tensor = tensor_parallel_paths(card)
+    tensor, serving_world1 = tensor_parallel_paths(card)
     for kern in (flash, flash_bwd, lookup, select):
         kern["launches"] += tensor.get(kern["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    log("phase 23: sequence parallelism (two gloo ranks on the one card at "
+        "sp=2; phases 21 and 22's world-1 references)")
+    sequence, _ = sequence_parallel_paths(
+        card, {"e2e": e2e_world1, "serving": serving_world1})
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += sequence.get(kern["name"], 0)
     done = time.perf_counter()
-    log(f"phases 1-22 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-23 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
         f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
         f"{t17 - t16:.1f} s, phase 17 in {t18 - t17:.1f} s, phase 18 in "
         f"{t19 - t18:.1f} s, phase 19 in {t20 - t19:.1f} s, phase 20 in "
         f"{t21 - t20:.1f} s, phase 21 in {t22 - t21:.1f} s, phase 22 in "
-        f"{done - t22:.1f} s")
+        f"{t23 - t22:.1f} s, phase 23 in {done - t23:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

@@ -5,8 +5,8 @@ flow images within one uint8 level, their rendering bit for bit), greedy, with b
 with bf16 parameters (the JAX demo's ``flow_features`` jitted, see
 ``_JittedFlow``; its eager flow departs from the port's by about 5.6e-4,
 held as such); the nframe view shares the loaded parameters; the
-HTTP server answers a GET and a multipart POST; ``Chat`` without a device
-wants CUDA.
+HTTP server answers a GET and a multipart POST, and decodes a clip posted
+twice once; ``Chat`` without a device wants CUDA.
 
 Both demos load the tiny preset with f32 compute (each package's
 ``VideoTGBConfig.tiny`` swapped for its f32 form) and bf16 parameters: the
@@ -251,6 +251,46 @@ def test_http_round_trip(chats, clip):
     assert reply["answer"] == answer and reply["cand"] == cand
     assert reply["frames"] == [TA._png_b64(x) for x in thumbs]
     assert reply["flows"] == [TA._png_b64(x) for x in flows]
+
+
+def test_a_clip_posted_twice_is_decoded_once(clip, monkeypatch):
+    """The HTTP handler writes each upload to a new temporary file: the
+    second POST of the same clip reads the first's decode (one decode, one
+    cache entry) and answers alike; the cache keeps at most
+    ``CACHE_CLIPS`` clips."""
+    from http.server import ThreadingHTTPServer
+
+    from videotgb_torch.data import video_io
+
+    decodes = []
+    read = video_io.read_video_cv2
+    monkeypatch.setattr(video_io, "read_video_cv2", lambda *a, **kw: (
+        decodes.append(a[0]) or read(*a, **kw)))
+    tchat = TA.Chat(**CHAT, device="cpu")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), TA.make_handler(tchat))
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    replies = []
+    try:
+        with open(clip, "rb") as f:
+            video = f.read()
+        for _ in range(2):
+            body, ctype = _multipart({"video": (video, "clip.mp4"),
+                                      "question": ("what color?", None)})
+            req = urllib.request.Request(base + "/generate", data=body,
+                                         headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                replies.append(json.loads(r.read()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    assert len(decodes) == 1 and len(tchat._cache) == 1
+    assert replies[0] == replies[1]
+    monkeypatch.setattr(TA, "CACHE_CLIPS", 1)
+    tchat._prep_video(write_clip(clip + ".other.mp4", seed=1))
+    assert len(decodes) == 2 and len(tchat._cache) == 1
 
 
 def test_chat_wants_cuda_without_a_device(monkeypatch):

@@ -195,8 +195,8 @@ def test_load_model_honours_flags_and_refuses_what_is_not_ported(tmp_path):
         assert all(torch.equal(v, want[k])
                    for k, v in restored.state_dict().items())
     # a mesh it does not serve raises before it wants its ranks
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TI.run_inference(SimpleNamespace(**dict(base, mesh="sp=2",
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        TI.run_inference(SimpleNamespace(**dict(base, mesh="fsdp=2,sp=2",
                                                 device="cpu", batch_size=2)))
 
 

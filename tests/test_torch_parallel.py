@@ -115,9 +115,16 @@ def test_process_chunk_matches_jax(n_items, count):
 
 
 def test_unported_axes_raise_naming_their_items():
-    for axis, item in (("tp", "item 4"), ("pp", "item 5"), ("sp", "item 6")):
+    """Training refuses ``tp`` (item 4), ``pp`` (item 5) and ``sp`` beside
+    ``fsdp`` (item 4); ``sp`` alone passes the refusals and lays out its
+    ranks innermost."""
+    for axes, item in ((dict(tp=2), "item 4"), (dict(pp=2), "item 5"),
+                       (dict(fsdp=2, sp=2), "item 4")):
         with pytest.raises(NotImplementedError, match=item):
-            TM.create_mesh(TM.MeshConfig(**{axis: 2}))
+            TM.create_mesh(TM.MeshConfig(**axes))
+    TM.check_ported(TM.MeshConfig(dp=2, sp=2))
+    assert TM.mesh_layout(TM.MeshConfig(dp=2, sp=2), 4).tolist() == [
+        [[[0, 1]]], [[[2, 3]]]]
     assert TM.create_mesh(TM.MeshConfig()) is None  # one process, no group
     with pytest.raises(ValueError, match="device count"):
         TM.create_mesh(TM.MeshConfig(dp=2))

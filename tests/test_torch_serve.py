@@ -415,7 +415,7 @@ def test_bf16_raft_matches_the_jax_load_model(tmp_path):
 # ported. The cases are the meshes that still raise; the match strings
 # carry today's items.
 @pytest.mark.parametrize("kw, match", [
-    pytest.param(dict(mesh="sp=2"), "queue 1 item 6",
+    pytest.param(dict(mesh="fsdp=2,sp=2"), "queue 1 item 4",
                  id="kw0-queue 1 item 5"),
     pytest.param(dict(mesh="fsdp=2,tp=2", backbone="instructblip"),
                  "queue 1 item 4", id="kw1-queue 1 item 5"),
@@ -425,7 +425,7 @@ def test_bf16_raft_matches_the_jax_load_model(tmp_path):
 ])
 def test_what_the_port_lacks_raises(kw, match, tmp_path, monkeypatch):
     """A mesh the port does not serve raises before it wants its ranks:
-    ``sp``, ``fsdp`` with ``tp``, and the W8A8 ViT-g under ``tp``; a
+    ``fsdp`` with ``sp`` or ``tp``, and the W8A8 ViT-g under ``tp``; a
     checkpoint directory of ``videotgb_torch.train`` (which raised until
     its restore was ported) is served with its parameters, the model of
     ``preset``."""

@@ -128,14 +128,17 @@ def test_tp_slices_are_the_jax_shards(backbone):
 
 
 def test_tp_layouts_that_still_raise_name_their_items():
-    """Serving takes ``tp``; ``sp``, ``pp`` and ``fsdp`` with ``tp`` raise
-    there, ``tp`` raises in training (``Trainer`` too), and a tower whose
-    heads do not divide raises a ``ValueError`` naming it (the Q-Former's
-    12 heads at tp=8, whose 768 q rows would divide)."""
-    for axes, item in ((dict(sp=2), "item 6"), (dict(pp=2), "item 5"),
+    """Serving takes ``tp`` (and ``tp`` with ``sp``); ``sp`` with
+    ``fsdp``, ``pp`` and ``fsdp`` with ``tp`` raise there, ``tp`` raises in
+    training (``Trainer`` too), and a tower whose heads do not divide
+    raises a ``ValueError`` naming it (the Q-Former's 12 heads at tp=8,
+    whose 768 q rows would divide)."""
+    for axes, item in ((dict(fsdp=2, sp=2), "item 4"),
+                       (dict(pp=2), "item 5"),
                        (dict(fsdp=2, tp=2), "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             TM.create_mesh(TM.MeshConfig(**axes), serving=True)
+    TM.check_ported(TM.MeshConfig(dp=1, tp=2, sp=2), serving=True)
     with pytest.raises(ValueError, match="device count"):
         TM.create_mesh(TM.MeshConfig(dp=1, tp=2), serving=True)
     with pytest.raises(NotImplementedError, match="item 4"):

@@ -20,11 +20,14 @@ from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import copy
 import dataclasses
+import hashlib
 import json
 import os
 import tempfile
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from types import SimpleNamespace
 
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 TEXT_LEN = 64
+CACHE_CLIPS = 8  # decoded clips a Chat keeps, the least recent dropped
 
 
 class Chat:
@@ -64,13 +68,22 @@ class Chat:
         self.nframe = nframe
         self.flow_frames = flow_frames
         self.max_new_tokens = max_new_tokens
-        # keyed by path, as in the JAX demo; the HTTP handler's temporary
-        # path never hits it again (ROADMAP.md)
-        self._cache: dict[str, tuple] = {}
+        # keyed by the clip's bytes, not its path (the JAX demo's key): the
+        # HTTP handler writes every upload to a new temporary file
+        self._cache: collections.OrderedDict[str, tuple] = (
+            collections.OrderedDict())
+        self._cache_lock = threading.Lock()
 
     def _prep_video(self, video_path: str):
-        if video_path in self._cache:
-            return self._cache[video_path]
+        """(raw frames, CLIP frames, flow RGB frames) of a clip, decoded
+        once for each content (a SHA-256 of its bytes) among the last
+        ``CACHE_CLIPS`` clips."""
+        with open(video_path, "rb") as f:
+            key = hashlib.file_digest(f, "sha256").hexdigest()
+        with self._cache_lock:
+            if key in self._cache:
+                self._cache.move_to_end(key)
+                return self._cache[key]
         from videotgb_torch.data.transforms import clip_transform, resize_video
         from videotgb_torch.data.video_io import read_video_cv2, sample_frames
 
@@ -81,8 +94,11 @@ class Chat:
         frames = clip_transform(resize_video(raw, (image, image)), image)
         flow_ids = sample_frames(self.flow_frames + 1, self.cfg.num_frames)
         flow_rgb = resize_video(raw[flow_ids], (fs, fs)).astype(np.float32)
-        self._cache[video_path] = (raw, frames, flow_rgb)
-        return self._cache[video_path]
+        with self._cache_lock:
+            self._cache[key] = (raw, frames, flow_rgb)
+            while len(self._cache) > CACHE_CLIPS:
+                self._cache.popitem(last=False)
+        return raw, frames, flow_rgb
 
     def _model_for_nframe(self, nframe: int | None):
         """nframe only widens the selection gather, so the SAME parameters

@@ -29,12 +29,14 @@ the 32 candidates.
 ``python -m videotgb_torch.train`` (with --preset naming its config and
 --lora 1 for an IVT checkpoint).
 
---mesh ("tp=2", "dp=2,tp=2") runs one process per device, under
-``torchrun`` (or ``parallel.distributed.spawn``): every rank loads the
-model and slices it for its ``tp`` rank (``parallel.tensor.shard_tp``),
-takes its dp x fsdp rows of each global batch (the JAX CLI's
-``shard_batch``) and runs them; rank 0 gathers the predictions and writes
-the JSONL. A sliced model runs eagerly (``utils/graphs.py``).
+--mesh ("tp=2", "dp=2,tp=2", "sp=2", "tp=2,sp=2", "dp=2,sp=2") runs one
+process per device, under ``torchrun`` (or ``parallel.distributed.
+spawn``): every rank loads the model, slices it for its ``tp`` rank
+(``parallel.tensor.shard_tp``) and splits its towers' token streams over
+``sp`` (``parallel.sequence.shard_sp``), takes its dp x fsdp rows of each
+global batch (the JAX CLI's ``shard_batch``) and runs them; rank 0
+gathers the predictions and writes the JSONL. A sliced or split model runs
+eagerly (``utils/graphs.py``).
 
     torchrun --nproc_per_node 2 -m videotgb_torch.evalsuite.inference \
         --mesh tp=2 --model_path random:flagship ...
@@ -81,8 +83,9 @@ def parse_args(argv=None):
                    choices=["blip2", "instructblip_t5", "instructblip"])
     p.add_argument("--mesh", default="",
                    help="mesh-sharded inference over the ranks of torchrun "
-                        "(e.g. tp=2, dp=2,tp=2): heads, MLP hidden units "
-                        "and vocabularies split over tp, batch rows over dp")
+                        "(e.g. tp=2, dp=2,tp=2, tp=2,sp=2): heads, MLP "
+                        "hidden units and vocabularies split over tp, "
+                        "tokens over sp, batch rows over dp")
     p.add_argument("--flow_size", type=int, default=None,
                    help="override cfg.tgb.flow_size")
     p.add_argument("--cache_dir", default="", required=False)
@@ -203,7 +206,8 @@ def load_model(args, device=None, mesh=None):
     ``nframe``, ``flow_size``, ``lora`` and ``bf16_params``
     (:func:`model_config`). Returns (model, cfg); with a ``mesh``
     (``parallel.mesh.create_mesh``) the model is this rank's
-    tensor-parallel slice (``parallel.tensor.shard_tp``).
+    tensor-parallel slice (``parallel.tensor.shard_tp``) with its towers
+    on its ``sp`` place (``parallel.sequence.shard_sp``).
 
     ``model_path`` is ``random:<preset>`` (random weights from seed 0) or a
     checkpoint of ``training.checkpoint.CheckpointManager`` (its root, its
@@ -222,6 +226,7 @@ def load_model(args, device=None, mesh=None):
     f32 too; JAX run op by op, as its demo runs ``flow_features``, rounds
     that one to bf16)."""
     from videotgb_torch.models.videotgb import VideoTGB
+    from videotgb_torch.parallel.sequence import shard_sp
     from videotgb_torch.parallel.tensor import shard_tp
 
     _warn_ignored_flags(args)
@@ -237,13 +242,14 @@ def load_model(args, device=None, mesh=None):
                 p.copy_(p.to(torch.bfloat16))
     if mesh is not None:
         shard_tp(model, mesh)
+        shard_sp(model, mesh)
     return model, cfg
 
 
 def serving_mesh(spec: str, cfg):
     """The mesh of a serving entry point's ``--mesh`` spec over the ranks
     of the process group, what it refuses checked before it wants them:
-    ``pp``, ``sp``, ``fsdp`` with ``tp`` (``parallel.mesh.check_ported``)
+    ``pp``, ``fsdp`` with ``tp`` or ``sp`` (``parallel.mesh.check_ported``)
     and the W8A8 ViT-g of ``cfg`` under ``tp``."""
     from videotgb_torch.parallel.mesh import (check_ported, create_mesh,
                                               parse_mesh_spec)
@@ -389,8 +395,8 @@ def run_inference(args) -> str:
     from videotgb_torch.parallel.distributed import (gather_objects,
                                                      initialize,
                                                      process_index)
-    from videotgb_torch.parallel.mesh import mesh_rank, tp_rank
-    from videotgb_torch.parallel.sharding import batch_split
+    from videotgb_torch.parallel.mesh import mesh_rank
+    from videotgb_torch.parallel.sharding import batch_split, copies
 
     mesh = None
     if args.mesh:
@@ -455,10 +461,9 @@ def run_inference(args) -> str:
                                     args.flow_frames, image, fs), padded))
 
     # under a mesh this rank runs its dp x fsdp rows of each global batch
-    # (the tp ranks of one position the same rows) and rank 0 writes
+    # (the tp and sp ranks of one position the same rows) and rank 0 writes
     rank, split = mesh_rank(mesh)
     rows = bsz // split
-    tp = tp_rank(mesh)[1]
     writes = mesh is None or process_index() == 0
     written = 0
     # batch N+1 decodes on host threads while batch N runs on the device
@@ -494,7 +499,7 @@ def run_inference(args) -> str:
                 stop_sequences=stop_sequences)
             tokens = tokens.cpu().numpy()
             if mesh is not None:  # one copy of each position's rows
-                tokens = np.concatenate(gather_objects(tokens)[::tp])
+                tokens = np.concatenate(gather_objects(tokens)[::copies()])
             if not writes:
                 continue
             preds = tok.batch_decode(tokens, skip_special_tokens=True)

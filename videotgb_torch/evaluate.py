@@ -16,9 +16,10 @@ directory. Runs on the CUDA card unless ``trainer.platform=cpu``::
         ckpt_path=outputs/checkpoints        # a stage-3 (IV) checkpoint
 
 It takes the training CLI's layouts (``videotgb_torch.train``): under
-``torchrun`` each rank joins, a ``dp`` / ``fsdp`` layout of more ranks is
-spawned, each rank scores its rows of every validation batch, and rank 0's
-metrics (the world-1 metrics) return.
+``torchrun`` each rank joins, a ``dp`` / ``fsdp`` / ``sp`` layout of more
+ranks is spawned, each rank scores its rows of every validation batch (the
+``sp`` ranks of a position split its token streams), and rank 0's metrics
+(the world-1 metrics) return.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ def evaluate(cfg: Config) -> dict[str, float]:
 def _evaluate(cfg: Config) -> dict[str, float]:
     from videotgb_torch.parallel.distributed import initialize
     from videotgb_torch.parallel.mesh import create_mesh, mesh_rank
+    from videotgb_torch.parallel.sequence import shard_sp
     from videotgb_torch.parallel.sharding import shard_params
     from videotgb_torch.train import (build_data, build_model, build_recipe,
                                       evaluate_recipe, outside_the_step,
@@ -63,6 +65,7 @@ def _evaluate(cfg: Config) -> dict[str, float]:
     log.info("restored params from %s @ step %d", root, step)
     if mesh is not None and mesh["fsdp"].size() > 1:
         shard_params(model, mesh)
+    shard_sp(model, mesh)
 
     with outside_the_step(mesh, model):
         metrics = evaluate_recipe(cfg, model, recipe, val_loader, tok)

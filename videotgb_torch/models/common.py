@@ -224,7 +224,12 @@ class MultiHeadAttention(nn.Module):
     delta (``models.lora.LoRADelta``, modules ``q_lora`` / ``v_lora``) to
     the outputs of the projections named in ``lora_targets``. Under tensor
     parallelism (``parallel.tensor.shard_tp``) ``num_heads`` is this
-    rank's heads: q/k/v hold their rows and ``o`` their columns."""
+    rank's heads: q/k/v hold their rows and ``o`` their columns. Under
+    sequence parallelism (``sp``, a ``parallel.sequence.SPGroup`` the
+    caller hands :meth:`forward` when the query stream is token-split) the
+    queries are the rank's tokens: a self-attention takes its keys and
+    values from the stream gathered whole, and the flash dispatch reads the
+    global query count."""
 
     def __init__(self, features, num_heads, head_dim, kv_features=None,
                  out_features=None, use_bias=True, scale=None,
@@ -265,7 +270,7 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x_q, x_kv=None, bias=None, rope_q=None, rope_k=None,
                 cache=None, cache_index=None, cross_cached=False,
-                return_kv=False):
+                return_kv=False, sp=None):
         """Returns (out (B, Sq, out_features), cache or None).
 
         * self-attention decode (``cache`` given): the new K/V are written
@@ -275,8 +280,14 @@ class MultiHeadAttention(nn.Module):
           encoder K/V; ``x_kv`` is ignored;
         * cross-attention prefill (``return_kv``, no cache): the projected
           K/V are returned as a cache for later reads.
+
+        ``sp``: ``x_q`` is this rank's tokens of a stream split over it
+        (the bias holds their rows, ``rope_q`` rotates them at their global
+        positions); a self-attention (no ``x_kv``) gathers the stream for
+        its keys and values.
         """
-        x_kv = x_q if x_kv is None else x_kv
+        if x_kv is None:
+            x_kv = x_q if sp is None else sp.gather(x_q)
         q = self._heads(self._proj("q", x_q))
         if cache is not None and cross_cached:
             k, v = cache["k"], cache["v"]
@@ -297,7 +308,10 @@ class MultiHeadAttention(nn.Module):
             q = rope_q(q)
 
         scale = self.scale if self.scale is not None else self.head_dim ** -0.5
-        small = q.shape[2] * k.shape[2] <= 128 * 128
+        # the JAX rule on the global shapes: a split stream's queries count
+        # on every rank
+        s_q = q.shape[2] * (1 if sp is None else sp.size)
+        small = s_q * k.shape[2] <= 128 * 128
         if self.use_flash and not small:
             ctx = flash_attention(q, k, v, bias=bias, scale=scale)
         else:

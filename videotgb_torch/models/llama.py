@@ -16,6 +16,13 @@ Attention is ``models.common.MultiHeadAttention`` with its dispatch rule:
 a prefill with Sq * Skv > 128^2 takes the flash kernel (kernel A on the
 card), a single-token decode step the plain version.
 
+Under sequence parallelism (``sp``, set by ``parallel.sequence.shard_sp``)
+the forward without caches splits its stream over the ``sp`` ranks before
+the first block and gathers it after the final norm (the JAX sites
+``llama.py:204-208``): a rank's queries rotate at their global positions,
+under their rows of the causal bias. The cached forward (the prefill and
+the decode steps) runs whole, as the JAX non-scan cached loop has no site.
+
 ``lora_rank`` > 0 puts LoRA deltas on every attention's q and v
 projections. The JAX config's ``scan_layers`` / ``remat`` (stacked layers,
 the pipeline forward) have no counterpart yet and raise.
@@ -37,8 +44,9 @@ from videotgb_torch.models.common import (
     cache_start,
     init_kv_cache,
 )
-from videotgb_torch.ops.attention import NEG_INF, make_causal_bias, make_padding_bias
+from videotgb_torch.ops.attention import make_causal_bias, make_padding_bias
 from videotgb_torch.ops.rope import apply_llama_rope, llama_rope_tables
+from videotgb_torch.parallel.sequence import stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,15 +97,24 @@ class LlamaBlock(nn.Module):
         self.up_proj = Dense(d, inner, use_bias=False, **kw)
         self.down_proj = Dense(inner, d, use_bias=False, **kw)
 
-    def forward(self, x, rope_tables, bias, cache=None, cache_index=None):
+    def forward(self, x, rope_tables, bias, cache=None, cache_index=None,
+                sp=None):
         """``rope_tables``: the (cos, sin) of ``llama_rope_tables`` at this
-        forward's positions."""
+        forward's positions. ``sp``: ``x`` is this rank's tokens of a split
+        stream; the tables' rows of its positions rotate the queries."""
+        q_tables = rope_tables
+        if sp is not None:
+            s = rope_tables[0].shape[2]
+            q_tables = tuple(t.narrow(2, sp.offset(s), s // sp.size)
+                             for t in rope_tables)
+
         def rope(t):
             return apply_llama_rope(t, *rope_tables)
 
-        attn, new_cache = self.attn(self.input_ln(x), bias=bias, rope_q=rope,
-                                    rope_k=rope, cache=cache,
-                                    cache_index=cache_index)
+        attn, new_cache = self.attn(
+            self.input_ln(x), bias=bias,
+            rope_q=lambda t: apply_llama_rope(t, *q_tables), rope_k=rope,
+            cache=cache, cache_index=cache_index, sp=sp)
         x = x + attn
         h = self.post_ln(x)
         x = x + self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
@@ -119,6 +136,7 @@ class LlamaModel(nn.Module):
         self.final_ln = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, use_bias=False,
                              **kw)
+        self.sp = None  # parallel.sequence.SPGroup under shard_sp
 
     def embed(self, input_ids):
         return self.embed_tokens(input_ids)
@@ -142,27 +160,35 @@ class LlamaModel(nn.Module):
                 b, s)
         rope = llama_rope_tables(positions, self.config.head_dim,
                                  self.config.rope_base)
+        sp = stream(self.sp, x) if caches is None else None
         if caches is None:
-            bias = make_causal_bias(s, s, device=dev)
-            if attention_mask is not None:
-                bias = bias + make_padding_bias(attention_mask)
+            k_pos = q_pos = torch.arange(s, device=dev)
+            if sp is not None:
+                x = sp.split(x)
+                q_pos = sp.positions(s, dev)
+            mask = attention_mask
+        else:
+            k_pos = torch.arange(caches[0]["k"].shape[-2], device=dev)
+            q_pos = start + torch.arange(s, device=dev)
+            mask = cache_positions_valid
+        bias = make_causal_bias(len(q_pos), len(k_pos), device=dev,
+                                q_positions=q_pos)
+        if mask is not None:
+            bias = bias + make_padding_bias(mask)
+        if caches is None:
             for layer in self.layers:
-                x, _ = layer(x, rope, bias)
+                x, _ = layer(x, rope, bias, sp=sp)
             new_caches = None
         else:
-            s_max = caches[0]["k"].shape[-2]
-            q_pos = start + torch.arange(s, device=dev)
-            k_pos = torch.arange(s_max, device=dev)
-            bias = torch.where(k_pos[None, :] <= q_pos[:, None], 0.0,
-                               NEG_INF)[None, None]
-            if cache_positions_valid is not None:
-                bias = bias + make_padding_bias(cache_positions_valid)
             new_caches = []
             for layer, cache in zip(self.layers, caches):
                 x, cache = layer(x, rope, bias, cache=cache,
                                  cache_index=start)
                 new_caches.append(cache)
-        return self.lm_head(self.final_ln(x)).float(), new_caches
+        x = self.final_ln(x)
+        if sp is not None:
+            x = sp.gather(x)
+        return self.lm_head(x).float(), new_caches
 
     def init_caches(self, batch: int, max_len: int):
         """Caches of this rank's heads (all of them outside tensor

@@ -10,6 +10,15 @@ dicts; the self K/V are written in place at ``cache_index`` (a host int, or
 a 0-dim device tensor from which the positions, the relative-position bias
 and the causal mask are computed on the device), the cross K/V are
 computed once by the first cached call (``cross_prefill=True``).
+
+Under sequence parallelism (``sp``, set by ``parallel.sequence.shard_sp``)
+the encoder's input stream (the JAX sites ``t5.py:327,343``; BLIP2's
+``encoder_inputs`` site, ``blip2.py:120``, is the same tensor) and the
+no-cache decoder's (``:375,404``) are split over the ``sp`` ranks and
+gathered after their final norms: the encoder's output is whole before any
+cross-attention reads it. The relative-position bias is made for the
+rank's query positions against every key (``RelativePositionBias``), the
+decoder's causal mask at global positions. Cached decode steps stay whole.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ from videotgb_torch.models.common import (
     cache_start,
     init_kv_cache,
 )
-from videotgb_torch.ops.attention import NEG_INF, make_causal_bias, make_padding_bias
+from videotgb_torch.ops.attention import make_causal_bias, make_padding_bias
+from videotgb_torch.parallel.sequence import stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,12 +140,14 @@ class T5Block(nn.Module):
         self.wo = Dense(cfg.d_ff, d, use_bias=False, **kw)
 
     def forward(self, x, self_bias, encoder_hidden=None, cross_bias=None,
-                cache=None, cache_index=None, cross_prefill=False):
+                cache=None, cache_index=None, cross_prefill=False, sp=None):
+        """``sp``: ``x`` is this rank's tokens of a split stream (no cache)
+        and ``self_bias`` holds their rows."""
         new_cache = {}
         attn, self_kv = self.self_attn(
             self.self_ln(x), bias=self_bias,
             cache=None if cache is None else cache["self"],
-            cache_index=cache_index)
+            cache_index=cache_index, sp=sp)
         if self_kv is not None:
             new_cache["self"] = self_kv
         x = x + attn
@@ -145,7 +157,7 @@ class T5Block(nn.Module):
                 self.cross_ln(x), x_kv=encoder_hidden, bias=cross_bias,
                 cache=cache["cross"] if cached else None,
                 cross_cached=cached,
-                return_kv=cache is not None and cross_prefill)
+                return_kv=cache is not None and cross_prefill, sp=sp)
             if cache is not None:
                 new_cache["cross"] = cross_kv if cross_prefill else cache["cross"]
             x = x + attn
@@ -172,6 +184,7 @@ class T5Model(nn.Module):
         self.encoder_final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_eps, **kw)
         self.decoder_final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_eps, **kw)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, use_bias=False, **kw)
+        self.sp = None  # parallel.sequence.SPGroup under shard_sp
 
     def embed(self, input_ids):
         return self.shared(input_ids)
@@ -180,14 +193,20 @@ class T5Model(nn.Module):
         """inputs_embeds (B, S, d_model) -> encoder hidden (B, S, d_model)."""
         s = inputs_embeds.shape[1]
         pos = torch.arange(s, device=inputs_embeds.device)
+        x = inputs_embeds.to(self.config.dtype)
+        sp = stream(self.sp, x)
+        q_pos = pos
+        if sp is not None:
+            x = sp.split(x)
+            q_pos = sp.positions(s, pos.device)
         # contiguous, so that the flash kernels read a row of keys per query
         # (as a permuted view its key stride is the head count)
-        bias = (self.enc_rel_bias(pos, pos).contiguous()
+        bias = (self.enc_rel_bias(q_pos, pos).contiguous()
                 + make_padding_bias(attention_mask))
-        x = inputs_embeds.to(self.config.dtype)
         for block in self.encoder_blocks:
-            x, _ = block(x, bias)
-        return self.encoder_final_ln(x)
+            x, _ = block(x, bias, sp=sp)
+        x = self.encoder_final_ln(x)
+        return x if sp is None else sp.gather(x)
 
     def decode(self, decoder_input_ids, encoder_hidden, encoder_mask,
                caches=None, cache_index=None, cache_positions_valid=None,
@@ -201,29 +220,36 @@ class T5Model(nn.Module):
         dev = decoder_input_ids.device
         x = self.shared(decoder_input_ids).to(cfg.dtype)
         cross_bias = make_padding_bias(encoder_mask)
+        sp = stream(self.sp, x) if caches is None else None
         if caches is None:
-            pos = torch.arange(s, device=dev)
-            self_bias = (self.dec_rel_bias(pos, pos)
-                         + make_causal_bias(s, s, device=dev))
+            k_pos = q_pos = torch.arange(s, device=dev)
+            if sp is not None:
+                x = sp.split(x)
+                q_pos = sp.positions(s, dev)
+            valid = None
+        else:
+            k_pos = torch.arange(caches[0]["self"]["k"].shape[-2], device=dev)
+            q_pos = cache_start(cache_index) + torch.arange(s, device=dev)
+            valid = cache_positions_valid
+        self_bias = self.dec_rel_bias(q_pos, k_pos) + make_causal_bias(
+            len(q_pos), len(k_pos), device=dev, q_positions=q_pos)
+        if valid is not None:
+            self_bias = self_bias + make_padding_bias(valid)
+        if caches is None:
             for block in self.decoder_blocks:
-                x, _ = block(x, self_bias, encoder_hidden, cross_bias)
+                x, _ = block(x, self_bias, encoder_hidden, cross_bias, sp=sp)
             new_caches = None
         else:
-            s_max = caches[0]["self"]["k"].shape[-2]
-            q_pos = cache_start(cache_index) + torch.arange(s, device=dev)
-            k_pos = torch.arange(s_max, device=dev)
-            causal = torch.where(k_pos[None, :] <= q_pos[:, None], 0.0,
-                                 NEG_INF).float()[None, None]
-            self_bias = self.dec_rel_bias(q_pos, k_pos) + causal
-            if cache_positions_valid is not None:
-                self_bias = self_bias + make_padding_bias(cache_positions_valid)
             new_caches = []
             for block, cache in zip(self.decoder_blocks, caches):
                 x, new_cache = block(x, self_bias, encoder_hidden, cross_bias,
                                      cache=cache, cache_index=cache_index,
                                      cross_prefill=cross_prefill)
                 new_caches.append(new_cache)
-        return self.lm_head(self.decoder_final_ln(x)).float(), new_caches
+        x = self.decoder_final_ln(x)
+        if sp is not None:
+            x = sp.gather(x)
+        return self.lm_head(x).float(), new_caches
 
     def init_caches(self, batch, max_len, encoder_len):
         """Caches of this rank's heads (all of them outside tensor

@@ -8,6 +8,15 @@ self-attention; layers >= ``fusion_layer`` cross-attend into the question
 embeddings; the MRC head gives per-frame start/end logits. ``mode`` picks
 the layer range: text/vision = [0, fusion), fusion = [fusion, N),
 multi_modal = [0, N). Flow enters NHWC, (B, L, H, W, 2).
+
+Under sequence parallelism (``sp``, set by ``parallel.sequence.shard_sp``)
+the flow stream (B, L+2, hidden) is split over the ``sp`` ranks after the
+embedding (the JAX site ``tgb.py:198``; its dropout drawn whole before) and
+gathered after the last layer, so the MRC head and the output read it
+whole (the sites after each layer, ``:235``, keep it split between them).
+A rank's queries rotate at their global frame positions, the keys at all
+of them. The question text (``:210``) stays whole: cross-attention reads
+it only as keys and values.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from videotgb_torch.models.common import (
 )
 from videotgb_torch.ops.attention import make_padding_bias
 from videotgb_torch.ops.rope import roformer_rope, roformer_sincos_table
+from videotgb_torch.parallel.sequence import stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,17 +128,25 @@ class TGBLayer(nn.Module):
         self.mlp = Mlp(d, cfg.intermediate_size, **kw)
         self.ffn_ln = LayerNorm(d, cfg.layer_norm_eps, **kw)
 
-    def forward(self, x, self_bias, text, text_bias, sincos_self, sincos_cross):
-        def rope_self(t):
-            return roformer_rope(t, sincos_self)
+    def forward(self, x, self_bias, text, text_bias, sincos_self, sincos_cross,
+                sp=None):
+        """``sp``: ``x`` is this rank's tokens of the split stream; the
+        table rows of its positions rotate the queries, the whole table the
+        keys."""
+        sincos_q = (sincos_self if sp is None
+                    else sp.split(sincos_self[None])[0])
 
-        attn, _ = self.self_attn(x, bias=self_bias, rope_q=rope_self,
-                                 rope_k=rope_self)
+        def rope_q(t):
+            return roformer_rope(t, sincos_q)
+
+        attn, _ = self.self_attn(
+            x, bias=self_bias, rope_q=rope_q,
+            rope_k=lambda t: roformer_rope(t, sincos_self), sp=sp)
         x = self.self_ln(x + attn)
         if self.cross_attn is not None:
             cross, _ = self.cross_attn(
-                x, x_kv=text, bias=text_bias, rope_q=rope_self,
-                rope_k=lambda t: roformer_rope(t, sincos_cross))
+                x, x_kv=text, bias=text_bias, rope_q=rope_q,
+                rope_k=lambda t: roformer_rope(t, sincos_cross), sp=sp)
             x = self.cross_ln(x + cross)
         return self.ffn_ln(x + self.mlp(x))
 
@@ -153,6 +171,7 @@ class TGBModel(nn.Module):
             TGBLayer(cfg, i >= cfg.fusion_layer, device)
             for i in range(cfg.num_layers))
         self.mrc_head = Dense(cfg.hidden_size, 2, **kw)
+        self.sp = None  # parallel.sequence.SPGroup under shard_sp
 
     def forward(self, flow, flow_mask, question_ids, question_mask=None,
                 mode="fusion", deterministic=True, generator=None):
@@ -179,8 +198,13 @@ class TGBModel(nn.Module):
             layer_range = range(0, cfg.num_layers)
         else:
             raise ValueError(f"invalid mode: {mode}")
+        sp = stream(self.sp, x)
+        if sp is not None:
+            x = sp.split(x)
         for i in layer_range:
             x = self.layers[i](x, self_bias, text, text_bias, sincos_self,
-                               sincos_cross)
+                               sincos_cross, sp)
+        if sp is not None:
+            x = sp.gather(x)
         logits = self.mrc_head(x[:, 1:-1])
         return x, logits.float()

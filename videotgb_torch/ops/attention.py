@@ -279,14 +279,18 @@ def make_padding_bias(mask, dtype=torch.float32):
     return ((1.0 - mask.to(dtype)) * NEG_INF)[:, None, None, :]
 
 
-def make_causal_bias(s_q, s_kv=None, dtype=torch.float32, device=None):
-    """(1, 1, S_q, S_kv) causal additive bias; allows k_pos <= q_pos + offset
-    where offset aligns the ends (for KV-cache decode suffixes)."""
+def make_causal_bias(s_q, s_kv=None, dtype=torch.float32, device=None,
+                     q_positions=None):
+    """(1, 1, S_q, S_kv) causal additive bias: key k is open to a query at
+    position p where k <= p. The queries' positions are ``q_positions``
+    (S_q,) when given (a rank's tokens of a split stream, a cached call's
+    tokens), else arange(S_q) + S_kv - S_q: the ends aligned (for KV-cache
+    decode suffixes)."""
     s_kv = s_kv if s_kv is not None else s_q
-    offset = s_kv - s_q
-    q_pos = torch.arange(s_q, device=device)[:, None]
+    if q_positions is None:
+        q_positions = torch.arange(s_q, device=device) + (s_kv - s_q)
     k_pos = torch.arange(s_kv, device=device)[None, :]
-    allowed = k_pos <= q_pos + offset
+    allowed = k_pos <= q_positions[:, None]
     bias = torch.where(allowed, torch.zeros((), dtype=dtype, device=device),
                        torch.full((), NEG_INF, dtype=dtype, device=device))
     return bias[None, None]

@@ -1,7 +1,8 @@
 """Parallel layouts over ``torch.distributed`` (counterpart of
 ``videotgb_tpu/parallel``): data-parallel and fully sharded training (the
-``dp`` and ``fsdp`` axes) and tensor-parallel serving (``tp``); ``pp`` and
-``sp`` raise, ROADMAP.md queue 1 items 5 and 6."""
+``dp`` and ``fsdp`` axes), tensor-parallel serving (``tp``) and sequence
+parallelism in training and serving (``sp``); ``pp`` raises, ROADMAP.md
+queue 1 item 5."""
 
 from videotgb_torch.parallel.mesh import MeshConfig, create_mesh, local_mesh
 from videotgb_torch.parallel.sharding import (
@@ -10,6 +11,7 @@ from videotgb_torch.parallel.sharding import (
     shard_batch,
     shard_params,
 )
+from videotgb_torch.parallel.sequence import shard_sp
 from videotgb_torch.parallel.tensor import shard_tp, tp_shard_state_dict
 
 __all__ = [
@@ -20,6 +22,7 @@ __all__ = [
     "replicate",
     "shard_batch",
     "shard_params",
+    "shard_sp",
     "shard_tp",
     "tp_shard_state_dict",
 ]

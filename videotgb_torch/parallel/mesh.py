@@ -12,14 +12,16 @@ The JAX package names five mesh axes and lets GSPMD place the collectives:
 
 Here each rank is one process on one device (``torch.distributed``), and
 the mesh is a ``DeviceMesh`` over the world with dims ``("dp", "fsdp",
-"tp")``, ``tp`` innermost as in the JAX mesh: the batch splits over dp x
-fsdp (the ``tp`` ranks of one dp x fsdp position hold the same rows),
-parameters shard over ``fsdp`` and replicate over ``dp`` (FSDP2 / HSDP,
-``parallel.sharding.shard_params``), and serving slices heads, MLP hidden
-units and vocabularies over ``tp`` (``parallel.tensor.shard_tp``). ``pp``
-and ``sp`` above 1 raise ``NotImplementedError`` naming the ROADMAP.md item
-that holds them; so do ``tp`` above 1 in training and ``fsdp`` and ``tp``
-both above 1. Axis sizes multiply to the world size; the default layout
+"tp", "sp")`` in the JAX mesh's order (its ``pp`` is 1), ``sp``
+innermost: the batch splits over dp x fsdp (the ``tp`` and ``sp`` ranks of
+one dp x fsdp position hold the same rows), parameters shard over ``fsdp``
+and replicate over ``dp`` (FSDP2 / HSDP, ``parallel.sharding.
+shard_params``), serving slices heads, MLP hidden units and vocabularies
+over ``tp`` (``parallel.tensor.shard_tp``), and the residual streams split
+their tokens over ``sp`` (``parallel.sequence.shard_sp``). ``pp`` above 1
+raises ``NotImplementedError`` naming the ROADMAP.md item that holds it;
+so do ``tp`` above 1 in training and ``fsdp`` above 1 beside ``tp`` or
+``sp``. Axis sizes multiply to the world size; the default layout
 (``dp=-1``) is data-parallel over every rank, as the reference trains DDP x
 4.
 """
@@ -36,16 +38,17 @@ PIPELINE_AXIS = "pp"
 SEQUENCE_AXIS = "sp"
 AXIS_NAMES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, PIPELINE_AXIS, SEQUENCE_AXIS)
 
-MESH_DIMS = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS)
+MESH_DIMS = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, SEQUENCE_AXIS)
 
 # where the layouts this port does not run yet are queued
 UNPORTED = {
     PIPELINE_AXIS: "pipeline parallelism (pp) is ROADMAP.md queue 1 item 5",
-    SEQUENCE_AXIS: "sequence parallelism (sp) is ROADMAP.md queue 1 item 6",
 }
 TP_TRAINING = ("tensor-parallel training (tp) is ROADMAP.md queue 1 item 4; "
                "the port serves tp layouts only")
 FSDP_TP = ("fsdp and tp together (FSDP2 over a tp-sliced model) are "
+           "ROADMAP.md queue 1 item 4")
+FSDP_SP = ("fsdp and sp together (FSDP2 units over token-split streams) are "
            "ROADMAP.md queue 1 item 4")
 
 
@@ -113,35 +116,39 @@ def parse_mesh_spec(spec: str, allow_pp: bool = True) -> MeshConfig:
 
 def check_ported(config: MeshConfig, serving: bool = False) -> None:
     """Raise ``NotImplementedError`` for a layout the port does not run:
-    ``pp`` or ``sp`` above 1 (or -1, which could absorb devices into one
-    of them); ``tp`` above 1 outside serving (``serving=False``: training
-    and evaluation), or beside an ``fsdp`` above 1."""
+    ``pp`` above 1 (or -1, which could absorb devices into it); ``tp``
+    above 1 outside serving (``serving=False``: training and evaluation);
+    ``fsdp`` above 1 beside a ``tp`` or an ``sp`` above 1."""
     for axis, why in UNPORTED.items():
         size = getattr(config, axis)
         if size != 1:
             raise NotImplementedError(
-                f"mesh axis {axis}={size}: the port runs dp, fsdp and "
+                f"mesh axis {axis}={size}: the port runs dp, fsdp, sp and "
                 f"(serving) tp layouts only; {why}")
     if config.tp != 1 and not serving:
         raise NotImplementedError(f"mesh axis tp={config.tp}: {TP_TRAINING}")
     if config.tp != 1 and config.fsdp != 1:
         raise NotImplementedError(
             f"mesh fsdp={config.fsdp}, tp={config.tp}: {FSDP_TP}")
+    if config.sp != 1 and config.fsdp != 1:
+        raise NotImplementedError(
+            f"mesh fsdp={config.fsdp}, sp={config.sp}: {FSDP_SP}")
 
 
 def mesh_layout(config: MeshConfig, world: int):
     """The ranks of a world laid out as the mesh, an int array of shape
-    (dp, fsdp, tp): row-major, ``tp`` innermost, as the JAX package
-    reshapes its device list (``videotgb_tpu/parallel/mesh.py:104-124``)."""
+    (dp, fsdp, tp, sp): row-major, ``sp`` innermost, as the JAX package
+    reshapes its device list to (dp, fsdp, tp, pp, sp)
+    (``videotgb_tpu/parallel/mesh.py:104-124``; ``pp`` is 1 here)."""
     import numpy as np
 
-    dp, fsdp, tp, _, _ = config.resolve(world)
-    return np.arange(world).reshape(dp, fsdp, tp)
+    dp, fsdp, tp, _, sp = config.resolve(world)
+    return np.arange(world).reshape(dp, fsdp, tp, sp)
 
 
 def create_mesh(config: MeshConfig | None = None,
                 device_type: str | None = None, serving: bool = False):
-    """The ``("dp", "fsdp", "tp")`` ``DeviceMesh`` over the process
+    """The ``("dp", "fsdp", "tp", "sp")`` ``DeviceMesh`` over the process
     group's world (:func:`mesh_layout`), its sizes from ``config`` resolved
     against the world size.
 
@@ -183,7 +190,8 @@ def local_mesh(n: int | None = None, **axis_sizes: int):
 def mesh_rank(mesh) -> tuple[int, int]:
     """(this rank's index in the batch split, the split's size): the
     row-major position over ``("dp", "fsdp")``; (0, 1) without a mesh. The
-    ``tp`` ranks of one position share it: they hold the same rows."""
+    ``tp`` and ``sp`` ranks of one position share it: they hold the same
+    rows."""
     if mesh is None:
         return 0, 1
     dp_i, fsdp_i = mesh.get_coordinate()[:2]
@@ -197,3 +205,12 @@ def tp_rank(mesh) -> tuple[int, int]:
     if mesh is None:
         return 0, 1
     return mesh.get_coordinate()[2], mesh.size(2)
+
+
+def sp_rank(mesh) -> tuple[int, int]:
+    """(this rank's index on the ``sp`` axis, the axis's size); (0, 1)
+    without a mesh. The ``sp`` ranks of one dp x fsdp position hold the
+    same rows, and each holds its own slice of their tokens."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_coordinate()[3], mesh.size(3)

@@ -19,7 +19,12 @@ world N equal to the JAX step on the global batch:
   loss and the aux scalars summed over ranks.
 
 All three read the split that :func:`batch_split` sets; outside it (one
-process) they are the identity.
+process) they are the identity. They run over the whole world: the ``tp``
+and ``sp`` ranks of one dp x fsdp position hold the same rows, so
+:func:`global_count` counts each row once per such rank, and each rank's
+loss is its share of its position's (the rule of ``parallel/sequence.py``;
+a ``tp`` layout serves only). A metric gathered or summed over the world
+takes one copy of each position's (:func:`copies`, :func:`first_copy`).
 """
 
 from __future__ import annotations
@@ -115,9 +120,25 @@ def split() -> tuple[int, int]:
     return _split() or (0, 1)
 
 
+def copies() -> int:
+    """How many ranks hold this rank's rows under the active split (its
+    position's ``tp`` x ``sp`` ranks, consecutive in the world); 1 without
+    a split."""
+    if _split() is None:
+        return 1
+    return torch.distributed.get_world_size() // _split()[1]
+
+
+def first_copy() -> bool:
+    """Whether this rank is the first of the ranks that hold its rows
+    (always without a split): the one whose metrics count."""
+    return _split() is None or torch.distributed.get_rank() % copies() == 0
+
+
 def global_count(count: torch.Tensor) -> torch.Tensor:
-    """``count`` summed over the ranks of the active split (a collective:
-    every rank calls it at the same point); ``count`` itself without one."""
+    """``count`` summed over every rank of the world under the active split
+    (a collective: every rank calls it at the same point), so once per
+    ``sp`` rank of a position; ``count`` itself without a split."""
     if _split() is None:
         return count
     total = count.detach().clone()

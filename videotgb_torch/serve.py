@@ -34,18 +34,21 @@ busy. Short batches are padded by repeating the last request (pads are
 dropped before reply). Batch ``step`` draws its selection noise from
 ``device.step_generator(seed, step, device)``.
 
-Mesh-sharded serving (``mesh="tp=2"``, ``"dp=2,tp=2"``; the JAX
-engine's ``mesh``): one engine on every rank of the process group, each
-rank one process on one device. The model is sliced for the rank's ``tp``
-index (``parallel.tensor.shard_tp``) and runs eagerly (``route``). Rank 0
-owns ``submit``, ``submit_video`` and the HTTP server; its select worker
-broadcasts each assembled batch's flow frames and questions to the other
-ranks, whose workers run the same phases on their dp x fsdp rows (the
-``tp`` ranks of one position on the same rows). The ranks' frame indices
-are gathered, rank 0 gathers the selected frames on the host and
-broadcasts them, and rank 0 gathers the answers' tokens. Each worker has
-its own process groups, made in the same order on every rank, so the two
-workers' collectives never interleave on one group. ``close()`` on rank 0
+Mesh-sharded serving (``mesh="tp=2"``, ``"dp=2,tp=2"``, ``"sp=2"``,
+``"tp=2,sp=2"``, ``"dp=2,sp=2"``; the JAX engine's ``mesh``): one engine
+on every rank of the process group, each rank one process on one device.
+The model is sliced for the rank's ``tp`` index
+(``parallel.tensor.shard_tp``), its towers split their token streams over
+``sp`` (``parallel.sequence.shard_sp``), and it runs eagerly (``route``).
+Rank 0 owns ``submit``, ``submit_video`` and the HTTP server; its select
+worker broadcasts each assembled batch's flow frames and questions to the
+other ranks, whose workers run the same phases on their dp x fsdp rows
+(the ``tp`` and ``sp`` ranks of one position on the same rows). The ranks'
+frame indices are gathered, rank 0 gathers the selected frames on the host
+and broadcasts them, and rank 0 gathers the answers' tokens. Each worker
+has its own process groups (the world, its ``tp`` group and its ``sp``
+group), made in the same order on every rank, so the two workers'
+collectives never interleave on one group. ``close()`` on rank 0
 broadcasts the stop; the other ranks wait in ``join()``. A leader with no
 requests tells the followers it is alive every ``MESH_TICK_S``, inside the
 collectives' time limit.
@@ -90,8 +93,9 @@ from videotgb_torch.parallel.distributed import (
     initialize,
     process_index,
 )
-from videotgb_torch.parallel.mesh import mesh_rank, tp_rank
-from videotgb_torch.parallel.sharding import batch_split
+from videotgb_torch.parallel.mesh import mesh_rank
+from videotgb_torch.parallel.sequence import is_split
+from videotgb_torch.parallel.sharding import batch_split, copies
 from videotgb_torch.parallel.tensor import is_sliced
 
 PHASES = ("queue_wait", "assembly", "host_prep", "select", "gather",
@@ -144,11 +148,11 @@ class ServingEngine:
         its own.
         ``backbone``: "blip2", "instructblip_t5" or "instructblip".
         ``device``: None = the CUDA device (raises without one); "cpu" runs
-        the plain path. ``mesh`` ("tp=2", "dp=2,tp=2"): this rank's engine
-        of a mesh-sharded one (see the module's docstring); ``sp``, ``pp``,
-        ``fsdp`` with ``tp`` and the W8A8 ViT-g under ``tp`` raise
-        ``NotImplementedError``, a ``batch_size`` that does not split over
-        dp x fsdp ``ValueError``."""
+        the plain path. ``mesh`` ("tp=2", "dp=2,tp=2", "tp=2,sp=2"): this
+        rank's engine of a mesh-sharded one (see the module's docstring);
+        ``pp``, ``fsdp`` with ``tp`` or ``sp`` and the W8A8 ViT-g under
+        ``tp`` raise ``NotImplementedError``, a ``batch_size`` that does not
+        split over dp x fsdp ``ValueError``."""
         from videotgb_torch.data.tokenizer import load_tokenizer
         from videotgb_torch.evalsuite.inference import (load_model,
                                                         model_config,
@@ -173,9 +177,12 @@ class ServingEngine:
         self.device = dev
         self.leader = self.mesh is None or process_index() == 0
         self.route = "graph"
-        if is_sliced(self.model):
-            self.route = ("eager: the model is sliced over tp, and its "
-                          "collectives run outside CUDA graphs")
+        spread = [what for what, on in (
+            ("sliced over tp", is_sliced(self.model)),
+            ("split over sp", is_split(self.model))) if on]
+        if spread:
+            self.route = (f"eager: the model is {' and '.join(spread)}, "
+                          "and its collectives run outside CUDA graphs")
         self._groups = self._worker_groups()
         self.tok = load_tokenizer(model_base)
         self.sampler_tok = load_tokenizer(sampler_base)
@@ -225,23 +232,28 @@ class ServingEngine:
 
     def _worker_groups(self) -> dict:
         """Under a mesh, each worker's process groups: one over every rank
-        (the batches, indices, frames and tokens) and its ``tp`` group (the
-        model's collectives), made in the same order on every rank."""
+        (the batches, indices, frames and tokens), its ``tp`` group and its
+        ``sp`` group (the model's collectives; None at size 1), made in the
+        same order on every rank."""
         import torch.distributed as dist
 
         if self.mesh is None:
             return {}
-        layout = self.mesh.mesh
-        tp = layout.shape[-1]
+        layout = self.mesh.mesh  # (dp, fsdp, tp, sp)
         groups = {}
         for worker in ("select", "answer"):
             whole = dist.new_group(list(range(layout.numel())))
-            mine = None
-            for ranks in (layout.reshape(-1, tp).tolist() if tp > 1 else []):
-                group = dist.new_group(ranks)
-                if dist.get_rank() in ranks:
-                    mine = group
-            groups[worker] = (whole, mine)
+            axes = []
+            for dim in (2, 3):  # tp, sp: the ranks along the dim
+                size = layout.shape[dim]
+                mine = None
+                lines = layout.movedim(dim, -1).reshape(-1, size).tolist()
+                for ranks in (lines if size > 1 else []):
+                    group = dist.new_group(ranks)
+                    if dist.get_rank() in ranks:
+                        mine = group
+                axes.append(mine)
+            groups[worker] = (whole, *axes)
         return groups
 
     def _rows(self) -> slice:
@@ -257,7 +269,7 @@ class ServingEngine:
         if self.mesh is None:
             return local
         every = gather_objects(local, group=self._groups[worker][0])
-        return np.concatenate(every[::tp_rank(self.mesh)[1]])
+        return np.concatenate(every[::copies()])
 
     def _capture_phases(self):
         """On the card, before the workers start: each phase twice, on its
@@ -378,12 +390,15 @@ class ServingEngine:
     @contextlib.contextmanager
     def _worker_context(self, stream, worker):
         """A worker's thread-local state: inference mode; under a mesh the
-        batch split and the worker's own ``tp`` group; on the card the
-        engine's device and the worker's own stream."""
+        batch split and the worker's own ``tp`` and ``sp`` groups; on the
+        card the engine's device and the worker's own stream."""
         tp = getattr(self.model, "tp", None)
+        sp = getattr(self.model, "sp", None)
         with torch.inference_mode(), batch_split(self.mesh), (
                 contextlib.nullcontext() if tp is None
-                else tp.using(self._groups[worker][1])):
+                else tp.using(self._groups[worker][1])), (
+                contextlib.nullcontext() if sp is None
+                else sp.using(self._groups[worker][2])):
             if stream is None:
                 yield
                 return
@@ -665,7 +680,8 @@ def main(argv=None):
                         "Q-Former, the LLM and TGB)")
     p.add_argument("--mesh", default="",
                    help="mesh-sharded serving over the ranks of torchrun, "
-                        "e.g. tp=2 or dp=2,tp=2 (rank 0 serves HTTP)")
+                        "e.g. tp=2, dp=2,tp=2 or tp=2,sp=2 (rank 0 serves "
+                        "HTTP)")
     p.add_argument("--device", default=None,
                    help="torch device; the CUDA device when not given")
     args = p.parse_args(argv)

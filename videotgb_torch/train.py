@@ -22,12 +22,15 @@ and IVT (pre-selected frames from the image/video/text instruction mix,
 on the BLIP2-Flan-T5, InstructBLIP-Flan-T5 (``backbone: instructblip_t5``)
 and InstructBLIP-Vicuna (``backbone: instructblip``) backbones.
 
-Parallel layouts (the ``trainer`` group's ``dp`` and ``fsdp``; each rank is
-one process on one device, ``parallel/``): ``dp: -1`` (the default, and
-``trainer=ddp``, ``ddp_freeze``, ``ddp_spawn``) absorbs the world, the
+Parallel layouts (the ``trainer`` group's ``dp``, ``fsdp`` and ``sp``; each
+rank is one process on one device, ``parallel/``): ``dp: -1`` (the default,
+and ``trainer=ddp``, ``ddp_freeze``, ``ddp_spawn``) absorbs the world, the
 visible cards or ``trainer.devices`` on the CPU; ``trainer=fsdp`` shards
-the parameters over ``fsdp`` ranks (FSDP2). Under ``torchrun`` every
-process joins the launcher's group (NCCL on the card, gloo on the CPU)::
+the parameters over ``fsdp`` ranks (FSDP2); ``trainer=sp`` splits the
+towers' token streams over ``sp`` ranks that share their rows
+(``parallel/sequence.py``; with a smoke experiment's ``dp: 1``, two ranks,
+and ``trainer.dp=2 trainer.sp=2`` four). Under ``torchrun`` every process
+joins the launcher's group (NCCL on the card, gloo on the CPU)::
 
     torchrun --nproc_per_node 4 -m videotgb_torch.train \
         experiment=smoke_e2e_synthetic trainer=ddp
@@ -36,8 +39,9 @@ Without a launcher a layout that wants more than one rank is spawned by
 ``main`` itself (``trainer=ddp_sim``: 2 gloo processes on the CPU), and
 ``main`` returns rank 0's metrics. ``data.batch_size`` is the global batch;
 each rank loads its rows of it, and a step equals the one-device step on
-the global batch up to reduction order. ``tp``, ``pp`` and ``sp`` above 1
-raise ``NotImplementedError`` naming their ROADMAP.md items.
+the global batch up to reduction order. ``tp`` and ``pp`` above 1, and
+``sp`` beside an ``fsdp`` above 1, raise ``NotImplementedError`` naming
+their ROADMAP.md items.
 ``ckpt_path=<dir>`` resumes the full training state (parameters, optimizer
 moments, step) or warm-starts from parameters only.
 ``trainer.accumulate_grad_batches=A`` makes each optimizer step of A
@@ -119,8 +123,8 @@ def build_recipe(model_cfg: dict):
 
 def run_layout(cfg: Config):
     """The ``MeshConfig`` of the ``trainer`` group's axes (``dp`` defaults
-    to -1, the others to 1); ``tp``, ``pp`` or ``sp`` above 1 raise
-    ``NotImplementedError``."""
+    to -1, the others to 1); ``tp`` or ``pp`` above 1, or ``sp`` beside an
+    ``fsdp`` above 1, raise ``NotImplementedError``."""
     from videotgb_torch.parallel.mesh import MeshConfig, check_ported
 
     tcfg = cfg.get("trainer") or Config()
@@ -134,7 +138,7 @@ def run_layout(cfg: Config):
 def run_world(cfg: Config) -> int:
     """The ranks a run takes: a launcher's ``WORLD_SIZE``; else a ``-1``
     axis absorbs the visible cards (on the card) or ``trainer.devices``
-    (on the CPU), and a fixed layout takes dp x fsdp. Raises where the
+    (on the CPU), and a fixed layout takes dp x fsdp x sp. Raises where the
     layout does not fit that count, or wants more cards than are
     visible."""
     from videotgb_torch.parallel.distributed import env_world
@@ -144,12 +148,12 @@ def run_world(cfg: Config) -> int:
     on_card = tcfg.get("platform") in (None, "cuda", "gpu")
     if env_world() > 1:
         world = env_world()
-    elif -1 in (mesh.dp, mesh.fsdp):
+    elif -1 in (mesh.dp, mesh.fsdp, mesh.sp):
         world = (torch.cuda.device_count() if on_card
                  else int(tcfg.get("devices", 1)))
         world = max(world, 1)
     else:
-        world = mesh.dp * mesh.fsdp
+        world = mesh.dp * mesh.fsdp * mesh.sp
     mesh.resolve(world)
     if on_card and world > 1 and env_world() <= 1 and \
             world > torch.cuda.device_count():
@@ -334,9 +338,12 @@ def evaluate_tg(model, recipe, loader) -> dict[str, float]:
     """TG-stage validation: span IoU metrics, dropout off
     (reference: LSTP_TG_blip2_module.py:397-451). Under a data-parallel
     split each rank scores its rows; the batch losses and the IoU state are
-    summed over the ranks, so every rank returns the world-1 metrics."""
+    summed over the ranks (one copy of each row's: the ``sp`` ranks of a
+    position score the same rows), so every rank returns the world-1
+    metrics."""
     from videotgb_torch.data.loader import device_batch
-    from videotgb_torch.parallel.sharding import sharded_call, split
+    from videotgb_torch.parallel.sharding import (copies, first_copy,
+                                                  sharded_call, split)
     from videotgb_torch.training import metrics as M
 
     iou_state = M.iou_init()
@@ -349,7 +356,10 @@ def evaluate_tg(model, recipe, loader) -> dict[str, float]:
             iou_state, aux["start_logits"], aux["end_logits"],
             db["starts"], db["ends"])
         losses.append(loss.float())
-    if split()[1] > 1:
+    if split()[1] * copies() > 1:  # a split over ranks: one copy a row
+        if not first_copy():
+            iou_state = {k: torch.zeros_like(torch.as_tensor(v))
+                         for k, v in iou_state.items()}
         iou_state = M.all_reduce_state(iou_state)
         losses = _summed_over_ranks(losses)
     loss_state = M.mean_init()
@@ -378,15 +388,15 @@ def evaluate_generative(model, recipe, loader, tok,
     selection noise from a generator seeded 0, as the JAX eval takes
     ``jax.random.key(0)``. Under a data-parallel split each rank answers
     its rows; the batch losses are summed and the answers and targets
-    gathered in the global order before scoring, so every rank returns the
-    world-1 metrics."""
+    gathered in the global order before scoring (one copy of each
+    position's), so every rank returns the world-1 metrics."""
     from videotgb_torch.data.loader import device_batch
     from videotgb_torch.models.videotgb import (generate_blip2,
                                                 generate_instructblip,
                                                 generate_iv)
     from videotgb_torch.ops.decode import DecodeConfig
     from videotgb_torch.parallel.distributed import gather_objects
-    from videotgb_torch.parallel.sharding import sharded_call, split
+    from videotgb_torch.parallel.sharding import copies, sharded_call, split
     from videotgb_torch.training import metrics as M
     from videotgb_torch.training.recipes import SFRecipe
 
@@ -422,9 +432,9 @@ def evaluate_generative(model, recipe, loader, tok,
                                       skip_special_tokens=True))
         targets.append([a.replace(" </s>", "")
                         for a in batch["_text_answer"]])
-    if split()[1] > 1:
+    if split()[1] * copies() > 1:
         losses = _summed_over_ranks(losses)
-        ranks = gather_objects((preds, targets))
+        ranks = gather_objects((preds, targets))[::copies()]
         preds = [[p for r in ranks for p in r[0][i]]
                  for i in range(len(preds))]
         targets = [[t for r in ranks for t in r[1][i]]
@@ -558,9 +568,10 @@ def _train(cfg: Config) -> dict[str, float]:
     trainer.writers = build_writers(cfg.get("loggers", ["csv"]), out_dir)
     trainer.writers.log_hyperparams({"config": dict(cfg)})
     state = trainer.init_state(model)
-    if world > 1:
-        log.info("%d ranks, the %s route; train_step: %s", world,
-                 trainer.route, trainer.step_route)
+    if mesh is not None:
+        log.info("%d ranks, the %s route; train_step: %s",
+                 torch.distributed.get_world_size(), trainer.route,
+                 trainer.step_route)
 
     ckpt_dir = ckpt_overrides.get(
         "dirpath") or cfg.get("paths", Config()).get("ckpt_dir",

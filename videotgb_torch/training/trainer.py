@@ -24,13 +24,17 @@ the batches into such windows when ``steps_per_dispatch`` K > 1 and no
 ``batch_transform`` runs between steps (SF's pseudo-label pass needs the
 current parameters every step), never stepping past ``max_steps``.
 
-Given a ``mesh`` (``parallel.mesh.create_mesh``: dp x fsdp ranks, one
-process a device), each rank's batches are its rows of the global batches
-and a step computes what the JAX trainer's dp/fsdp-sharded step computes
-on the global batch (which is what one device computes), up to reduction
-order. The losses divide by the global count of valid entries
-(``parallel.sharding.global_count``) and draw the global batch's random
-numbers (``global_draw``); on the ``dp`` route (fsdp 1) every rank holds
+Given a ``mesh`` (``parallel.mesh.create_mesh``: dp x fsdp x sp ranks,
+one process a device), each rank's batches are its rows of the global
+batches and a step computes what the JAX trainer's dp/fsdp/sp-sharded step
+computes on the global batch (which is what one device computes), up to
+reduction order. The ``sp`` ranks of a position hold its rows and split
+the towers' token streams (``parallel.sequence.shard_sp``, applied by
+``init_state``); each one's loss and gradients are its share, and the
+sums below run over the whole world (the rule of
+``parallel/sequence.py``). The losses divide by the global count of valid
+entries (``parallel.sharding.global_count``) and draw the global batch's
+random numbers (``global_draw``); on the ``dp`` route (fsdp 1) every rank holds
 the whole model and the trainable gradients are summed over the ranks in
 buckets (``all_reduce_sum``) before the clip; on the ``fsdp`` route
 (``shard_params``: FSDP2 units, each rank's backward scaled by the world
@@ -38,9 +42,10 @@ size so that FSDP2's averaging reduce-scatter leaves the sum) the clip
 takes the global norm of the sharded gradients. The loss and the aux
 scalars are summed over the ranks, so every rank logs, evaluates, saves
 and stops on the same numbers. The step is a CUDA graph only on one
-process or an NCCL group on the ``dp`` route: gloo's collectives run on
-the host and cannot be captured, and FSDP2 keeps its gather and reshard
-state on the host (``step_route`` names the route taken).
+process or an NCCL group on the ``dp`` route without ``sp``: gloo's
+collectives run on the host and cannot be captured, FSDP2 keeps its
+gather and reshard state on the host, and a model split over ``sp`` runs
+eagerly (``utils/graphs.py``; ``step_route`` names the route taken).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from typing import Callable, Iterable
 import torch
 
 from videotgb_torch.parallel.mesh import TP_TRAINING, mesh_rank, tp_rank
+from videotgb_torch.parallel.sequence import is_split, shard_sp
 from videotgb_torch.parallel.sharding import (
     all_reduce_sum,
     batch_split,
@@ -134,7 +140,7 @@ class Trainer:
                  mesh=None):
         """``loss_fn(model, batch, generator) -> (loss, aux dict)``;
         ``filter_fn(name)`` says which parameters train (all without one);
-        ``mesh`` the dp x fsdp mesh of a multi-rank run (None: one
+        ``mesh`` the dp x fsdp x sp mesh of a multi-rank run (None: one
         process)."""
         if tp_rank(mesh)[1] > 1:
             raise NotImplementedError(
@@ -155,10 +161,14 @@ class Trainer:
 
     def init_state(self, model: torch.nn.Module) -> TrainState:
         """The train state of ``model``; with an fsdp extent above 1 the
-        model is first sharded in place (``shard_params``)."""
+        model is first sharded in place (``shard_params``), with an sp
+        extent its towers are split (``shard_sp``)."""
         if (self.mesh is not None and self.mesh["fsdp"].size() > 1
                 and not is_sharded(model)):
             shard_params(model, self.mesh)
+        if (self.mesh is not None and self.mesh["sp"].size() > 1
+                and not is_split(model)):
+            shard_sp(model, self.mesh)
         self.route = ("fsdp" if is_sharded(model) else
                       "dp" if self.mesh is not None else "single")
         if self.route == "fsdp":
@@ -166,7 +176,12 @@ class Trainer:
                                "host")
         elif (self.route == "dp"
               and torch.distributed.get_backend() != "nccl"):
-            self.step_route = ("eager: gloo collectives run on the host")
+            self.step_route = ("eager: gloo collectives run on the host"
+                               + (", the sp token gathers among them"
+                                  if is_split(model) else ""))
+        elif is_split(model):
+            self.step_route = ("eager: the model is split over sp, and its "
+                               "token gathers run outside CUDA graphs")
         if self.step_route != "graph":
             self._step = self._step.eager
         optimizer, self.trainable = make_optimizer(

@@ -38,9 +38,10 @@ eager call would.
 Launch counts: ``ops.kernels.count`` during a capture goes to the graph's
 tally, and each replay adds the tally (``kernels.replayed``).
 
-A model sliced for tensor parallelism (``parallel.tensor.shard_tp``) runs
-every call eagerly: a gloo group's collectives run on the host and cannot
-be captured (``cudaErrorStreamCaptureUnsupported``), and a replay of NCCL
+A model sliced for tensor parallelism (``parallel.tensor.shard_tp``) or
+split over ``sp`` (``parallel.sequence.shard_sp``) runs every call
+eagerly: a gloo group's collectives run on the host and cannot be
+captured (``cudaErrorStreamCaptureUnsupported``), and a replay of NCCL
 collectives at world > 1 cannot be held against eager calls on a one-card
 machine (ROADMAP.md queue 1 item 2).
 
@@ -68,6 +69,7 @@ import weakref
 import torch
 
 from videotgb_torch.ops import kernels
+from videotgb_torch.parallel.sequence import is_split
 from videotgb_torch.parallel.sharding import all_ranks
 from videotgb_torch.parallel.tensor import is_sliced
 
@@ -354,8 +356,8 @@ class Graphed:
             return self.eager(*args, **kwargs)
         leaves = []
         spec = _flatten((args, kwargs), leaves)
-        if any(isinstance(x, torch.nn.Module) and is_sliced(x)
-               for x in leaves):
+        if any(isinstance(x, torch.nn.Module)
+               and (is_sliced(x) or is_split(x)) for x in leaves):
             return self.eager(*args, **kwargs)
         device = _device_of(leaves)
         if device is None or device.type != "cuda":
