@@ -186,7 +186,9 @@ Phases, each fatal on failure (exit code 1):
    and a failed row read during the runs is fatal); 128-token prompts,
    32-token answers. 17a: ``train.main`` with ``experiment=
    LSTP_blip2flant5xl_ivtinstruct`` (rank-8 adapters on the T5; batch 1, 4
-   micro-batches a step), 2 steps, one eval, one save: each step's and eval
+   micro-batches a step), 2 steps, one eval, one save (held in host memory
+   beside empty placeholder files, not written: the 17.2 GB write gives
+   its time to phase 24): each step's and eval
    batch's launches against those ``expected_stage3`` derives (kernel C
    without ds on one pass at (1, 32, 160, 160, 64)), the frozen parameters
    bit-identical, the adapters' B, the Q-Former, its projection and query
@@ -312,7 +314,32 @@ Phases, each fatal on failure (exit code 1):
    padding bias, held against the whole forward on the rank; each rank's
    step or answer wall and the share of it in the sp collectives (and, in
    23a, the all-reduces); then kernels A and C at the split encoder's
-   shape timed beside the plain versions and SDPA.
+   shape timed beside the plain versions and SDPA;
+24. pipeline parallelism (``pipeline_parallel_paths``) at flagship width,
+   held to phase 21's world-1 references: two gloo ranks on the one card at
+   pp=2, each first probing the hop (gloo's ``all_gather_into_tensor`` on
+   bf16 and f32 CUDA tensors, then ``parallel.pipeline``'s ring permute
+   built from it, and its time at a T5-xl microbatch): 24a E2E with the T5
+   tower's ``scan_layers`` (``Trainer.init_state`` stages its 24 encoder
+   and 24 decoder layers, 12 of each a rank) at a global batch of 8, a
+   uniform step then a ``selection=tgb`` step, each rank's launches A 63
+   (ViT-g's 39 and 24 = 12 layers x 2 microbatches at (4, 32, 160, 160,
+   64)) and C 24 a step, D 1 on the tgb step, 8 hops a step, on the
+   tensor-core bodies; kernels A and C against their plain versions on
+   the recorded inputs; losses and grad norms within 1e-2 relative of
+   world 1's, D's frames equal to world 1's, trainable tensors
+   bit-identical across the ranks, frozen fingerprints unchanged, each
+   rank's parameter bytes against world 1's and its peak memory; 24b
+   Vicuna-7B's forward without caches (32 layers, 16 a stage) on 4 rows of
+   192 tokens and its backward to the input embeddings, A 32 and C 32 a
+   rank at (2, 32, 192, 192, 128), logits and input gradient against the
+   whole forward on the rank under phase 22's bound; each step's or pass's
+   wall with the hops' and all-reduces' shares; then 24c in this process:
+   one E2E step from phase 21's world-1 start with the T5 tower's
+   ``remat`` (A 87: 24 more in the recomputed forward; C 24) and without,
+   against phase 21's first step, with their peak memory; then kernels A
+   and C timed at the stage shapes and 23c's split Vicuna (4, 32, 96, 192,
+   128) beside the plain versions and SDPA.
 
 Every counted run of a path also checks that each launch of kernels A, G
 and C ran the tensor-core body (``kernels.MMA_LAUNCHES``) and each launch
@@ -327,6 +354,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -4111,7 +4139,6 @@ def sf_paths(card: str) -> dict:
 
 # ----------------------- phase 17: stage 3 (IV, IVT) and its checkpoint served
 S3_TEXT, S3_ANSWER, S3_NEW = 128, 32, 16
-S3_CKPT_GB = 17.2  # the phase's one written save, IVT's (17c's is not)
 S3_CLI = ["model.preset=flagship", "data.num_workers=4",
           f"data.max_txt_len={S3_TEXT}", f"data.answer_len={S3_ANSWER}",
           f"model.eval_max_new={S3_NEW}", "trainer.max_steps=2",
@@ -4307,13 +4334,6 @@ def stage3_paths(card: str) -> tuple:
     root = os.path.join(HERE, "build", "phase17")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    free = shutil.disk_usage(root).free
-    need = 1.1 * S3_CKPT_GB * 1e9
-    log(f"  free disk under {root}: {free / 1e9:.1f} GB (need "
-        f"{need / 1e9:.1f} GB: one {S3_CKPT_GB} GB checkpoint at a time)")
-    if free < need:
-        fail(f"phase 17 needs {need / 1e9:.1f} GB of free disk; "
-             f"{free / 1e9:.1f} GB is free under {root}")
     import cv2
 
     t = time.perf_counter()
@@ -4347,6 +4367,9 @@ def stage3_paths(card: str) -> tuple:
             n.endswith("lora_b") or n.startswith((
                 "model.qformer.layers.0.", "model.language_projection",
                 "model.query_tokens")))
+        # made, counted and held in host memory, not written: the 17.2 GB
+        # write gives its time to phase 24; 17b restores the held copy
+        probe.hold_saves = True
         final, got = cli_run("IVT train.main", probe, lambda: T.main(args),
                              step_want, eval_want, card)
         add(got)
@@ -4527,6 +4550,7 @@ def stage3_paths(card: str) -> tuple:
         probe.snapshot_device = "cpu"  # 8B frozen parameters: the host
         probe.moving = lambda n: n.startswith(("model.qformer.layers.0.",
                                                "model.query_tokens"))
+        probe.hold_saves = False
         probe.skip_saves = True  # not written: phase 21 takes its time
         vfinal, got = cli_run("Vicuna IV train.main", probe,
                               lambda: T.main(vargs), step_c, eval_c, card)
@@ -6773,6 +6797,36 @@ def tensor_parallel_paths(card: str) -> tuple:
 
 
 # ------------------------------------ phase 23: sequence parallelism
+@contextlib.contextmanager
+def timed_collectives(timers: dict, kinds: dict):
+    """While entered, each ``torch.distributed`` function named in
+    ``kinds`` (name -> a key of ``timers``) adds its synchronised wall
+    (ms) and one call to ``timers[key]``."""
+    import torch
+    import torch.distributed as dist
+
+    real = {name: getattr(dist, name) for name in kinds}
+
+    def timed(fn, timer):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timer["ms"] += (time.perf_counter() - t) * 1e3
+            timer["calls"] += 1
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn, timers[kinds[name]]))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
 class P23FlashBwd:
     """Records the first call of kernel C's wrapper at each input signature
     (its inputs, copied) while installed; ``check`` then holds kernel C
@@ -6993,30 +7047,9 @@ def p23_rank() -> dict:
     # the sp collectives (the token gathers and their reduce-scatters) and
     # the all-reduces (gradients, counts, losses), each timed apart
     timers = {"sp": {"ms": 0.0, "calls": 0}, "ar": {"ms": 0.0, "calls": 0}}
-    real = {name: getattr(dist, name) for name in (
-        "all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")}
-
-    def timed(fn, timer):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            timer["ms"] += (time.perf_counter() - t) * 1e3
-            timer["calls"] += 1
-            return out
-        return call
-
-    @contextlib.contextmanager
-    def timing():
-        for name, fn in real.items():
-            setattr(dist, name, timed(fn, timers[
-                "ar" if name == "all_reduce" else "sp"]))
-        try:
-            yield
-        finally:
-            for name, fn in real.items():
-                setattr(dist, name, fn)
+    timing = functools.partial(timed_collectives, timers, {
+        "all_gather_into_tensor": "sp", "reduce_scatter_tensor": "sp",
+        "all_reduce": "ar"})
 
     out = {"rank": rank}
     # ---- 23a: E2E on configs/trainer/sp.yaml's layout at 2 ranks (dp 1,
@@ -7225,6 +7258,516 @@ def sequence_parallel_paths(card: str, world1: dict) -> tuple:
     return totals, {"a": a_row, "c": c_row}
 
 
+P24_HOP = (4, 160, 2048)  # a T5-xl encoder microbatch's activation
+P24_LR = 1e-3  # 24b's update of the stage leaves
+
+
+def P24_LEAVES(first: int, per: int) -> tuple:
+    """24b's stage leaves of the stage whose layers start at ``first``: its
+    first attention query and its last MLP down projection."""
+    return ((first, "attn.q"), (first + per - 1, "down_proj"))
+
+
+def p24_probe(pp, tag: str) -> dict:
+    """The pipeline's hop before anything else: gloo's
+    ``all_gather_into_tensor`` on bf16 and f32 CUDA tensors, then
+    ``parallel.pipeline._hop`` (the ring permute built from it) handing each
+    rank its predecessor's block forward and its successor's backward;
+    then the hop timed at a T5-xl microbatch's activation."""
+    import torch
+
+    from videotgb_torch.parallel.pipeline import _hop
+
+    dev = torch.device("cuda", 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.full((2, 3), float(pp.rank), device=dev, dtype=dtype)
+        for shift in (1, -1):
+            got = _hop(x, pp, shift)
+            want = float((pp.rank - shift) % pp.size)
+            if got.device != dev or not bool((got == want).all()):
+                fail(f"{tag}: the hop (shift {shift}, {dtype}) gave "
+                     f"{got.tolist()} on {got.device}, not rank "
+                     f"{want:.0f}'s block")
+    x = torch.randn(P24_HOP, device=dev).to(torch.bfloat16)
+    for _ in range(3):
+        _hop(x, pp, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        _hop(x, pp, 1)
+    torch.cuda.synchronize()
+    return {"hop_ms": (time.perf_counter() - t) * 1e2,
+            "hop_mb": x.numel() * x.element_size() / 1e6}
+
+
+def p24_vicuna(mesh, tag, timing, timers) -> dict:
+    """24b on the rank: Vicuna-7B (32 layers, bf16, random weights from a
+    seed) with ``scan_layers``, forward without caches on 4 rows of 192
+    tokens (23c's length: 32 stand-in visual tokens and a right-padded
+    160-token prompt) and the backward to its input embeddings and to the
+    first attention query and last MLP down projection of each stage
+    (``P24_LEAVES``); first whole on the rank (the reference; once more on
+    inputs moved by one bf16 step, the floor; and on each 2-row
+    microbatch, whose summed layer gradients take the staged backward's
+    shapes and order), then staged over pp=2 (16 layers a stage, 2
+    microbatches of 2 rows), each rank's loss 1/pp of it and the
+    embeddings' gradient summed over the pp ranks. Then one update of the
+    rank's stage leaves among ``P24_LEAVES`` (``make_optimizer`` /
+    ``optimizer_step``, the norm's squares summed over the pp group): the
+    norm against the reference gradients', the leaves against AdamW on
+    their staged gradients clipped by that norm. Kernels A and C held
+    against their plain versions on the staged run's recorded inputs."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from videotgb_torch.models.common import init_params
+    from videotgb_torch.models.llama import LlamaConfig, LlamaModel
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.parallel.mesh import pp_rank
+    from videotgb_torch.parallel.pipeline import held, shard_pp
+    from videotgb_torch.training.optim import (B1, B2, EPS, make_optimizer,
+                                               optimizer_step)
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(LlamaConfig.vicuna_7b(), scan_layers=True,
+                              param_dtype=torch.bfloat16)
+    lm = init_params(LlamaModel(cfg, device=dev), 24)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b, s = 4, 32 + P23_TEXT
+    ids = torch.randint(100, 5000, (b, s), generator=gen, device=dev)
+    lengths = P23_TEXT - 20 * torch.arange(b, device=dev)
+    text = (torch.arange(P23_TEXT, device=dev)[None]
+            < lengths[:, None]).float()
+    mask = torch.cat([torch.ones((b, 32), device=dev), text], 1)
+    with torch.no_grad():
+        embeds = lm.embed(ids)
+    w = torch.randn(cfg.vocab_size, generator=gen, device=dev)
+    per = cfg.num_layers // pp_rank(mesh)[1]
+    leaves = [f"layers.{i}.{leaf}.weight" for first in range(
+        0, cfg.num_layers, per) for i, leaf in P24_LEAVES(first, per)]
+    named = dict(lm.named_parameters())
+    for n in leaves:  # the other parameters take no gradient
+        named[n].requires_grad_()
+
+    def run(x, share=1.0, names=leaves, rows=slice(None)):
+        x = x[rows].detach().clone().requires_grad_()
+        logits, _ = lm(inputs_embeds=x, attention_mask=mask[rows])
+        dx, *dw = torch.autograd.grad(
+            ((logits @ w) * mask[rows]).sum() * share,
+            [x, *(named[n] for n in names)])
+        return logits.detach().float(), dx.float(), dict(zip(names, dw))
+
+    whole = run(embeds)
+    nudged = run((embeds.float() * (1 + 2 ** -8)).to(embeds.dtype))
+    micro = [run(embeds, rows=slice(i, i + 2))[2] for i in (0, 2)]
+    micro = {n: micro[0][n] + micro[1][n] for n in leaves}
+    shard_pp(lm, mesh)
+    pp = lm.pp
+    layers = sorted({int(n.split(".")[1]) for n, p in lm.named_parameters()
+                     if n.startswith("layers.") and p.numel()})
+    if layers != list(pp.stage(cfg.num_layers)):
+        fail(f"{tag} 24b: the rank holds layers {layers}, not its stage's")
+    shapes = [str(((2, 32, s, 128), (2, 32, s, 128), (2, 1, s, s)))]
+    for timer in timers.values():
+        timer.update(ms=0.0, calls=0)
+    kernels.reset_launches()
+    with P22Flash() as fa, P23FlashBwd() as fc, timing():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mine = [n for n in leaves if held(named[n])]
+        logits, dx, dw = run(embeds, 1.0 / pp.size, mine)
+        dist.all_reduce(dx, group=pp.group)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    check_bodies(f"{tag} 24b", launches)
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0), "flash_fwd": 32,
+            "flash_bwd": 32}
+    if launches != want:
+        fail(f"{tag} 24b: launches {launches} != {want}")
+    got_a = sorted(str(k[:3]) for k in fa.calls)
+    got_c = sorted(str(k[:3]) for k in fc.calls)
+    if got_a != shapes or got_c != shapes:
+        fail(f"{tag} 24b: kernels A and C saw {got_a} and {got_c}, not the "
+             f"Vicuna stage's {shapes}")
+    if dict(pp.calls) != {"staged": 1}:
+        fail(f"{tag} 24b: the stack's routes {dict(pp.calls)}")
+    out = {"launches": launches, "wall_ms": wall, "shape": shapes[0],
+           "hop_ms": timers["hop"]["ms"], "hop_calls": timers["hop"]["calls"],
+           "ar_ms": timers["ar"]["ms"], "ar_calls": timers["ar"]["calls"],
+           "kernel_a": fa.check(f"{tag} 24b"),
+           "kernel_c": fc.check(f"{tag} 24b")}
+    if mine != leaves[2 * pp.rank:2 * pp.rank + 2]:
+        fail(f"{tag} 24b: the rank holds {mine} of {leaves}")
+    # a microbatch's rows take the whole batch's arithmetic (PERF.md, PR
+    # 22: bit-identical), so the bound is the floor, not a share
+    for name, got, ref, moved, base in (
+            ("logits", logits, whole[0], nudged[0], whole[0]),
+            ("dx", dx, whole[1], nudged[1], whole[1]),
+            *((n, dw[n], micro[n], nudged[2][n], whole[2][n])
+              for n in mine)):
+        gap = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        floor = float((moved.float() - base.float()).abs().max())
+        if not gap <= floor:
+            fail(f"{tag} 24b: staged {name} {gap:.4g} off the reference "
+                 f"(largest {scale:.4g}), over the {floor:.4g} that one bf16 "
+                 f"step on the inputs moves the whole forward's")
+        out[name] = {"gap": gap, "scale": scale, "floor": floor}
+
+    # one update of the stage leaves: the optimizer holds the rank's alone
+    optimizer, names = make_optimizer(lm, filter_fn=set(leaves).__contains__)
+    if (names != mine or optimizer.stage_group is not pp.group
+            or not all(named[n].numel() == 0
+                       for n in leaves if n not in mine)):
+        fail(f"{tag} 24b: the optimizer holds {names}, not {mine}, or "
+             f"sums its norm over another group")
+    # the norm's reference: each stage's leaf norm (bf16, as
+    # get_total_norm gives it) squared and summed over the stages, on the
+    # reference gradients (within the floor of the staged ones above, so a
+    # stage norm may round to the next bf16 step); the update's: AdamW on
+    # the staged gradients, clipped by the norm the step took
+    lr = torch.full((), P24_LR, dtype=torch.float32, device=dev)
+    want_norm = float(torch.stack([torch.nn.utils.get_total_norm(
+        [micro[n] for n in leaves[2 * k:2 * k + 2]]).float() ** 2
+        for k in range(pp.size)]).sum().sqrt())
+    ref = [named[n].detach().clone() for n in mine]
+    for p, n in zip(ref, mine):
+        p.grad = dw[n].clone()
+        named[n].grad = dw[n]
+    norm = optimizer_step(optimizer, lr, 1.0)
+    torch.nn.utils.clip_grads_with_norm_(ref, 1.0, norm)
+    torch.optim.AdamW(ref, lr=lr, betas=(B1, B2), eps=EPS, weight_decay=0.0,
+                      fused=True, capturable=True).step()
+    norm = float(norm)
+    off = [float((named[n].detach().float() - p.float()).abs().max())
+           for n, p in zip(mine, ref)]
+    if (abs(norm - want_norm) > 2 ** -6 * want_norm or max(off) > 0
+            or len(optimizer.state) != len(mine)):
+        fail(f"{tag} 24b: the staged update's norm {norm!r} (want "
+             f"{want_norm!r}), its leaves {off} off AdamW's on their "
+             f"gradients, {len(optimizer.state)} moments; the gradients "
+             f"{[(n, out[n]['gap'], out[n]['floor']) for n in mine]} off "
+             f"the reference (gap, floor)")
+    out["update"] = {"norm": norm, "want_norm": want_norm, "leaves": mine,
+                     "off": off}
+    return out
+
+
+def p24_rank() -> dict:
+    """One rank of phase 24 (two gloo ranks on the one card at pp=2, as
+    phases 21-23)."""
+    import dataclasses
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from videotgb_torch.models.videotgb import VideoTGB, VideoTGBConfig
+    from videotgb_torch.parallel.distributed import gather_objects
+    from videotgb_torch.parallel.mesh import MeshConfig, create_mesh, pp_rank
+    from videotgb_torch.parallel.pipeline import PPGroup, stage_leaf
+    from videotgb_torch.training.trainer import Trainer, TrainerConfig
+
+    faulthandler.enable()
+    mesh = create_mesh(MeshConfig(dp=1, pp=2), device_type="cuda")
+    rank, size = pp_rank(mesh)
+    tag = f"  24 rank {rank}"
+    out = {"rank": rank, **p24_probe(PPGroup(rank, size,
+                                             mesh.get_group("pp")), tag)}
+
+    # the hops (all_gather_into_tensor) and the all-reduces (the delivered
+    # output, the output's gradient, gradients, counts, losses) timed apart
+    timers = {"hop": {"ms": 0.0, "calls": 0}, "ar": {"ms": 0.0, "calls": 0}}
+    timing = functools.partial(timed_collectives, timers, {
+        "all_gather_into_tensor": "hop", "all_reduce": "ar"})
+
+    # ---- 24a: E2E with the T5 tower's scan_layers, a global batch of 8
+    # (dp 1: every rank holds the 8 rows), a uniform step then a tgb step
+    dev = torch.device("cuda", 0)
+    cfg = VideoTGBConfig.flagship("blip2")
+    cfg = dataclasses.replace(cfg, blip2=dataclasses.replace(
+        cfg.blip2, t5=dataclasses.replace(cfg.blip2.t5, scan_layers=True)))
+    model = VideoTGB(cfg, device=dev, seed=0)
+    whole_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    loss = P21Loss()
+    trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                      loss.filter_fn, mesh=mesh)
+    state = trainer.init_state(model)
+    t5 = model.model.language_model
+    if trainer.route != "pp" or t5.pp is None:
+        fail(f"{tag}: Trainer.init_state did not stage the T5 tower "
+             f"(route {trainer.route})")
+    params = dict(model.named_parameters())
+    held = {stack: sorted({int(n.split(f".{stack}.")[1].split(".")[0])
+                           for n, p in params.items()
+                           if f".{stack}." in n and p.numel()})
+            for stack in ("encoder_blocks", "decoder_blocks")}
+    for stack, layers in held.items():
+        if layers != list(t5.pp.stage(24)):
+            fail(f"{tag}: holds {stack} {layers}, not its stage's 12")
+    rank_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    trainable = set(trainer.trainable)
+    if any(stage_leaf(params[n]) for n in trainable):
+        fail(f"{tag}: a stage leaf trains in E2E")
+    frozen = [n for n in params if n not in trainable and params[n].numel()]
+    before = p21_fingerprint(params, frozen)
+    rows = p21_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with P22Flash() as fa, P23FlashBwd() as fc:
+        for sel in ("uniform", "tgb"):
+            loss.selection = sel
+            for timer in timers.values():
+                timer.update(ms=0.0, calls=0)
+            with timing():
+                state, rec = p21_step(f"24a rank {rank} {sel} step",
+                                      trainer, state, rows, sel == "tgb")
+            rec.update(hop_ms=timers["hop"]["ms"],
+                       hop_calls=timers["hop"]["calls"],
+                       ar_ms=timers["ar"]["ms"],
+                       ar_calls=timers["ar"]["calls"])
+            steps.append(rec)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flat = torch.cat([params[n].detach().reshape(-1).view(torch.int32)
+                      for n in trainer.trainable])
+    lo, hi = flat.clone(), flat
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    out["e2e"] = {
+        "steps": steps, "peak_gib": peak, "cand": loss.cand.cpu(),
+        "route": trainer.route, "step_route": trainer.step_route,
+        "calls": dict(t5.pp.calls), "held": held,
+        "rank_gb": rank_bytes / 1e9, "whole_gb": whole_bytes / 1e9,
+        "identical": bool(torch.equal(lo, hi)),
+        "frozen_same": bool(torch.equal(before,
+                                        p21_fingerprint(params, frozen))),
+        "kernel_a": fa.check(f"{tag} 24a"), "kernel_c": fc.check(
+            f"{tag} 24a"),
+        "a_shapes": sorted(str(k[:3]) for k in fa.calls),
+        "c_shapes": sorted(str(k[:3]) for k in fc.calls)}
+    log(f"{tag}: 24a steps {[(r['loss'], r['grad_norm']) for r in steps]}")
+    del model, trainer, state, params, flat, lo, hi, before, rows, fa, fc, t5
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 24b: Vicuna-7B's forward without caches, staged
+    out["vicuna"] = p24_vicuna(mesh, tag, timing, timers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gather_objects(out)
+
+
+P24_T5 = "((4, 32, 160, 64), (4, 32, 160, 64), (4, 32, 160, 160))"
+
+
+def p24_remat(card: str, ref: dict) -> dict:
+    """24c at world 1, in this process: the flagship E2E model of phase
+    21's world-1 start with the T5 tower's ``remat``, one uniform step from
+    the start (eager), against phase 21's first step; every T5 encoder
+    block's forward runs again in the backward: A 63 + 24, C 24. Beside it
+    the same step without remat, each with its peak memory."""
+    import dataclasses
+
+    import torch
+
+    from videotgb_torch import train as T
+    from videotgb_torch.ops import kernels
+    from videotgb_torch.training.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    model, cfg = T.build_model({"preset": "flagship"}, device=dev, seed=0)
+    batch = p21_batch(cfg, dev)
+    t5 = model.model.language_model
+    loss = P21Loss()
+    params = dict(model.named_parameters())
+    out = {}
+    start = None
+    for remat in (False, True):
+        t5.config = dataclasses.replace(t5.config, remat=remat)
+        trainer = Trainer(TrainerConfig(max_steps=3, lr=5e-5), loss,
+                          loss.filter_fn)
+        trainer._step = trainer._step.eager
+        state = trainer.init_state(model)
+        if start is None:
+            start = {n: params[n].detach().clone() for n in trainer.trainable}
+        with torch.no_grad():
+            for n in trainer.trainable:
+                params[n].copy_(start[n])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        want = {**p21_expected(False),
+                "flash_fwd": 63 + 24 * remat}
+        if launches != want:
+            fail(f"24c remat={remat}: launches {launches} != {want}")
+        check_bodies(f"24c remat={remat}", launches)
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "wall_ms": wall, "launches": launches,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        for key in ("loss", "grad_norm"):
+            rel = abs(rec[key] - ref[key]) / abs(ref[key])
+            if rel > 1e-2:
+                fail(f"24c remat={remat}: {key} {rec[key]} vs phase 21's "
+                     f"first step {ref[key]} ({rel:.2e})")
+        out[remat] = rec
+        log(f"  24c world 1, remat={remat}: loss {rec['loss']:.6f}, "
+            f"grad_norm {rec['grad_norm']:.6f} (phase 21's first step "
+            f"{ref['loss']:.6f}, {ref['grad_norm']:.6f}); launches "
+            f"{launches}; wall {wall:.2f} ms (eager), peak memory "
+            f"{rec['peak_gib']:.2f} GiB on {card}")
+        del trainer, state
+    del model, params, start, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_parallel_paths(card: str, world1: dict) -> tuple:
+    """Phase 24 (see the module's docstring), held to ``world1``, phase
+    21's references ("e2e"; :func:`p23_world1` makes it when missing).
+    Returns the launches of its counted runs and kernels A's and C's rows
+    at the pipeline's stage shapes and 23c's split Vicuna shape."""
+    import torch
+
+    from videotgb_torch.ops.attention import NEG_INF
+    from videotgb_torch.parallel.distributed import spawn
+
+    ref = p23_world1({"serving": None, **world1})["e2e"]
+    totals: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    t = time.perf_counter()
+    try:
+        ranks = spawn(p24_rank, 2, "gloo", device_type="cuda",
+                      device_ids=[0, 0], timeout_s=600)
+    except Exception as e:  # noqa: BLE001 - a rank's failure fails the phase
+        fail(f"phase 24: the ranks failed: {type(e).__name__}: {e}")
+    log(f"  24: two gloo ranks on the one card at pp=2 ran in "
+        f"{time.perf_counter() - t:.1f} s (start, hop probe, 24a, 24b)")
+
+    # 24a
+    for r in ranks:
+        d = r["e2e"]
+        log(f"  24 rank {r['rank']}: the hop (gloo all_gather_into_tensor, "
+            f"through the host) of a {r['hop_mb']:.2f} MB bf16 activation: "
+            f"{r['hop_ms']:.3f} ms on {card}")
+        for i, (rec, want) in enumerate(zip(d["steps"], ref["steps"])):
+            add(rec["launches"])
+            for key in ("loss", "grad_norm"):
+                rel = abs(rec[key] - want[key]) / abs(want[key])
+                if rel > 1e-2:
+                    fail(f"24a rank {r['rank']} step {i}: {key} "
+                         f"{rec[key]} vs world 1 {want[key]} ({rel:.2e})")
+            if rec["hop_calls"] != 8:
+                fail(f"24a rank {r['rank']} step {i}: {rec['hop_calls']} "
+                     f"hops, not 8 (2 a pass: encoder and decoder, forward "
+                     f"and backward, 2 microbatches over 2 stages)")
+            log(f"  24a rank {r['rank']} step {i}: loss {rec['loss']:.6f} "
+                f"(world 1 {want['loss']:.6f}), grad_norm "
+                f"{rec['grad_norm']:.6f} (world 1 {want['grad_norm']:.6f}); "
+                f"launches {rec['launches']}; wall {rec['wall_ms']:.2f} ms, "
+                f"{rec['hop_calls']} hops {rec['hop_ms']:.2f} ms "
+                f"({rec['hop_ms'] / rec['wall_ms']:.1%} of the step), "
+                f"{rec['ar_calls']} all-reduces {rec['ar_ms']:.2f} ms "
+                f"({rec['ar_ms'] / rec['wall_ms']:.1%}) on {card}")
+        if not d["identical"]:
+            fail("24a: trainable parameters differ across the ranks")
+        if not d["frozen_same"]:
+            fail(f"24a rank {r['rank']}: a frozen parameter changed")
+        if P24_T5 not in d["a_shapes"] or d["c_shapes"] != [P24_T5]:
+            fail(f"24a rank {r['rank']}: kernels A and C saw {d['a_shapes']}"
+                 f" and {d['c_shapes']}, not the T5-xl stage's microbatch")
+        if d["calls"] != {"staged": 4}:
+            fail(f"24a rank {r['rank']}: the stacks' routes {d['calls']}, "
+                 f"not 4 staged passes (encoder and decoder, 2 steps)")
+        log(f"  24a rank {r['rank']}: route {d['route']} ({d['step_route']})"
+            f", T5 stacks staged {d['calls']}; holds encoder layers "
+            f"{d['held']['encoder_blocks']} and decoder layers "
+            f"{d['held']['decoder_blocks']}: {d['rank_gb']:.3f} GB of "
+            f"parameters against world 1's {d['whole_gb']:.3f} GB; peak "
+            f"memory {d['peak_gib']:.2f} GiB; kernel A {d['kernel_a']}, "
+            f"kernel C {d['kernel_c']} on the recorded inputs; trainable "
+            f"tensors bit-identical across the ranks; frozen fingerprints "
+            f"unchanged")
+    cand = ranks[0]["e2e"]["cand"]
+    if not torch.equal(cand, ref["cand"]):
+        fail(f"24a: D's frames at pp=2 {cand.tolist()} != world 1's "
+             f"{ref['cand'].tolist()}")
+    log(f"  24a: D's frames at pp=2 equal world 1's: {cand.tolist()}")
+
+    # 24b
+    for r in ranks:
+        d = r["vicuna"]
+        add(d["launches"])
+        log(f"  24b rank {r['rank']}: Vicuna-7B without caches, 16 layers a "
+            f"stage: launches {d['launches']}; kernels A and C at "
+            f"{d['shape']}: A {d['kernel_a']}, C {d['kernel_c']} on the "
+            f"recorded inputs; "
+            + "; ".join(
+                f"{k} max |staged - reference| {d[k]['gap']:.4g} (largest "
+                f"{d[k]['scale']:.4g}; one bf16 step on the inputs moves the "
+                f"whole forward's by {d[k]['floor']:.4g})"
+                for k in ("logits", "dx", *d["update"]["leaves"]))
+            + f"; the update of {d['update']['leaves']}: norm "
+            f"{d['update']['norm']!r} (reference {d['update']['want_norm']!r}"
+            f"), leaves off AdamW's by {d['update']['off']}"
+            + f"; wall {d['wall_ms']:.2f} ms, {d['hop_calls']} hops "
+            f"{d['hop_ms']:.2f} ms ({d['hop_ms'] / d['wall_ms']:.1%}), "
+            f"{d['ar_calls']} all-reduces {d['ar_ms']:.2f} ms on {card}")
+    log(f"  24: gloo on one card carries every hop through the host: these "
+        f"walls time nothing an NCCL machine with a card per rank would")
+
+    # 24c
+    remat = p24_remat(card, ref["steps"][0])
+    for rec in remat.values():
+        add(rec["launches"])
+
+    # kernels A and C at the pipeline's stage shapes and 23c's split Vicuna
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = {}
+    for label, (b, h, sq, skv, d) in (
+            ("24 T5-xl stage microbatch", (4, 32, 160, 160, 64)),
+            ("24 Vicuna stage microbatch", (2, 32, 192, 192, 128)),
+            ("23c split Vicuna", (4, 32, 96, 192, 128))):
+        if d == 64:  # the relative-position table plus the padding
+            lens = torch.randint(120, 161, (b,), generator=gen, device=dev)
+            keys = torch.arange(skv, device=dev)
+            bias = (torch.randn((1, h, sq, skv), generator=gen, device=dev)
+                    + torch.where(keys[None] < lens[:, None], 0.0,
+                                  NEG_INF).float()[:, None, None])
+        else:  # causal at the rows' global positions, plus the padding
+            q_pos = torch.arange(skv - sq, skv, device=dev)
+            keys = torch.arange(skv, device=dev)
+            lens = torch.randint(skv - 60, skv + 1, (b,), generator=gen,
+                                 device=dev)
+            bias = (torch.where(keys[None] <= q_pos[:, None], 0.0,
+                                NEG_INF)[None, None]
+                    + torch.where(keys[None] < lens[:, None], 0.0,
+                                  NEG_INF)[:, None, None]).float()
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2) for s in (sq, skv, skv))
+        a_row = flash_timed(card, f"{label} ({b},{h},{sq},{skv},{d}) bias "
+                            f"{tuple(bias.shape)}", (q, k, v), bias)
+        c_row = c_at(card, label, b, h, sq, skv, d, bias, False)
+        rows[label] = {"a": a_row, "c": c_row}
+    return totals, rows
+
+
 def main() -> None:
     try:
         import torch
@@ -7390,14 +7933,23 @@ def main() -> None:
         card, {"e2e": e2e_world1, "serving": serving_world1})
     for kern in (flash, flash_bwd, lookup, select):
         kern["launches"] += sequence.get(kern["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t24 = time.perf_counter()
+    log("phase 24: pipeline parallelism (two gloo ranks on the one card at "
+        "pp=2; phase 21's world-1 references; remat at world 1)")
+    pipeline, _ = pipeline_parallel_paths(card, {"e2e": e2e_world1})
+    for kern in (flash, flash_bwd, lookup, select):
+        kern["launches"] += pipeline.get(kern["name"], 0)
     done = time.perf_counter()
-    log(f"phases 1-23 ran in {done - t_run:.1f} s, phase 12 in "
+    log(f"phases 1-24 ran in {done - t_run:.1f} s, phase 12 in "
         f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
         f"{t15 - t14:.1f} s, phase 15 in {t16 - t15:.1f} s, phase 16 in "
         f"{t17 - t16:.1f} s, phase 17 in {t18 - t17:.1f} s, phase 18 in "
         f"{t19 - t18:.1f} s, phase 19 in {t20 - t19:.1f} s, phase 20 in "
         f"{t21 - t20:.1f} s, phase 21 in {t22 - t21:.1f} s, phase 22 in "
-        f"{t23 - t22:.1f} s, phase 23 in {done - t23:.1f} s")
+        f"{t23 - t22:.1f} s, phase 23 in {t24 - t23:.1f} s, phase 24 in "
+        f"{done - t24:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     line = {"kernels": [{k: kern[k] for k in order} for kern in (

@@ -159,6 +159,14 @@ def rank_checks(sp_in: dict, ckpt: str) -> dict:
             handed[:] = list(sp_in["engine_noise"])
             engine = ServingEngine(engine_path, mesh=mesh, device="cpu",
                                    **ENGINE)
+            # each worker issues its model's collectives on groups of its
+            # own: (the world, tp, sp), tp None at tp=1
+            select, answer = (engine._groups[w][1:] for w in
+                              ("select", "answer"))
+            assert select[1] is not None and answer[1] is not None, mesh
+            assert select[1] is not answer[1], mesh
+            assert (select[0] is None) == ("tp=2" not in mesh), mesh
+            assert select[0] is None or select[0] is not answer[0], mesh
             replies = None
             if engine.leader:
                 replies = _replies(engine, sp_in)

@@ -2113,3 +2113,45 @@ def test_a_one_rank_nccl_engine_at_tp1_keeps_the_graphed_route(cuda):
         assert runs[0] == runs[1]
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------- scan_layers and remat
+@pytest.mark.gpu
+def test_a_remat_scan_layers_t5_xl_stack_equals_the_plain_stack(cuda):
+    """A T5-xl-shaped encoder (d_model 2048, 32 heads of 64, d_ff 5120; 2
+    layers) with ``scan_layers`` and ``remat`` at pp = 1 runs its blocks in
+    turn and recomputes each forward in the backward: the output and the
+    input's gradient equal the plain stack's, with 2 kernel-A launches a
+    forward (2 more in the recomputation) and 2 kernel-C launches a
+    backward, all on the tensor-core bodies."""
+    from videotgb_torch.models.t5 import T5Config, T5Model
+
+    cfg = dataclasses.replace(T5Config.flan_t5_xl(), num_encoder_layers=2,
+                              num_decoder_layers=1)
+    plain = T5Model(cfg, device=cuda)
+    init_params(plain, 0)
+    flagged = T5Model(dataclasses.replace(cfg, scan_layers=True, remat=True),
+                      device=cuda)
+    flagged.load_state_dict(plain.state_dict())
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    x = torch.randn((2, 160, 2048), generator=gen, device=cuda)
+    mask = torch.ones((2, 160), device=cuda)
+    mask[1, 130:] = 0
+    w = torch.randn((2048,), generator=gen, device=cuda)
+    runs = {}
+    for name, model in (("plain", plain), ("remat", flagged)):
+        xi = x.clone().requires_grad_()
+        kernels.reset_launches()
+        out = model.encode(xi, mask)
+        forward = dict(kernels.LAUNCHES)
+        (out.float() @ w).sum().backward()
+        runs[name] = (out.detach().float(), xi.grad, forward,
+                      dict(kernels.LAUNCHES), dict(kernels.MMA_LAUNCHES))
+    for name, fwd_a, all_a in (("plain", 2, 2), ("remat", 2, 4)):
+        _, _, forward, launches, mma = runs[name]
+        assert forward["flash_fwd"] == fwd_a and forward["flash_bwd"] == 0
+        assert launches["flash_fwd"] == all_a, (name, launches)
+        assert launches["flash_bwd"] == 2, (name, launches)
+        assert mma["flash_fwd"] == all_a and mma["flash_bwd"] == 2, name
+    assert torch.equal(runs["remat"][0], runs["plain"][0])
+    assert torch.equal(runs["remat"][1], runs["plain"][1])

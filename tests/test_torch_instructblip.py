@@ -317,14 +317,26 @@ def test_flash_plain_matches_pallas_at_the_prefill_shape_class():
 
 # ------------------------------------------------------------ what raises
 def test_what_the_vicuna_port_lacks_raises():
+    """``scan_layers`` and ``remat`` build (the stack may be staged over
+    ``pp``; each block recomputed in the backward) with the plain model's
+    parameters; ``pp`` beside ``tp`` or ``sp`` still raises."""
+    from videotgb_torch.parallel import mesh as TM
+
     cfg = TV.VideoTGBConfig.tiny("instructblip")
     llm = cfg.instructblip.llm
-    for change, match in ((dict(scan_layers=True), "item 5"),
-                          (dict(remat=True), "item 5")):
-        bad = dataclasses.replace(cfg, instructblip=dataclasses.replace(
+    plain = TV.VideoTGB(cfg, device="cpu").state_dict()
+    for change in (dict(scan_layers=True), dict(remat=True)):
+        flagged = dataclasses.replace(cfg, instructblip=dataclasses.replace(
             cfg.instructblip, llm=dataclasses.replace(llm, **change)))
+        model = TV.VideoTGB(flagged, device="cpu")
+        assert model.model.language_model.config.scan_layers == bool(
+            change.get("scan_layers"))
+        got = model.state_dict()
+        assert got.keys() == plain.keys()
+        assert all(got[k].shape == plain[k].shape for k in plain)
+    for axes, match in ((dict(tp=2), "item 11"), (dict(sp=2), "item 13")):
         with pytest.raises(NotImplementedError, match=match):
-            TV.VideoTGB(bad, device="cpu")
+            TM.check_ported(TM.MeshConfig(dp=1, pp=2, **axes))
     # LoRA is ported: rank-8 adapters on every LLaMA attention's q and v
     lora = TV.VideoTGB(TV.with_lora(cfg, 8), device="cpu")
     names = [n for n, _ in lora.model.language_model.named_parameters()

@@ -115,16 +115,19 @@ def test_process_chunk_matches_jax(n_items, count):
 
 
 def test_unported_axes_raise_naming_their_items():
-    """Training refuses ``tp`` (item 4), ``pp`` (item 5) and ``sp`` beside
-    ``fsdp`` (item 4); ``sp`` alone passes the refusals and lays out its
-    ranks innermost."""
-    for axes, item in ((dict(tp=2), "item 4"), (dict(pp=2), "item 5"),
+    """Training refuses ``tp`` (item 4), ``sp`` beside ``fsdp`` (item 4)
+    and ``pp`` beside ``fsdp`` (item 12); ``sp`` and ``pp`` alone pass the
+    refusals, and lay out their ranks after ``tp``, ``sp`` innermost."""
+    for axes, item in ((dict(tp=2), "item 4"), (dict(fsdp=2, pp=2), "item 12"),
                        (dict(fsdp=2, sp=2), "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             TM.create_mesh(TM.MeshConfig(**axes))
     TM.check_ported(TM.MeshConfig(dp=2, sp=2))
+    TM.check_ported(TM.MeshConfig(dp=2, pp=2))
     assert TM.mesh_layout(TM.MeshConfig(dp=2, sp=2), 4).tolist() == [
-        [[[0, 1]]], [[[2, 3]]]]
+        [[[[0, 1]]]], [[[[2, 3]]]]]
+    assert TM.mesh_layout(TM.MeshConfig(dp=2, pp=2), 4).tolist() == [
+        [[[[0], [1]]]], [[[[2], [3]]]]]
     assert TM.create_mesh(TM.MeshConfig()) is None  # one process, no group
     with pytest.raises(ValueError, match="device count"):
         TM.create_mesh(TM.MeshConfig(dp=2))

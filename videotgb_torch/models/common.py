@@ -180,6 +180,17 @@ class LayerNorm(nn.Module):
         return out.to(self.dtype)
 
 
+def remat_call(remat: bool, block, *args, **kwargs):
+    """``block(*args, **kwargs)``; with ``remat`` under grad mode its
+    forward is recomputed in the backward instead of kept
+    (``torch.utils.checkpoint``, non-reentrant: the JAX ``nn.remat``)."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(block, *args, use_reentrant=False, **kwargs)
+    return block(*args, **kwargs)
+
+
 def init_kv_cache(batch, heads, max_len, head_dim, dtype, device):
     return {
         "k": torch.zeros((batch, heads, max_len, head_dim), dtype=dtype,

@@ -24,8 +24,16 @@ under their rows of the causal bias. The cached forward (the prefill and
 the decode steps) runs whole, as the JAX non-scan cached loop has no site.
 
 ``lora_rank`` > 0 puts LoRA deltas on every attention's q and v
-projections. The JAX config's ``scan_layers`` / ``remat`` (stacked layers,
-the pipeline forward) have no counterpart yet and raise.
+projections. ``scan_layers`` keeps the per-layer ``layers.{i}``
+parameters (``convert.py`` unstacks a JAX scanned tree) and marks the
+stack as one that may be staged: under pipeline parallelism (``pp``, set
+by ``parallel.pipeline.shard_pp``) the forward without caches runs the
+blocks through ``parallel.pipeline.pipeline_apply``, the rotary tables and
+the bias as side inputs (the JAX ``_pipeline_forward``,
+``llama.py:188-199,229-256``); the cached passes stay sequential.
+``remat`` recomputes each block's forward in the backward of a pass
+without caches (``torch.utils.checkpoint``, the JAX ``nn.remat`` at
+``llama.py:127``).
 """
 
 from __future__ import annotations
@@ -43,9 +51,11 @@ from videotgb_torch.models.common import (
     RMSNorm,
     cache_start,
     init_kv_cache,
+    remat_call,
 )
 from videotgb_torch.ops.attention import make_causal_bias, make_padding_bias
 from videotgb_torch.ops.rope import apply_llama_rope, llama_rope_tables
+from videotgb_torch.parallel.pipeline import active_pp_mesh, stage_stack
 from videotgb_torch.parallel.sequence import stream
 
 
@@ -124,10 +134,6 @@ class LlamaBlock(nn.Module):
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        if cfg.scan_layers or cfg.remat:
-            raise NotImplementedError(
-                "scan_layers / remat (stacked layers, the pipeline forward) "
-                "are not ported: ROADMAP.md queue 1 item 5")
         self.config = cfg
         kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, **kw)
@@ -137,9 +143,16 @@ class LlamaModel(nn.Module):
         self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, use_bias=False,
                              **kw)
         self.sp = None  # parallel.sequence.SPGroup under shard_sp
+        self.pp = None  # parallel.pipeline.PPGroup under shard_pp
 
     def embed(self, input_ids):
         return self.embed_tokens(input_ids)
+
+    def _layer_fn(self, block, tree):
+        """One block on a pipeline tree (x, cos, sin, bias)."""
+        x, cos, sin, bias = tree
+        x, _ = remat_call(self.config.remat, block, x, (cos, sin), bias)
+        return x, cos, sin, bias
 
     def forward(self, input_ids=None, inputs_embeds=None, attention_mask=None,
                 positions=None, caches=None, cache_index=None,
@@ -175,9 +188,14 @@ class LlamaModel(nn.Module):
                                 q_positions=q_pos)
         if mask is not None:
             bias = bias + make_padding_bias(mask)
-        if caches is None:
+        if caches is None and active_pp_mesh(self) is not None:
+            x = stage_stack(self, self.layers, self._layer_fn,
+                            (x, *rope, bias))
+            new_caches = None
+        elif caches is None:
             for layer in self.layers:
-                x, _ = layer(x, rope, bias, sp=sp)
+                x, _ = remat_call(self.config.remat, layer, x, rope, bias,
+                                  sp=sp)
             new_caches = None
         else:
             new_caches = []

@@ -19,6 +19,17 @@ gathered after their final norms: the encoder's output is whole before any
 cross-attention reads it. The relative-position bias is made for the
 rank's query positions against every key (``RelativePositionBias``), the
 decoder's causal mask at global positions. Cached decode steps stay whole.
+
+``scan_layers`` keeps the per-layer ``encoder_blocks.{i}`` /
+``decoder_blocks.{i}`` parameters (``convert.py`` unstacks a JAX scanned
+tree) and marks the stacks as ones that may be staged: under pipeline
+parallelism (``pp``, set by ``parallel.pipeline.shard_pp``) ``encode`` and
+the teacher-forced ``decode`` run their blocks through
+``parallel.pipeline.pipeline_apply`` (the JAX sites ``t5.py:282-314,
+328-338,387-397``), the bias, the encoder states and the cross bias as
+side inputs; the cached decode and ``cross_prefill`` stay sequential.
+``remat`` recomputes each block's forward in the backward of a pass
+without caches (``torch.utils.checkpoint``, the JAX ``nn.remat``).
 """
 
 from __future__ import annotations
@@ -38,8 +49,10 @@ from videotgb_torch.models.common import (
     _param,
     cache_start,
     init_kv_cache,
+    remat_call,
 )
 from videotgb_torch.ops.attention import make_causal_bias, make_padding_bias
+from videotgb_torch.parallel.pipeline import active_pp_mesh, stage_stack
 from videotgb_torch.parallel.sequence import stream
 
 
@@ -60,6 +73,9 @@ class T5Config:
     eos_token_id: int = 1
     lora_rank: int = 0
     lora_alpha: float = 32.0
+    # the stacks may be staged over pp; each block recomputed in the backward
+    scan_layers: bool = False
+    remat: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -185,9 +201,14 @@ class T5Model(nn.Module):
         self.decoder_final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_eps, **kw)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, use_bias=False, **kw)
         self.sp = None  # parallel.sequence.SPGroup under shard_sp
+        self.pp = None  # parallel.pipeline.PPGroup under shard_pp
 
     def embed(self, input_ids):
         return self.shared(input_ids)
+
+    def _layer_fn(self, block, tree):
+        """One block on a pipeline tree (x, *side inputs)."""
+        return (remat_call(self.config.remat, block, *tree)[0], *tree[1:])
 
     def encode(self, inputs_embeds, attention_mask):
         """inputs_embeds (B, S, d_model) -> encoder hidden (B, S, d_model)."""
@@ -203,8 +224,12 @@ class T5Model(nn.Module):
         # (as a permuted view its key stride is the head count)
         bias = (self.enc_rel_bias(q_pos, pos).contiguous()
                 + make_padding_bias(attention_mask))
-        for block in self.encoder_blocks:
-            x, _ = block(x, bias, sp=sp)
+        if active_pp_mesh(self) is not None:
+            x = stage_stack(self, self.encoder_blocks, self._layer_fn,
+                            (x, bias))
+        else:
+            for block in self.encoder_blocks:
+                x, _ = remat_call(self.config.remat, block, x, bias, sp=sp)
         x = self.encoder_final_ln(x)
         return x if sp is None else sp.gather(x)
 
@@ -235,9 +260,14 @@ class T5Model(nn.Module):
             len(q_pos), len(k_pos), device=dev, q_positions=q_pos)
         if valid is not None:
             self_bias = self_bias + make_padding_bias(valid)
-        if caches is None:
+        if caches is None and active_pp_mesh(self) is not None:
+            x = stage_stack(self, self.decoder_blocks, self._layer_fn,
+                            (x, self_bias, encoder_hidden, cross_bias))
+            new_caches = None
+        elif caches is None:
             for block in self.decoder_blocks:
-                x, _ = block(x, self_bias, encoder_hidden, cross_bias, sp=sp)
+                x, _ = remat_call(self.config.remat, block, x, self_bias,
+                                  encoder_hidden, cross_bias, sp=sp)
             new_caches = None
         else:
             new_caches = []

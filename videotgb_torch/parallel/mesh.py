@@ -12,18 +12,21 @@ The JAX package names five mesh axes and lets GSPMD place the collectives:
 
 Here each rank is one process on one device (``torch.distributed``), and
 the mesh is a ``DeviceMesh`` over the world with dims ``("dp", "fsdp",
-"tp", "sp")`` in the JAX mesh's order (its ``pp`` is 1), ``sp``
-innermost: the batch splits over dp x fsdp (the ``tp`` and ``sp`` ranks of
-one dp x fsdp position hold the same rows), parameters shard over ``fsdp``
-and replicate over ``dp`` (FSDP2 / HSDP, ``parallel.sharding.
-shard_params``), serving slices heads, MLP hidden units and vocabularies
-over ``tp`` (``parallel.tensor.shard_tp``), and the residual streams split
-their tokens over ``sp`` (``parallel.sequence.shard_sp``). ``pp`` above 1
-raises ``NotImplementedError`` naming the ROADMAP.md item that holds it;
-so do ``tp`` above 1 in training and ``fsdp`` above 1 beside ``tp`` or
-``sp``. Axis sizes multiply to the world size; the default layout
-(``dp=-1``) is data-parallel over every rank, as the reference trains DDP x
-4.
+"tp", "pp", "sp")`` in the JAX mesh's order, ``sp`` innermost: the batch
+splits over dp x fsdp (the ``tp``, ``pp`` and ``sp`` ranks of one dp x
+fsdp position hold the same rows), parameters shard over ``fsdp`` and
+replicate over ``dp`` (FSDP2 / HSDP, ``parallel.sharding.shard_params``),
+serving slices heads, MLP hidden units and vocabularies over ``tp``
+(``parallel.tensor.shard_tp``), training stages the layers of a
+``scan_layers`` tower over ``pp`` (``parallel.pipeline.shard_pp``), and
+the residual streams split their tokens over ``sp``
+(``parallel.sequence.shard_sp``). The layouts the port does not run raise
+``NotImplementedError`` naming the ROADMAP.md item that holds them: ``tp``
+above 1 in training, ``fsdp`` above 1 beside ``tp`` or ``sp``, ``pp`` in
+serving and ``pp`` beside ``tp``, ``fsdp`` or ``sp`` above 1. Axis sizes
+multiply to the world size; the default layout (``dp=-1``) is
+data-parallel over every rank, as the reference trains DDP x 4. The
+coordinates are read by dim name (:func:`axis_rank`).
 """
 
 from __future__ import annotations
@@ -38,12 +41,16 @@ PIPELINE_AXIS = "pp"
 SEQUENCE_AXIS = "sp"
 AXIS_NAMES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, PIPELINE_AXIS, SEQUENCE_AXIS)
 
-MESH_DIMS = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, SEQUENCE_AXIS)
-
 # where the layouts this port does not run yet are queued
-UNPORTED = {
-    PIPELINE_AXIS: "pipeline parallelism (pp) is ROADMAP.md queue 1 item 5",
-}
+PP_SERVING = ("pipeline parallelism (pp, ROADMAP.md queue 1 item 5) trains "
+              "only: serving and the QA CLI shard with dp/fsdp/tp/sp, as the "
+              "JAX package's do")
+PP_TP = ("pp and tp together (stages of tp-sliced layers) are ROADMAP.md "
+         "queue 1 item 11")
+PP_FSDP = ("pp and fsdp together (FSDP2 units over stage-held layers) are "
+           "ROADMAP.md queue 1 item 12")
+PP_SP = ("pp and sp together (token-split streams through the stages) are "
+         "ROADMAP.md queue 1 item 13")
 TP_TRAINING = ("tensor-parallel training (tp) is ROADMAP.md queue 1 item 4; "
                "the port serves tp layouts only")
 FSDP_TP = ("fsdp and tp together (FSDP2 over a tp-sliced model) are "
@@ -116,15 +123,21 @@ def parse_mesh_spec(spec: str, allow_pp: bool = True) -> MeshConfig:
 
 def check_ported(config: MeshConfig, serving: bool = False) -> None:
     """Raise ``NotImplementedError`` for a layout the port does not run:
-    ``pp`` above 1 (or -1, which could absorb devices into it); ``tp``
-    above 1 outside serving (``serving=False``: training and evaluation);
-    ``fsdp`` above 1 beside a ``tp`` or an ``sp`` above 1."""
-    for axis, why in UNPORTED.items():
-        size = getattr(config, axis)
-        if size != 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={size}: the port runs dp, fsdp, sp and "
-                f"(serving) tp layouts only; {why}")
+    ``pp`` other than 1 in serving (``serving=True``), and beside a ``tp``,
+    ``fsdp`` or ``sp`` above 1 (the JAX pipeline runs its stages with tp
+    at 1, ``videotgb_tpu/parallel/pipeline.py:60-62``); ``tp`` above 1
+    outside serving (``serving=False``: training and evaluation);
+    ``fsdp`` above 1 beside a ``tp`` or an ``sp`` above 1. A -1 counts as
+    above 1 (it could absorb ranks)."""
+    if config.pp != 1:
+        if serving:
+            raise NotImplementedError(f"mesh axis pp={config.pp}: "
+                                      f"{PP_SERVING}")
+        for axis, why in (("tp", PP_TP), ("fsdp", PP_FSDP), ("sp", PP_SP)):
+            if getattr(config, axis) != 1:
+                raise NotImplementedError(
+                    f"mesh pp={config.pp}, {axis}={getattr(config, axis)}: "
+                    f"{why}")
     if config.tp != 1 and not serving:
         raise NotImplementedError(f"mesh axis tp={config.tp}: {TP_TRAINING}")
     if config.tp != 1 and config.fsdp != 1:
@@ -137,18 +150,16 @@ def check_ported(config: MeshConfig, serving: bool = False) -> None:
 
 def mesh_layout(config: MeshConfig, world: int):
     """The ranks of a world laid out as the mesh, an int array of shape
-    (dp, fsdp, tp, sp): row-major, ``sp`` innermost, as the JAX package
-    reshapes its device list to (dp, fsdp, tp, pp, sp)
-    (``videotgb_tpu/parallel/mesh.py:104-124``; ``pp`` is 1 here)."""
+    (dp, fsdp, tp, pp, sp): row-major, ``sp`` innermost, as the JAX package
+    reshapes its device list (``videotgb_tpu/parallel/mesh.py:104-124``)."""
     import numpy as np
 
-    dp, fsdp, tp, _, sp = config.resolve(world)
-    return np.arange(world).reshape(dp, fsdp, tp, sp)
+    return np.arange(world).reshape(config.resolve(world))
 
 
 def create_mesh(config: MeshConfig | None = None,
                 device_type: str | None = None, serving: bool = False):
-    """The ``("dp", "fsdp", "tp", "sp")`` ``DeviceMesh`` over the process
+    """The ``("dp", "fsdp", "tp", "pp", "sp")`` ``DeviceMesh`` over the process
     group's world (:func:`mesh_layout`), its sizes from ``config`` resolved
     against the world size.
 
@@ -171,7 +182,7 @@ def create_mesh(config: MeshConfig | None = None,
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.from_numpy(layout),
-                      mesh_dim_names=MESH_DIMS)
+                      mesh_dim_names=AXIS_NAMES)
 
 
 def local_mesh(n: int | None = None, **axis_sizes: int):
@@ -187,30 +198,45 @@ def local_mesh(n: int | None = None, **axis_sizes: int):
     return create_mesh(cfg)
 
 
+def axis_rank(mesh, axis: str) -> tuple[int, int]:
+    """(this rank's index on the mesh dim named ``axis``, the dim's size);
+    (0, 1) without a mesh, or on a mesh that lacks the dim. The dim is
+    looked up in the mesh's ``mesh_dim_names`` (``AXIS_NAMES`` for a mesh
+    without names, as ``create_mesh`` orders them)."""
+    if mesh is None:
+        return 0, 1
+    names = getattr(mesh, "mesh_dim_names", None) or AXIS_NAMES
+    coord = mesh.get_coordinate()
+    dim = names.index(axis) if axis in names else len(coord)
+    if dim >= len(coord):
+        return 0, 1
+    return coord[dim], mesh.size(dim)
+
+
 def mesh_rank(mesh) -> tuple[int, int]:
     """(this rank's index in the batch split, the split's size): the
     row-major position over ``("dp", "fsdp")``; (0, 1) without a mesh. The
-    ``tp`` and ``sp`` ranks of one position share it: they hold the same
-    rows."""
-    if mesh is None:
-        return 0, 1
-    dp_i, fsdp_i = mesh.get_coordinate()[:2]
-    dp, fsdp = mesh.size(0), mesh.size(1)
+    ``tp``, ``pp`` and ``sp`` ranks of one position share it: they hold
+    the same rows."""
+    dp_i, dp = axis_rank(mesh, DATA_AXIS)
+    fsdp_i, fsdp = axis_rank(mesh, FSDP_AXIS)
     return dp_i * fsdp + fsdp_i, dp * fsdp
 
 
 def tp_rank(mesh) -> tuple[int, int]:
     """(this rank's index on the ``tp`` axis, the axis's size); (0, 1)
     without a mesh."""
-    if mesh is None:
-        return 0, 1
-    return mesh.get_coordinate()[2], mesh.size(2)
+    return axis_rank(mesh, TENSOR_AXIS)
+
+
+def pp_rank(mesh) -> tuple[int, int]:
+    """(this rank's stage on the ``pp`` axis, the axis's size); (0, 1)
+    without a mesh."""
+    return axis_rank(mesh, PIPELINE_AXIS)
 
 
 def sp_rank(mesh) -> tuple[int, int]:
     """(this rank's index on the ``sp`` axis, the axis's size); (0, 1)
     without a mesh. The ``sp`` ranks of one dp x fsdp position hold the
     same rows, and each holds its own slice of their tokens."""
-    if mesh is None:
-        return 0, 1
-    return mesh.get_coordinate()[3], mesh.size(3)
+    return axis_rank(mesh, SEQUENCE_AXIS)

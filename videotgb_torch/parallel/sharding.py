@@ -19,12 +19,15 @@ world N equal to the JAX step on the global batch:
   loss and the aux scalars summed over ranks.
 
 All three read the split that :func:`batch_split` sets; outside it (one
-process) they are the identity. They run over the whole world: the ``tp``
-and ``sp`` ranks of one dp x fsdp position hold the same rows, so
-:func:`global_count` counts each row once per such rank, and each rank's
-loss is its share of its position's (the rule of ``parallel/sequence.py``;
-a ``tp`` layout serves only). A metric gathered or summed over the world
-takes one copy of each position's (:func:`copies`, :func:`first_copy`).
+process) they are the identity. They run over the whole world: the
+``tp``, ``pp`` and ``sp`` ranks of one dp x fsdp position hold the same
+rows, so :func:`global_count` counts each row once per such rank, and
+each rank's loss is its share of its position's (the rule of
+``parallel/sequence.py`` and ``parallel/pipeline.py``; a ``tp`` layout
+serves only). A metric gathered or summed over the world takes one copy of
+each position's (:func:`copies`, :func:`first_copy`). The ``("layers",
+"pp")`` rule below is the stage placement of ``parallel.pipeline.
+place_pipeline_params``: a staged tower's layer stack splits over ``pp``.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ DEFAULT_RULES: tuple[tuple[str, Any], ...] = (
     ("conv_in", None),
     ("conv_out", None),
     ("seq", None),
-    # stacked axis from nn.scan-over-layers: stage-sharded when the mesh has
-    # a pp extent (size-1 pp axes make this a no-op on non-pipelined meshes)
+    # a scan_layers tower's layer stack: staged over pp
+    # (parallel.pipeline.place_pipeline_params; nothing at pp = 1)
     ("layers", PIPELINE_AXIS),
 )
 
@@ -122,8 +125,8 @@ def split() -> tuple[int, int]:
 
 def copies() -> int:
     """How many ranks hold this rank's rows under the active split (its
-    position's ``tp`` x ``sp`` ranks, consecutive in the world); 1 without
-    a split."""
+    position's ``tp`` x ``pp`` x ``sp`` ranks, consecutive in the world); 1
+    without a split."""
     if _split() is None:
         return 1
     return torch.distributed.get_world_size() // _split()[1]
@@ -138,7 +141,8 @@ def first_copy() -> bool:
 def global_count(count: torch.Tensor) -> torch.Tensor:
     """``count`` summed over every rank of the world under the active split
     (a collective: every rank calls it at the same point), so once per
-    ``sp`` rank of a position; ``count`` itself without a split."""
+    ``tp`` x ``pp`` x ``sp`` rank of a position; ``count`` itself without a
+    split."""
     if _split() is None:
         return count
     total = count.detach().clone()
@@ -175,14 +179,16 @@ def local_rows(x: torch.Tensor, rows: int, axis: int = 0) -> torch.Tensor:
 
 def row_offset(rows: int) -> int:
     """The global index of this rank's first row (kernel D's Philox
-    counter), for a split of ``rows`` rows a rank."""
+    counter), for a split of ``rows`` rows a rank: the same on every
+    ``tp``, ``pp`` and ``sp`` rank of a position."""
     return split()[0] * rows
 
 
 def all_reduce_sum(tensors: list[torch.Tensor],
-                   bucket_bytes: int = 256 << 20) -> None:
-    """Sum each tensor over the ranks, in place: flattened into buckets of
-    one dtype up to ``bucket_bytes``, one ``all_reduce`` a bucket."""
+                   bucket_bytes: int = 256 << 20, group=None) -> None:
+    """Sum each tensor over the ranks of ``group`` (the world by default),
+    in place: flattened into buckets of one dtype up to ``bucket_bytes``,
+    one ``all_reduce`` a bucket."""
     buckets: dict[torch.dtype, list[list[torch.Tensor]]] = {}
     for t in tensors:
         groups = buckets.setdefault(t.dtype, [[]])
@@ -191,10 +197,11 @@ def all_reduce_sum(tensors: list[torch.Tensor],
             groups.append([])
         groups[-1].append(t)
     for groups in buckets.values():
-        for group in groups:
-            flat = torch.cat([t.reshape(-1) for t in group])
-            torch.distributed.all_reduce(flat)
-            for t, piece in zip(group, flat.split([t.numel() for t in group])):
+        for bucket in groups:
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            torch.distributed.all_reduce(flat, group=group)
+            for t, piece in zip(bucket, flat.split([t.numel()
+                                                    for t in bucket])):
                 t.copy_(piece.view_as(t))
 
 

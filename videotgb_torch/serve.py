@@ -93,7 +93,8 @@ from videotgb_torch.parallel.distributed import (
     initialize,
     process_index,
 )
-from videotgb_torch.parallel.mesh import mesh_rank
+from videotgb_torch.parallel.mesh import (
+    AXIS_NAMES, SEQUENCE_AXIS, TENSOR_AXIS, mesh_rank)
 from videotgb_torch.parallel.sequence import is_split
 from videotgb_torch.parallel.sharding import batch_split, copies
 from videotgb_torch.parallel.tensor import is_sliced
@@ -239,12 +240,14 @@ class ServingEngine:
 
         if self.mesh is None:
             return {}
-        layout = self.mesh.mesh  # (dp, fsdp, tp, sp)
+        layout = self.mesh.mesh  # the ranks, one dim per mesh axis
+        names = self.mesh.mesh_dim_names or AXIS_NAMES
         groups = {}
         for worker in ("select", "answer"):
             whole = dist.new_group(list(range(layout.numel())))
             axes = []
-            for dim in (2, 3):  # tp, sp: the ranks along the dim
+            for dim in (names.index(TENSOR_AXIS),
+                        names.index(SEQUENCE_AXIS)):  # the ranks along it
                 size = layout.shape[dim]
                 mine = None
                 lines = layout.movedim(dim, -1).reshape(-1, size).tolist()

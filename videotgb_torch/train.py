@@ -39,8 +39,12 @@ Without a launcher a layout that wants more than one rank is spawned by
 ``main`` itself (``trainer=ddp_sim``: 2 gloo processes on the CPU), and
 ``main`` returns rank 0's metrics. ``data.batch_size`` is the global batch;
 each rank loads its rows of it, and a step equals the one-device step on
-the global batch up to reduction order. ``tp`` and ``pp`` above 1, and
-``sp`` beside an ``fsdp`` above 1, raise ``NotImplementedError`` naming
+the global batch up to reduction order. ``trainer.pp=2`` trains with the
+pp ranks holding the whole model (no config sets a tower's
+``scan_layers``, so nothing stages, as in the JAX CLI; a library
+``Trainer`` stages ``scan_layers`` towers, ``parallel/pipeline.py``).
+``tp`` above 1, ``sp`` beside an ``fsdp`` above 1, and ``pp`` beside a
+``tp``, ``fsdp`` or ``sp`` above 1 raise ``NotImplementedError`` naming
 their ROADMAP.md items.
 ``ckpt_path=<dir>`` resumes the full training state (parameters, optimizer
 moments, step) or warm-starts from parameters only.
@@ -123,8 +127,9 @@ def build_recipe(model_cfg: dict):
 
 def run_layout(cfg: Config):
     """The ``MeshConfig`` of the ``trainer`` group's axes (``dp`` defaults
-    to -1, the others to 1); ``tp`` or ``pp`` above 1, or ``sp`` beside an
-    ``fsdp`` above 1, raise ``NotImplementedError``."""
+    to -1, the others to 1); ``tp`` above 1, ``sp`` beside an ``fsdp``
+    above 1, or ``pp`` beside a ``tp``, ``fsdp`` or ``sp`` above 1 raise
+    ``NotImplementedError``."""
     from videotgb_torch.parallel.mesh import MeshConfig, check_ported
 
     tcfg = cfg.get("trainer") or Config()
@@ -138,8 +143,8 @@ def run_layout(cfg: Config):
 def run_world(cfg: Config) -> int:
     """The ranks a run takes: a launcher's ``WORLD_SIZE``; else a ``-1``
     axis absorbs the visible cards (on the card) or ``trainer.devices``
-    (on the CPU), and a fixed layout takes dp x fsdp x sp. Raises where the
-    layout does not fit that count, or wants more cards than are
+    (on the CPU), and a fixed layout takes dp x fsdp x pp x sp. Raises
+    where the layout does not fit that count, or wants more cards than are
     visible."""
     from videotgb_torch.parallel.distributed import env_world
 
@@ -148,12 +153,12 @@ def run_world(cfg: Config) -> int:
     on_card = tcfg.get("platform") in (None, "cuda", "gpu")
     if env_world() > 1:
         world = env_world()
-    elif -1 in (mesh.dp, mesh.fsdp, mesh.sp):
+    elif -1 in (mesh.dp, mesh.fsdp, mesh.pp, mesh.sp):
         world = (torch.cuda.device_count() if on_card
                  else int(tcfg.get("devices", 1)))
         world = max(world, 1)
     else:
-        world = mesh.dp * mesh.fsdp * mesh.sp
+        world = mesh.dp * mesh.fsdp * mesh.pp * mesh.sp
     mesh.resolve(world)
     if on_card and world > 1 and env_world() <= 1 and \
             world > torch.cuda.device_count():
@@ -465,13 +470,18 @@ def outside_the_step(mesh, model):
     """A pass between steps (an eval, SF's pseudo-label pass) on this
     rank's rows (``batch_split``); on a sharded model its decodes stop
     together on every rank and its graphed calls run eagerly (FSDP2's
-    gathers, ``utils.graphs.eager``)."""
+    gathers, ``utils.graphs.eager``); on a model staged over ``pp`` every
+    rank runs it on the whole stack, the stages gathered for it
+    (``parallel.pipeline.whole_stages``; a staged model's graphed calls
+    run eagerly), as the JAX trainer's evals run outside the mesh."""
+    from videotgb_torch.parallel.pipeline import whole_stages
     from videotgb_torch.parallel.sharding import batch_split, is_sharded
     from videotgb_torch.utils.graphs import eager
 
     sharded = is_sharded(model)
     with batch_split(mesh, lockstep=sharded), (
-            eager() if sharded else contextlib.nullcontext()):
+            eager() if sharded else contextlib.nullcontext()), whole_stages(
+                model, "a pass between steps"):
         yield
 
 

@@ -266,22 +266,69 @@ def train_state_items(state: Any) -> dict | None:
     """The items a full-state save holds for a ``TrainState``, in the
     single-device format at every layout: under FSDP2 each parameter and
     Adam moment is first gathered whole to the CPU
-    (``parallel.sharding.full_tensor``, a collective every rank joins).
-    Ranks other than the coordinator get None."""
+    (``parallel.sharding.full_tensor``, a collective every rank joins); on
+    a model staged over ``pp`` the stages' layers and their moments are
+    gathered from the ranks that hold them (:func:`_staged_items`, a
+    collective too). Ranks other than the coordinator get None."""
     from videotgb_torch.parallel.distributed import is_coordinator
+    from videotgb_torch.parallel.pipeline import is_staged
     from videotgb_torch.parallel.sharding import full_tensor
 
     def whole(x):
         return full_tensor(x).cpu() if hasattr(x, "to_local") else x
 
-    params = {n: whole(v) for n, v in state.model.state_dict().items()}
-    optim = state.optimizer.state_dict()
-    optim = {"state": {i: {k: whole(v) for k, v in s.items()}
-                       for i, s in optim["state"].items()},
-             "param_groups": optim["param_groups"]}
+    if is_staged(state.model):
+        params, optim = _staged_items(state.model, state.optimizer)
+    else:
+        params = {n: whole(v) for n, v in state.model.state_dict().items()}
+        optim = state.optimizer.state_dict()
+        optim = {"state": {i: {k: whole(v) for k, v in s.items()}
+                           for i, s in optim["state"].items()},
+                 "param_groups": optim["param_groups"]}
     if not is_coordinator():
         return None
     return {"params": params, "opt_state": optim, "step": state.step}
+
+
+def _trainable_names(model: torch.nn.Module) -> list[str]:
+    """The names of the parameters that train, held here or not: the
+    single-device optimizer's order."""
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def _staged_items(model: torch.nn.Module, optimizer) -> tuple[dict, dict]:
+    """(state_dict, optimizer state_dict) of a model staged over ``pp``, in
+    the single-device format: the parameters read with every stage gathered
+    (``parallel.pipeline.whole_stages``), each stage layer's Adam moments
+    from the rank that holds it (``parallel.pipeline.from_owner``, one
+    collective a tensor, in the same order on every rank), the optimizer's
+    entries numbered over every trainable parameter."""
+    from videotgb_torch.parallel.pipeline import (from_owner, stage_leaf,
+                                                  whole_stages)
+
+    with whole_stages(model, "a save"):
+        params = model.state_dict()
+    named = dict(model.named_parameters())
+    local = optimizer.state_dict()
+    index = {id(p): i for i, p in enumerate(optimizer.param_groups[0][
+        "params"])}
+    template = next(iter(local["state"].values()), None)
+    state = {}
+    for i, n in enumerate(_trainable_names(model)):
+        p = named[n]
+        mine = local["state"].get(index.get(id(p)))
+        if not stage_leaf(p):
+            if mine is not None:
+                state[i] = mine
+            continue
+        if template is None:  # no step taken yet: no moments anywhere
+            continue
+        state[i] = {k: from_owner(p, model.pp, None if mine is None
+                                else mine[k], like=t)
+                    for k, t in template.items()}
+    groups = [dict(local["param_groups"][0],
+                   params=list(range(len(_trainable_names(model)))))]
+    return params, {"state": state, "param_groups": groups}
 
 
 def restore_into(restored: dict, model: torch.nn.Module,
@@ -291,12 +338,16 @@ def restore_into(restored: dict, model: torch.nn.Module,
     where the checkpoint has its state) in place; returns the restored step
     count, or None when the checkpoint holds none. Every rank restores the
     same single-device files: a parameter or Adam moment under FSDP2 takes
-    its rank's chunk of the whole tensor."""
+    its rank's chunk of the whole tensor; a rank of a model staged over
+    ``pp`` takes its stage's layers and their moments."""
+    from videotgb_torch.parallel.pipeline import is_staged
     from videotgb_torch.parallel.sharding import shard_like
 
     def local(v, like):
         return shard_like(v, like) if hasattr(like, "to_local") else v
 
+    if is_staged(model):
+        return _restore_staged(restored, model, optimizer)
     live = model.state_dict()
     model.load_state_dict({n: local(v, live.get(n))
                            for n, v in restored["params"].items()})
@@ -309,6 +360,31 @@ def restore_into(restored: dict, model: torch.nn.Module,
                           for k, v in s.items()}
                       for i, s in optim["state"].items()},
             "param_groups": optim["param_groups"]})
+    return int(restored["step"]) if "step" in restored else None
+
+
+def _restore_staged(restored: dict, model: torch.nn.Module,
+                    optimizer) -> int | None:
+    """:func:`restore_into` on a rank of a model staged over ``pp`` (a
+    collective over the pp ranks): the single-device parameters loaded
+    with every stage gathered (``parallel.pipeline.whole_stages``), this
+    rank's stage kept; the optimizer takes the moments of the leaves it
+    holds."""
+    from videotgb_torch.parallel.pipeline import whole_stages
+
+    with whole_stages(model, "a restore"):
+        model.load_state_dict(restored["params"])
+    if optimizer is not None and "opt_state" in restored:
+        optim = restored["opt_state"]
+        index = {n: i for i, n in enumerate(_trainable_names(model))}
+        name = {id(p): n for n, p in model.named_parameters()}
+        order = optimizer.param_groups[0]["params"]
+        optimizer.load_state_dict({
+            "state": {i: optim["state"][index[name[id(p)]]]
+                      for i, p in enumerate(order)
+                      if index[name[id(p)]] in optim["state"]},
+            "param_groups": [dict(optim["param_groups"][0],
+                                  params=list(range(len(order))))]})
     return int(restored["step"]) if "step" in restored else None
 
 

@@ -28,6 +28,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from videotgb_torch.parallel.pipeline import held, is_staged, stage_leaf
 from videotgb_torch.utils.graphs import invalidate
 
 def cosine_warmup_schedule(lr: float, total_steps: int,
@@ -91,19 +92,23 @@ def make_optimizer(model: torch.nn.Module, weight_decay: float = 0.0,
                    ) -> tuple[torch.optim.AdamW, list[str]]:
     """Marks each parameter of ``model`` trainable or frozen by
     ``filter_fn(name)`` (all train without one) and returns (AdamW over the
-    trainable ones, their names)."""
+    trainable ones this rank holds, their names): a rank of a model staged
+    over ``pp`` (``parallel.pipeline.shard_pp``) holds only its stage's
+    layers, and its optimizer's ``stage_group`` is the pp group, over which
+    :func:`optimizer_step` sums the stage leaves' squares."""
     names, params = [], []
     for name, p in model.named_parameters():
         train = filter_fn is None or filter_fn(name)
         p.requires_grad_(train)
         p.grad = None
-        if train:
+        if train and held(p):
             names.append(name)
             params.append(p)
     on_card = bool(params) and all(p.is_cuda for p in params)
     optimizer = torch.optim.AdamW(params, lr=0.0, betas=(B1, B2), eps=EPS,
                                   weight_decay=weight_decay, fused=True,
                                   capturable=on_card)
+    optimizer.stage_group = model.pp.group if is_staged(model) else None
     # a restore makes new state tensors: a captured step would update the
     # old ones
     optimizer.register_load_state_dict_post_hook(invalidate)
@@ -117,7 +122,10 @@ def optimizer_step(optimizer: torch.optim.Optimizer,
     """Clip by the global norm, then one AdamW update at ``lr``; returns the
     global norm of the gradients before clipping and clears them. A
     parameter left without a gradient counts as a zero gradient, as JAX's
-    gradient of an unused leaf is zero.
+    gradient of an unused leaf is zero. Where the optimizer holds a pp
+    rank's leaves (its ``stage_group``, set by :func:`make_optimizer`), the
+    squares of its stage-held gradients (``parallel.pipeline.stage_leaf``)
+    are summed over that group and the replicated ones counted once.
 
     On the card (``capturable``, for the CUDA-graphed train step) ``lr`` is
     a 0-dim f32 device tensor the caller fills before each step or replay,
@@ -134,9 +142,18 @@ def optimizer_step(optimizer: torch.optim.Optimizer,
             else:
                 z.zero_()
             p.grad = z
-    norm = torch.nn.utils.clip_grad_norm_(
-        params, float("inf") if max_grad_norm is None else max_grad_norm)
-    if hasattr(norm, "full_tensor"):  # a DTensor: the norm over every shard
+    max_norm = float("inf") if max_grad_norm is None else max_grad_norm
+    norm = torch.nn.utils.get_total_norm(
+        [p.grad for p in params if not stage_leaf(p)])
+    stage_group = getattr(optimizer, "stage_group", None)
+    if stage_group is not None:  # each stage leaf's squares counted once
+        staged = torch.nn.utils.get_total_norm(
+            [p.grad for p in params if stage_leaf(p)]).to(
+                params[0].device, torch.float32) ** 2
+        torch.distributed.all_reduce(staged, group=stage_group)
+        norm = (norm.float() ** 2 + staged).sqrt()
+    torch.nn.utils.clip_grads_with_norm_(params, max_norm, norm)
+    if hasattr(norm, "full_tensor"):  # a DTensor: the norm over shards
         norm = norm.full_tensor()
     for group in optimizer.param_groups:
         group["lr"] = lr

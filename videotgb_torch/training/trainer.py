@@ -46,6 +46,20 @@ process or an NCCL group on the ``dp`` route without ``sp``: gloo's
 collectives run on the host and cannot be captured, FSDP2 keeps its
 gather and reshard state on the host, and a model split over ``sp`` runs
 eagerly (``utils/graphs.py``; ``step_route`` names the route taken).
+
+On a mesh with ``pp`` above 1, ``init_state`` stages every ``scan_layers``
+tower over the pp ranks (``parallel.pipeline.shard_pp``) and the step
+takes the ``pp`` route: each rank holds and updates only its stage's
+layers (its optimizer holds its leaves alone) and the towers' passes
+without caches stream microbatches through the stages. The losses are
+each rank's share, as on the ``sp`` route; the replicated parameters'
+gradients (ViT-g, the Q-Former, embeddings, final norms, heads) are
+summed over the world, the stage leaves' over the dp ranks only, and the
+clip's norm counts each stage leaf once (its squares summed over the pp
+ranks). The pp route runs eagerly on every backend. Without a
+``scan_layers`` tower the pp ranks hold the whole model and the step is
+the ``dp`` route's, each pp rank's loss its share, as the JAX package's
+pp axis leaves an unscanned tower sequential.
 """
 
 from __future__ import annotations
@@ -56,7 +70,9 @@ from typing import Callable, Iterable
 
 import torch
 
-from videotgb_torch.parallel.mesh import TP_TRAINING, mesh_rank, tp_rank
+from videotgb_torch.parallel.mesh import (TP_TRAINING, axis_rank, mesh_rank,
+                                          pp_rank, tp_rank)
+from videotgb_torch.parallel.pipeline import is_staged, shard_pp, stage_leaf
 from videotgb_torch.parallel.sequence import is_split, shard_sp
 from videotgb_torch.parallel.sharding import (
     all_reduce_sum,
@@ -140,8 +156,8 @@ class Trainer:
                  mesh=None):
         """``loss_fn(model, batch, generator) -> (loss, aux dict)``;
         ``filter_fn(name)`` says which parameters train (all without one);
-        ``mesh`` the dp x fsdp x sp mesh of a multi-rank run (None: one
-        process)."""
+        ``mesh`` the dp x fsdp x pp x sp mesh of a multi-rank run (None:
+        one process)."""
         if tp_rank(mesh)[1] > 1:
             raise NotImplementedError(
                 f"Trainer on a mesh with tp={tp_rank(mesh)[1]}: {TP_TRAINING}")
@@ -162,16 +178,23 @@ class Trainer:
     def init_state(self, model: torch.nn.Module) -> TrainState:
         """The train state of ``model``; with an fsdp extent above 1 the
         model is first sharded in place (``shard_params``), with an sp
-        extent its towers are split (``shard_sp``)."""
+        extent its towers are split (``shard_sp``), with a pp extent its
+        ``scan_layers`` towers are staged (``shard_pp``)."""
         if (self.mesh is not None and self.mesh["fsdp"].size() > 1
                 and not is_sharded(model)):
             shard_params(model, self.mesh)
         if (self.mesh is not None and self.mesh["sp"].size() > 1
                 and not is_split(model)):
             shard_sp(model, self.mesh)
+        if pp_rank(self.mesh)[1] > 1 and not is_staged(model):
+            shard_pp(model, self.mesh)
         self.route = ("fsdp" if is_sharded(model) else
+                      "pp" if is_staged(model) else
                       "dp" if self.mesh is not None else "single")
-        if self.route == "fsdp":
+        if self.route == "pp":
+            self.step_route = ("eager: the layers are staged over pp, and "
+                               "the stage hops run outside CUDA graphs")
+        elif self.route == "fsdp":
             self.step_route = ("eager: FSDP2 gathers and reshards from the "
                                "host")
         elif (self.route == "dp"
@@ -238,11 +261,15 @@ class Trainer:
             for k, v in aux.items():
                 if torch.is_tensor(v) and v.dim() == 0:
                     aux_sums[k] = aux_sums.get(k, 0.0) + v.detach()
-        if self.route == "dp":
+        params = [p for group in optimizer.param_groups
+                  for p in group["params"]]
+        if self.route in ("dp", "pp"):  # stage leaves: over dp alone
             with torch.no_grad():
-                all_reduce_sum([p.grad for group in optimizer.param_groups
-                                for p in group["params"]
-                                if p.grad is not None])
+                grads = [p for p in params if p.grad is not None]
+                all_reduce_sum([p.grad for p in grads if not stage_leaf(p)])
+                staged = [p.grad for p in grads if stage_leaf(p)]
+                if staged and axis_rank(self.mesh, "dp")[1] > 1:
+                    all_reduce_sum(staged, group=self.mesh.get_group("dp"))
         if self.route != "single":  # the ranks' shares of the loss and aux
             keys = sorted(aux_sums)
             total = torch.stack([loss_sum] + [aux_sums[k] for k in keys])

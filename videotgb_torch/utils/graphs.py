@@ -38,12 +38,13 @@ eager call would.
 Launch counts: ``ops.kernels.count`` during a capture goes to the graph's
 tally, and each replay adds the tally (``kernels.replayed``).
 
-A model sliced for tensor parallelism (``parallel.tensor.shard_tp``) or
-split over ``sp`` (``parallel.sequence.shard_sp``) runs every call
-eagerly: a gloo group's collectives run on the host and cannot be
-captured (``cudaErrorStreamCaptureUnsupported``), and a replay of NCCL
-collectives at world > 1 cannot be held against eager calls on a one-card
-machine (ROADMAP.md queue 1 item 2).
+A model sliced for tensor parallelism (``parallel.tensor.shard_tp``),
+split over ``sp`` (``parallel.sequence.shard_sp``) or staged over ``pp``
+(``parallel.pipeline.shard_pp``) runs every call eagerly: a gloo group's
+collectives run on the host and cannot be captured
+(``cudaErrorStreamCaptureUnsupported``), and a replay of NCCL collectives
+at world > 1 cannot be held against eager calls on a one-card machine
+(ROADMAP.md queue 1 item 2).
 
 First calls and captures run under one lock, on the caller's current
 stream, or on a side stream of the device when the caller is on the
@@ -69,6 +70,7 @@ import weakref
 import torch
 
 from videotgb_torch.ops import kernels
+from videotgb_torch.parallel.pipeline import is_staged
 from videotgb_torch.parallel.sequence import is_split
 from videotgb_torch.parallel.sharding import all_ranks
 from videotgb_torch.parallel.tensor import is_sliced
@@ -357,7 +359,8 @@ class Graphed:
         leaves = []
         spec = _flatten((args, kwargs), leaves)
         if any(isinstance(x, torch.nn.Module)
-               and (is_sliced(x) or is_split(x)) for x in leaves):
+               and (is_sliced(x) or is_split(x) or is_staged(x))
+               for x in leaves):
             return self.eager(*args, **kwargs)
         device = _device_of(leaves)
         if device is None or device.type != "cuda":
